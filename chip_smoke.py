@@ -8,14 +8,24 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure exits nonzero; nothing falls back to the CPU):
   1. device: the card's name and power limit; build the hand-written
      CUDA kernels (csrc/*.cu) and print nvcc's register/smem report;
-  2. kernels: each kernel against its plain PyTorch version on the card
-     at main-path shapes, bit-exact, with CUDA-event times of both;
-  3. slice: the pose-prior tracking + local-mapping path through
-     ``System.track_monocular_with_pose`` on a 40-frame 1920x1440 aerial
-     sweep with 4000 ORB features on 8 levels (the workload of
-     bench.py), checking tracking, map quality and that every kernel of
-     the path launched.
-The last two lines are a JSON object describing the kernels and
+  2. kernels: each kernel (K1-K4) against its plain PyTorch version on
+     the card at main-path shapes, bit-exact, with CUDA-event times of
+     both and the least time the card could take (``bound_ms``);
+  3. path A, bench.py's topology: ``System(cfg,
+     enable_loop_closing=True, async_mapping=True)`` tracks a 40-frame
+     1920x1440 aerial sweep with 4000 ORB features on 8 levels through
+     ``track_monocular_with_pose`` while local mapping and loop
+     detection run on the mapping thread; checks tracking, map quality,
+     the vocabulary and BoW database, and that K1-K3 launched;
+  4. path C: K4 through its entry point ``hamming_top2`` at 4096x4096
+     with 20% of the columns invalid;
+  5. path B, a loop that closes at full width: a drifted circuit with
+     sequential mapping must run DetectLoop -> Sim3 -> correction ->
+     essential graph -> global BA and lower the keyframe ATE below the
+     drifted priors'; prints the loop-closing stage times.
+The kernel launch counts are read per path, each path driven with the
+counts set to 0 just before it.  The last three lines are a JSON object
+describing the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -24,6 +34,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -34,6 +45,25 @@ FLIGHT_HEIGHT = 12.0
 # median |z| under 0.08 at flight height 10, scaled here to height 12
 MEDIAN_Z_BAR = 0.1
 MIN_KEYFRAMES = 3
+
+# path B: the drifted circuit of tests/test_loop_proof.py at bench
+# width.  The 1920x1440 footprint at height 12 is 24 x 18 units; on a
+# circle of radius 6-16 it overlaps so much of the lap that the loop
+# fires against an early keyframe with a long covisible group, and the
+# essential graph's identity-weighted edges leave the corrected map no
+# better than the drifted priors.  At radius 20 the footprint spans a
+# fifth of the lap (test_torch_loop.py's 640x480 circuit: 0.28).
+LOOP_LAP = 100          # frames per lap
+LOOP_REVISIT = 14       # frames of the lap flown again
+LOOP_RADIUS = 20.0      # world units
+LOOP_DRIFT = 0.02       # prior drift per frame, world units
+LOOP_MIN_OK = 0.7       # share of frames tracked OK
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32
+# outside them, and device memory
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 class SmokeFailure(Exception):
@@ -143,6 +173,32 @@ def search_problem(n_rows: int, n_cols: int, epipolar: bool, seed: int,
             t(row_attr), t(col_attr))
 
 
+def bound(n_bytes: int, n_ops: int, peak_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate of their
+    type.  The Hamming searches count as the 256-deep +-1 product the
+    TPU ran them as (2*N*M*256 operations at the bf16 tensor rate)."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_ops / peak_ops * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def k4_problem(n_rows: int, n_cols: int, invalid: float, seed: int, device):
+    """K4 inputs: random columns, rows that are noisy copies of random
+    columns, a share of the columns invalid."""
+    import torch
+    rng = np.random.default_rng(seed)
+    cdesc = rng.integers(0, 2 ** 32, (n_cols, 8), dtype=np.uint64).astype(np.uint32)
+    src = rng.integers(0, n_cols, n_rows)
+    bits = np.unpackbits(cdesc[src].view(np.uint8), axis=1)
+    flip = rng.random(bits.shape) < rng.uniform(0, 0.25, (n_rows, 1))
+    rdesc = np.packbits(bits ^ flip, axis=1).view(np.uint32)
+    valid = rng.random(n_cols) >= invalid
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return t(rdesc.view(np.int32)), t(cdesc.view(np.int32)), t(valid)
+
+
 def phase_kernels(device, world, cfg):
     """Each kernel against its plain version, bit-exact, with times."""
     import torch
@@ -169,9 +225,13 @@ def phase_kernels(device, world, cfg):
         err = max(err, (ki - pi).abs().max().item())
     ms = cuda_ms(lambda: [fast.fast_score(lvl) for lvl in levels])
     plain_ms = cuda_ms(lambda: [fast.fast_score_map(lvl) for lvl in levels])
+    # per pixel: read 4 B, write 4 B; 32 ring differences, 2 x (64 arc
+    # mins + 16 maxes) and one max = 193 float ops on the CUDA cores
+    pixels = sum(int(lvl.numel()) for lvl in levels)
     results["fast_score"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        shape="8 levels of 1920x1440")
+        shape="8 levels of 1920x1440",
+        **bound(8 * pixels, 193 * pixels, PEAK_FP32))
     log(f"K1 fast_score: interior bit-exact on 8 levels; "
         f"{ms:.4f} ms per frame (plain {plain_ms:.4f} ms)")
 
@@ -195,7 +255,9 @@ def phase_kernels(device, world, cfg):
             f"(plain {plain_ms:.4f} ms)")
         results["masked_top2_mutual"] = dict(
             max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-            shape=f"{n_rows}x4096")
+            shape=f"{n_rows}x4096",
+            **bound(n_rows * (32 + 24 + 8) + 4096 * (32 + 16 + 4),
+                    2 * n_rows * 4096 * 256, PEAK_BF16))
 
     # K3 at the triangulation shape (4096x4096)
     args = search_problem(4096, 4096, True, 3, device)
@@ -212,13 +274,93 @@ def phase_kernels(device, world, cfg):
     plain_ms = cuda_ms(lambda: ht.masked_top2_epi_plain(*args), reps=5)
     log(f"K3 masked_top2_epi 4096x4096: keys bit-exact ({n_match} rows "
         f"matched); {ms:.4f} ms (plain {plain_ms:.4f} ms)")
-    results["masked_top2_epi"] = dict(max_abs_err=0.0, ms=ms,
-                                      plain_ms=plain_ms, shape="4096x4096")
+    results["masked_top2_epi"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, shape="4096x4096",
+        **bound(4096 * (32 + 16 + 8) + 4096 * (32 + 16 + 4),
+                2 * 4096 * 4096 * 256, PEAK_BF16))
+
+    # K4 at tools/pallas_chip_check.py's shape, 20% of the columns
+    # invalid, then a block of rows with no valid column at all
+    args = k4_problem(4096, 4096, 0.2, 4, device)
+    k = ht.hamming_top2(*args)
+    p = ht.hamming_top2_plain(*args)
+    torch.cuda.synchronize()
+    for a, b, what in zip(k, p, ("best", "best_idx", "second")):
+        check(torch.equal(a, b), f"K4 {what} differs at 4096x4096 "
+              f"({(a != b).sum().item()} rows)")
+    n_match = int((k[0] <= 64).sum())
+    check(n_match > 0, "K4 test problem admits no near match")
+    blk = k4_problem(512, 4096, 1.0, 5, device)
+    kb, pb = ht.hamming_top2(*blk), ht.hamming_top2_plain(*blk)
+    torch.cuda.synchronize()
+    for a, b, what in zip(kb, pb, ("best", "best_idx", "second")):
+        check(torch.equal(a, b), f"K4 {what} differs on the all-invalid "
+              f"block ({(a != b).sum().item()} rows)")
+    check(bool((kb[0] >= ht.BIG).all() and (kb[2] == ht.BIG).all()),
+          "K4 all-invalid rows must give BIG + d and second == BIG")
+    ms = cuda_ms(lambda: ht.hamming_top2(*args))
+    plain_ms = cuda_ms(lambda: ht.hamming_top2_plain(*args), reps=5)
+    log(f"K4 hamming_top2 4096x4096 (20% columns invalid): bit-exact "
+        f"({n_match} rows within 64 bits), all-invalid 512x4096 block "
+        f"bit-exact; {ms:.4f} ms (plain {plain_ms:.4f} ms)")
+    results["hamming_top2"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, shape="4096x4096",
+        **bound(4096 * (32 + 12) + 4096 * (32 + 1),
+                2 * 4096 * 4096 * 256, PEAK_BF16))
+    for name, r in results.items():
+        log(f"bound {name} {r['shape']}: {r['bound_ms'] * 1e3:.2f} us "
+            f"({r['bound_by']}); kernel at {r['bound_ms'] / r['ms']:.3f} "
+            f"of it")
     return results
 
 
-def phase_slice(device, world, cfg):
-    """The main path: System.track_monocular_with_pose over the sweep."""
+class LockWaitClock:
+    """Wraps the map lock and adds up how long the tracking (main)
+    thread waited to take it: the tracker's frame time spent waiting on
+    the mapping thread's host sections."""
+
+    def __init__(self, lock):
+        self._lock = lock
+        self._main = threading.main_thread()
+        self.wait_s = 0.0
+
+    def acquire(self, *args, **kwargs):
+        if threading.current_thread() is not self._main:
+            return self._lock.acquire(*args, **kwargs)
+        t0 = time.perf_counter()
+        got = self._lock.acquire(*args, **kwargs)
+        self.wait_s += time.perf_counter() - t0
+        return got
+
+    def release(self):
+        self._lock.release()
+
+    def __enter__(self):
+        return self.acquire()
+
+    def __exit__(self, *exc):
+        self.release()
+
+
+def kf_ate(store, true, poses=None):
+    """Sim3-aligned ATE of the valid keyframes' centers against the true
+    poses (or of the given per-frame poses at the keyframes' frames)."""
+    from orb_slam2_tpu_torch.utils.evaluate import ate_rmse
+    est, gt = [], []
+    for kf in store.kfs:
+        if not kf.valid:
+            continue
+        fid = kf.frame.frame_id
+        T = kf.Tcw if poses is None else poses[fid]
+        est.append(-T[:3, :3].T @ T[:3, 3])
+        gt.append(-true[fid][:3, :3].T @ true[fid][:3, 3])
+    return ate_rmse(np.stack(est), np.stack(gt), align="sim3")
+
+
+def phase_bench(device, world, cfg):
+    """Path A: bench.py's topology, System(enable_loop_closing=True,
+    async_mapping=True), over the sweep; flush_mapping and shutdown at
+    the end."""
     import torch
     from orb_slam2_tpu_torch import kernels
     from orb_slam2_tpu_torch.pipeline.system import System
@@ -229,7 +371,10 @@ def phase_slice(device, world, cfg):
     # bench.py stages its sequence
     frames = [synth.render(world, cfg.cam, T) for T in poses]
     torch.cuda.synchronize()
-    system = System(cfg, enable_loop_closing=False, device=device)
+    system = System(cfg, enable_loop_closing=True, async_mapping=True,
+                    device=device)
+    clock = LockWaitClock(system.store.lock)
+    system.store.lock = clock
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     states, frame_ms = [], []
@@ -239,41 +384,172 @@ def phase_slice(device, world, cfg):
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         states.append(system.state)
-        log(f"frame {i:2d}: {system.state.name:15s} "
+        log(f"A frame {i:2d}: {system.state.name:15s} "
             f"inliers={system.tracker.matches_inliers:5d} "
             f"kfs={system.store.n_valid_keyframes():3d} "
             f"points={system.store.n_valid_points():6d} "
             f"{frame_ms[-1]:9.1f} ms")
+    track_s = sum(frame_ms) / 1e3
+    t0 = time.perf_counter()
+    system.flush_mapping()      # re-raises a mapping-thread exception
+    flush_s = time.perf_counter() - t0
+    system.shutdown()
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
     ok_idx = [i for i, s in enumerate(states) if s == TrackState.OK]
-    check(bool(ok_idx), "the map never initialized")
+    check(bool(ok_idx), "A: the map never initialized")
     first = ok_idx[0]
     check(all(s == TrackState.OK for s in states[first:]),
-          f"a frame after initialization (frame {first}) is not OK: "
+          f"A: a frame after initialization (frame {first}) is not OK: "
           f"{[s.name for s in states]}")
     n_kf = system.store.n_valid_keyframes()
-    check(n_kf >= MIN_KEYFRAMES, f"only {n_kf} keyframes")
+    check(n_kf >= MIN_KEYFRAMES, f"A: only {n_kf} keyframes")
     pts = system.map_points()
     check(len(pts) > 0 and bool(np.isfinite(pts).all()),
-          "map points missing or not finite")
+          "A: map points missing or not finite")
     med_z = float(np.median(np.abs(pts[:, 2])))
     check(med_z < MEDIAN_Z_BAR,
-          f"map points off the plane: median |z| {med_z:.4f} >= "
+          f"A: map points off the plane: median |z| {med_z:.4f} >= "
           f"{MEDIAN_Z_BAR}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+    pr = system.place_rec
+    check(pr.ready, "A: the vocabulary was never trained")
+    check(pr.db is not None and len(pr.db.bow) > 0,
+          "A: the BoW keyframe database is empty")
+    for name in ("fast_score", "masked_top2_mutual", "masked_top2_epi"):
+        check(launches[name] > 0, f"A: kernel {name} never launched")
     steady = frame_ms[first + 1:]
-    log(f"slice: {len(ok_idx)}/{N_FRAMES} frames OK (initialized at frame "
+    log(f"A: {len(ok_idx)}/{N_FRAMES} frames OK (initialized at frame "
         f"{first}), {n_kf} keyframes, {len(pts)} map points, median |z| "
-        f"{med_z:.4f}")
-    log(f"slice: median frame {np.median(steady):.1f} ms after init "
-        f"(host clock around torch.cuda.synchronize()), mean "
-        f"{np.mean(steady):.1f} ms, max {np.max(steady):.1f} ms; "
-        f"peak device memory {peak / 2 ** 20:.0f} MiB")
-    log(f"slice: kernel launches {json.dumps(launches)}")
-    log("timing report:\n" + system.timing_report())
+        f"{med_z:.4f}, {len(pr.db.bow)} keyframes in the BoW database")
+    log(f"A: frame time after init with the mapping thread live: median "
+        f"{np.median(steady):.1f} ms, mean {np.mean(steady):.1f} ms, max "
+        f"{np.max(steady):.1f} ms (host clock around "
+        f"torch.cuda.synchronize()); the tracker waited "
+        f"{clock.wait_s * 1e3:.1f} ms of its {track_s * 1e3:.1f} ms on the "
+        f"map lock; final flush {flush_s * 1e3:.1f} ms; peak device "
+        f"memory {peak / 2 ** 20:.0f} MiB")
+    log(f"A: kernel launches {json.dumps(launches)}")
+    log("A: timing report:\n" + system.timing_report())
+    return launches
+
+
+def phase_k4(device, expect):
+    """Path C: K4 through its entry point at 4096x4096, 20% of the
+    columns invalid; the result must equal the plain version's."""
+    import torch
+    from orb_slam2_tpu_torch import kernels
+    from orb_slam2_tpu_torch.matching import hamming_top2 as ht
+    args = k4_problem(4096, 4096, 0.2, 4, device)
+    kernels.reset_launch_counts()
+    out = ht.hamming_top2(*args)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check(launches["hamming_top2"] == 1, "C: K4 did not launch once")
+    check(all(torch.equal(a, b) for a, b in zip(out, expect)),
+          "C: K4 through its entry point differs from the plain version")
+    log(f"C: hamming_top2 4096x4096: {launches['hamming_top2']} launch, "
+        f"{int((out[0] <= 64).sum())} rows within 64 bits")
+    return launches
+
+
+def loop_circuit(radius=LOOP_RADIUS, n_lap=LOOP_LAP,
+                 n_revisit=LOOP_REVISIT, drift=LOOP_DRIFT):
+    """True circuit poses (one lap plus its first frames again) and the
+    priors fed in, drifting ``drift`` units per frame in x and half of
+    it in y (tests/test_loop_proof.py's construction)."""
+    from orb_slam2_tpu_torch.utils import synth
+    true = synth.loop_trajectory(n_lap, radius=radius, height=FLIGHT_HEIGHT)
+    true = true + true[:n_revisit]
+    fed = []
+    for t, Tcw in enumerate(true):
+        D = np.eye(4, dtype=np.float32)
+        D[:3, 3] = [drift * t, 0.5 * drift * t, 0.0]
+        fed.append((Tcw @ np.linalg.inv(D)).astype(np.float32))
+    return true, fed
+
+
+def phase_loop(device, cfg, **circuit):
+    """Path B: a drifted circuit at bench width, sequential mapping, so
+    that whether the loop fires does not depend on thread timing."""
+    import dataclasses
+    import torch
+    from orb_slam2_tpu_torch import kernels
+    from orb_slam2_tpu_torch.pipeline.system import System
+    from orb_slam2_tpu_torch.pipeline.tracking import TrackState
+    from orb_slam2_tpu_torch.utils import synth
+    true, fed = loop_circuit(**circuit)
+    # a square texture that holds the circle plus the footprint's
+    # half-diagonal (15 units at height 12) and a unit of margin, at
+    # bench.py's 120 px per unit
+    radius = circuit.get("radius", LOOP_RADIUS)
+    side = max(6144, int(np.ceil(2 * (radius + 16.0) * 120.0 / 128)) * 128)
+    world = synth.make_world(seed=7, tex_size=4096, scale=120.0,
+                             tex_shape=(side, side), device=device)
+    frames = [synth.render(world, cfg.cam, T) for T in true]
+    torch.cuda.synchronize()
+    lcfg = dataclasses.replace(cfg, loop_min_kfs_since_last=6)
+    system = System(lcfg, enable_loop_closing=True, device=device)
+    lc = system.loop_closer
+    # keyframe ATE at each stage of the correction (the group correction
+    # and loop fuse run before the essential graph, global BA after it)
+    stage_ate = []
+
+    def staged(fn, before, after):
+        def run(*args, **kwargs):
+            if before:
+                stage_ate.append((before, kf_ate(system.store, true)))
+            fn(*args, **kwargs)
+            stage_ate.append((after, kf_ate(system.store, true)))
+        return run
+    lc._optimize_essential_graph = staged(
+        lc._optimize_essential_graph, "group correction + loop fuse",
+        "essential graph")
+    lc.run_global_ba = staged(lc.run_global_ba, None, "global BA")
+    kernels.reset_launch_counts()
+    states, frame_ms = [], []
+    for i, (img, Tf) in enumerate(zip(frames, fed)):
+        t0 = time.perf_counter()
+        system.track_monocular_with_pose(img, i * 0.1, Tf)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        states.append(system.state)
+        log(f"B frame {i:2d}: {system.state.name:15s} "
+            f"kfs={system.store.n_valid_keyframes():3d} "
+            f"loops={system.loop_closer.n_loops_closed} "
+            f"{frame_ms[-1]:9.1f} ms")
+    system.shutdown()
+    launches = dict(kernels.LAUNCHES)
+    n_ok = sum(s == TrackState.OK for s in states)
+    last = {k: v for k, v in (lc.last_loop or {}).items()
+            if k != "loop_connections"}
+    log(f"B: {n_ok}/{len(true)} frames OK, {lc.n_loops_closed} loops "
+        f"closed, last {last}")
+    check(n_ok >= LOOP_MIN_OK * len(true),
+          f"B: only {n_ok}/{len(true)} frames OK")
+    check(lc.n_loops_closed >= 1, "B: the loop never closed")
+    check(lc.last_loop["n_matched"] >= lcfg.loop_min_total_matches,
+          f"B: {lc.last_loop['n_matched']} loop matches < "
+          f"{lcfg.loop_min_total_matches}")
+    pts = system.map_points()
+    check(len(pts) > 0 and bool(np.isfinite(pts).all()),
+          "B: map points missing or not finite")
+    check(all(np.isfinite(kf.Tcw).all() for kf in system.store.kfs
+              if kf.valid), "B: a keyframe pose is not finite")
+    ate = kf_ate(system.store, true)
+    ate_prior = kf_ate(system.store, true, poses=fed)
+    log(f"B: keyframe ATE {ate:.4f} after loop correction, {ate_prior:.4f} "
+        f"for the fed priors at the same {system.store.n_valid_keyframes()} "
+        f"keyframes (Sim3-aligned); at the first loop, after "
+        + ", ".join(f"{k} {v:.4f}" for k, v in stage_ate[:3]))
+    check(ate < ate_prior, f"B: corrected keyframe ATE {ate:.4f} is not "
+          f"below the priors' {ate_prior:.4f}")
+    for name in ("fast_score", "masked_top2_mutual", "masked_top2_epi"):
+        check(launches[name] > 0, f"B: kernel {name} never launched")
+    log(f"B: kernel launches {json.dumps(launches)}")
+    log("B: loop-closing stages (host clock):\n" + lc.timer.summary())
+    log(f"B: median frame {np.median(frame_ms):.1f} ms, max "
+        f"{np.max(frame_ms):.1f} ms")
     return launches
 
 
@@ -284,6 +560,8 @@ KERNEL_META = {
                            "orb_slam2_tpu/matching/pallas_hamming.py:187"),
     "masked_top2_epi": ("orb_slam2_tpu_torch/csrc/hamming_top2.cu",
                         "orb_slam2_tpu/matching/pallas_hamming.py:307"),
+    "hamming_top2": ("orb_slam2_tpu_torch/csrc/hamming_top2.cu",
+                     "orb_slam2_tpu/matching/pallas_hamming.py:47"),
 }
 
 
@@ -321,17 +599,25 @@ def main() -> int:
     world, _ = bench_world(device)
     try:
         timing = phase_kernels(device, world, cfg)
-        launches = phase_slice(device, world, cfg)
+        launches = phase_bench(device, world, cfg)
+        from orb_slam2_tpu_torch.matching import hamming_top2 as ht
+        k4_ref = ht.hamming_top2_plain(*k4_problem(4096, 4096, 0.2, 4,
+                                                   device))
+        launches["hamming_top2"] = phase_k4(device, k4_ref)["hamming_top2"]
+        phase_loop(device, cfg)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         t = timing[name]
+        # no single PyTorch call computes any of the four functions
         rows.append(dict(name=name, route="cuda", source=source,
                          replaces=replaces, launches=launches[name],
                          max_abs_err=t["max_abs_err"], ms=t["ms"],
-                         plain_ms=t["plain_ms"], shape=t["shape"]))
+                         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                         bound_by=t["bound_by"], library_ms=None,
+                         shape=t["shape"]))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

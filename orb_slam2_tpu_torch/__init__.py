@@ -4,13 +4,17 @@ A second package beside the JAX reference ``orb_slam2_tpu``, with the
 same subpackage layout and module names (``ops``, ``matching``,
 ``geom``, ``optim``, ``models``, ``pipeline``, ``utils``) so each port
 module sits where its counterpart does.  It imports torch and never
-jax.  The pose-prior tracking + local-mapping path is ported; the hot
-kernels of that path are hand-written CUDA for Hopper (``csrc/``,
-built and loaded by ``kernels``):
+jax.  The pose-prior path is ported: tracking, local mapping (inline
+or on a mapping thread), place recognition, loop closing and
+relocalization.  Every kernel the JAX package wrote in Pallas is
+hand-written CUDA for Hopper (``csrc/``, built and loaded by
+``kernels``):
 
 - K1 ``ops.fast.score_map``         (FAST score map)
 - K2 ``matching.hamming_top2.masked_top2_mutual`` (windowed top-2)
 - K3 ``matching.hamming_top2.masked_top2_epi``    (epipolar top-2)
+- K4 ``matching.hamming_top2.hamming_top2``       (unmasked top-2; no
+  pipeline caller, as in the JAX package)
 
 Each has a plain PyTorch version beside it that runs for CPU tensors.
 """

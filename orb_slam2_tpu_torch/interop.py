@@ -14,6 +14,7 @@ import numpy as np
 
 from .models.frame import Frame, to_device
 from .models.mapstore import KeyFrame, MapStore, _GrowArray
+from .models.vocabulary import Vocabulary
 from .ops.extractor import Features
 
 
@@ -77,8 +78,9 @@ def mapstore_from_numpy(points: Dict[str, np.ndarray],
                (``mp_pos`` (P, 3), ``mp_desc`` (P, 8) uint32, ...).
     mp_obs   : per point {kid: feature index}.
     keyframes: per keyframe a dict with ``kid``, ``Tcw``, ``parent``,
-               ``children``, ``valid``, ``first_connection`` and
-               ``frame``, itself a dict of ``FRAME_FIELDS``.
+               ``children``, ``loop_edges``, ``valid``,
+               ``first_connection`` and ``frame``, itself a dict of
+               ``FRAME_FIELDS``.
     covis    : per keyframe {kid: weight} (the covisibility graph).
     obs_mirror: (kid (P, S), fi (P, S), n (P,)) slot arrays of the
                observation mirror; its slot order decides ties in the
@@ -100,6 +102,7 @@ def mapstore_from_numpy(points: Dict[str, np.ndarray],
             kid=int(k["kid"]), frame=frame,
             Tcw=np.array(k["Tcw"], np.float32),
             parent=int(k["parent"]), children=set(k["children"]),
+            loop_edges=set(k["loop_edges"]),
             first_connection=bool(k["first_connection"]),
             valid=bool(k["valid"])))
     store.covis = [dict(c) for c in covis]
@@ -122,7 +125,8 @@ def mapstore_state(store) -> dict:
                 for name, _, _ in _POINT_COLUMNS},
         mp_obs=[dict(o) for o in store.mp_obs],
         keyframes=[dict(kid=kf.kid, Tcw=np.array(kf.Tcw), parent=kf.parent,
-                        children=set(kf.children), valid=kf.valid,
+                        children=set(kf.children),
+                        loop_edges=set(kf.loop_edges), valid=kf.valid,
                         first_connection=kf.first_connection,
                         frame=frame_dict(kf.frame))
                    for kf in store.kfs],
@@ -132,3 +136,13 @@ def mapstore_state(store) -> dict:
         scale_factor=getattr(store, "_scale_factor", 1.2),
         n_levels=getattr(store, "_n_levels", 8),
     )
+
+
+def vocabulary_from_numpy(k: int, levels: int, centers, idf,
+                          node_level: int) -> Vocabulary:
+    """A port Vocabulary with the given tree: per-level (k**(l+1), 8)
+    uint32 centers and the (k**levels,) idf (copies)."""
+    return Vocabulary(k=int(k), levels=int(levels),
+                      centers=[np.array(c, np.uint32) for c in centers],
+                      idf=np.array(idf, np.float32),
+                      node_level=int(node_level))

@@ -7,10 +7,12 @@ build takes seconds.  The library is built at first use into
 source is newer than it.  Nothing is compiled or loaded at import time.
 
 Each kernel wrapper (``ops.fast.score_map``,
-``matching.hamming_top2.masked_top2_mutual`` / ``masked_top2_epi``)
-calls :func:`call`, which launches on PyTorch's current stream, raises
-if the launch failed, and adds one to the kernel's entry in
-:data:`LAUNCHES`.
+``matching.hamming_top2.masked_top2_mutual`` / ``masked_top2_epi`` /
+``hamming_top2``) calls :func:`call`, which launches on PyTorch's
+current stream, raises if the launch failed, and adds one to the
+kernel's entry in :data:`LAUNCHES`.  The tracking thread and the
+mapping thread both launch, so the lazy build and the counts are
+guarded by one lock.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import glob
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -41,17 +44,22 @@ _SIGNATURES = {
     "masked_top2_epi": ("orb_masked_top2_epi",
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
                         + [ctypes.c_void_p] * 4),
+    "hamming_top2": ("orb_hamming_top2",
+                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                     + [ctypes.c_void_p] * 4),
 }
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES = {name: 0 for name in _SIGNATURES}
 
 _lib = None
+_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -85,14 +93,15 @@ def build(force: bool = False) -> dict:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed)."""
     global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(LIB_PATH)
-        for cname, argtypes in _SIGNATURES.values():
-            fn = getattr(lib, cname)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+    with _lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(LIB_PATH)
+            for cname, argtypes in _SIGNATURES.values():
+                fn = getattr(lib, cname)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 
@@ -109,4 +118,5 @@ def call(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
-    LAUNCHES[name] += 1
+    with _lock:
+        LAUNCHES[name] += 1

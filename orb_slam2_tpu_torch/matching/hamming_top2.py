@@ -1,8 +1,14 @@
-"""Masked 256-bit Hamming top-2 with column-best: kernels K2 and K3.
+"""256-bit Hamming top-2 searches: kernels K2, K3 and K4.
 
 Port of ``orb_slam2_tpu/matching/pallas_hamming.py`` (the
-``masked_top2_mutual`` / ``masked_top2_epi`` Pallas kernels and their
-XLA twins).  The inner loop of every projection and epipolar search:
+``masked_top2_mutual`` / ``masked_top2_epi`` / ``hamming_top2`` Pallas
+kernels and their XLA twins).
+
+K4, :func:`hamming_top2`, is the unmasked search with column validity:
+(best, best_idx, second) per row.  No pipeline stage calls it, in the
+port as in the JAX package.
+
+K2 and K3 are the inner loop of every projection and epipolar search:
 for each row, the best and second-best admissible column by Hamming
 distance, and for each column its best row, with no (N, M) matrix on
 the card.
@@ -32,6 +38,7 @@ from .. import kernels
 from . import core
 
 TILE = 128           # row/column multiple the kernels take
+BIG = 1 << 20        # K4: added to the distance of an invalid column
 MASK_D = 1023        # masked-pair distance sentinel (real max is 256)
 COL_STRIDE = 4096    # key = d * COL_STRIDE + col  (requires M <= 4096)
 ROW_STRIDE = 16384   # colkey = d * ROW_STRIDE + row (requires N <= 16384)
@@ -136,3 +143,59 @@ def masked_top2_epi(desc1, desc2, row_attr, col_attr):
         return _launch("masked_top2_epi", desc1, desc2, row_attr,
                        col_attr, 4)
     return masked_top2_epi_plain(desc1, desc2, row_attr, col_attr)
+
+
+# ----------------------------------------------------------------------
+# K4: unmasked top-2 with column validity
+# ----------------------------------------------------------------------
+def hamming_top2_plain(desc1, desc2, valid2):
+    """Plain PyTorch version of K4, with the TPU kernel's semantics
+    (``pallas_hamming._kernel``): an invalid column's distance is
+    ``d + BIG``, so a row with no valid column returns ``BIG + d`` at its
+    lowest-index argmin, and ``second`` never exceeds ``BIG`` (the
+    kernel puts BIG at each tile's argmin).  The JAX package's XLA twin
+    writes BIG exactly instead; the two agree on every row with >= 2
+    valid columns.
+
+    desc1 (N, 8), desc2 (M, 8) int32; valid2 (M,) bool.  Returns
+    (best (N,), best_idx (N,), second (N,)) int32; ties go to the
+    lowest column."""
+    d = core.hamming_matrix(desc1, desc2)
+    d = d + torch.where(valid2, 0, BIG).to(torch.int32)[None, :]
+    best, idx = core._min_lowest(d, dim=1)
+    rows = torch.arange(d.shape[0], device=d.device)
+    d[rows, idx] = BIG
+    second = torch.clamp(d.amin(dim=1), max=BIG)
+    return best, idx.to(torch.int32), second
+
+
+def hamming_top2(desc1, desc2, valid2):
+    """K4: the fused Hamming top-2.  Same contract as
+    :func:`hamming_top2_plain`; N and M must be multiples of 128 (as the
+    TPU kernel asks).  CUDA tensors launch the kernel of
+    ``csrc/hamming_top2.cu``, CPU tensors run the plain version."""
+    n, m = desc1.shape[0], desc2.shape[0]
+    if n % TILE or m % TILE:
+        raise ValueError(f"hamming_top2 takes N and M in multiples of "
+                         f"{TILE}, got N={n}, M={m}")
+    if not desc1.is_cuda:
+        return hamming_top2_plain(desc1, desc2, valid2)
+    expect = ((desc1, (n, 8), torch.int32), (desc2, (m, 8), torch.int32),
+              (valid2, (m,), torch.bool))
+    for t, shape, dtype in expect:
+        if not t.is_cuda or t.device != desc1.device:
+            raise ValueError("hamming_top2: every operand must be on one "
+                             "CUDA device")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"hamming_top2: expected {shape} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    desc1, desc2 = desc1.contiguous(), desc2.contiguous()
+    v2 = valid2.to(torch.int32).contiguous()
+    best, idx, second = (torch.empty(n, dtype=torch.int32,
+                                     device=desc1.device) for _ in range(3))
+    kernels.call("hamming_top2", desc1, desc2, v2, n, m, best, idx, second)
+    return best, idx, second
+
+
+# the JAX package's backend-dispatching name for the same search
+hamming_top2_auto = hamming_top2

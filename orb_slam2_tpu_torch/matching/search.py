@@ -6,14 +6,17 @@ ORBmatcher search (file:line cited per function).  Rows are the "source"
 entities (map points / reference features), columns the candidate
 keypoints of the target frame.  The projection searches run through
 kernel K2 and the fused triangulation search through kernel K3
-(``hamming_top2``); the BoW-node and rotation-checked variant of
-``search_for_triangulation`` and the Sim3 searches belong to later
-slices of the port.
+(``hamming_top2``).  The BoW search and the Sim3 searches of loop
+closing use the dense distance matrix (``core.hamming_matrix``), as the
+JAX package does outside its Pallas kernels.  The BoW-node and
+rotation-checked variant of ``search_for_triangulation`` is not ported:
+no caller of the port takes it.
 """
 from __future__ import annotations
 
 import torch
 
+from ..geom import sim3 as sim3_mod
 from . import core, hamming_top2 as ht
 from .core import MatchResult, TH_LOW, TH_HIGH
 
@@ -146,23 +149,142 @@ def search_by_projection_last_frame(
 
 
 def search_descriptors(
-    desc1, valid1, angle1,
-    desc2, valid2, angle2,
+    desc1, valid1, angle1, node1,
+    desc2, valid2, angle2, node2,
     ratio: float = 0.7,
     check_rotation: bool = True,
     max_dist: int = TH_LOW,
 ) -> MatchResult:
-    """ORBmatcher::SearchByBoW (src/ORBmatcher.cc:222-392, 698-851)
-    across all pairs (the JAX function with node=None, the form tracking
-    uses before a vocabulary exists): best + TH_LOW + ratio + rotation,
-    mutual best."""
+    """ORBmatcher::SearchByBoW (src/ORBmatcher.cc:222-392, 698-851).
+
+    The reference walks aligned FeatureVector nodes as an acceleration;
+    the acceptance rule is best-in-node + TH_LOW + ratio + rotation.
+    Here the node constraint is an equality mask on the vocabulary node
+    id per feature; node=None matches across all pairs (before a
+    vocabulary exists).  Mutual best."""
     dist = core.hamming_matrix(desc1, desc2)
     mask = valid1[:, None] & valid2[None, :]
+    if node1 is not None and node2 is not None:
+        mask = mask & (node1[:, None] == node2[None, :])
     res = core.best_match(dist, mask, max_dist=max_dist, ratio=ratio)
     valid = core.mutual_best(dist, mask, res)
     if check_rotation:
         valid = core.rotation_consistency_mask(angle1, angle2[res.idx], valid)
     return MatchResult(res.idx, res.dist, valid)
+
+
+def _project_rows(pc, fx, fy, cx, cy, bounds):
+    """Pinhole projection of camera-frame rows (N, 3): (uv, z, in_img)."""
+    z = pc[:, 2]
+    inv_z = 1.0 / torch.where(z.abs() < 1e-12, torch.full_like(z, 1e-12), z)
+    u = fx * pc[:, 0] * inv_z + cx
+    v = fy * pc[:, 1] * inv_z + cy
+    minx, maxx, miny, maxy = bounds
+    in_img = (u >= minx) & (u < maxx) & (v >= miny) & (v < maxy)
+    return torch.stack([u, v], dim=-1), z, in_img
+
+
+def _predicted_level(max_dist, dist, scale_factors, n_levels, log_scale):
+    """Scale-band check (0.8/1.2 slack of GetMin/MaxDistanceInvariance,
+    src/MapPoint.cc:570-585) and the predicted pyramid level."""
+    min_d = max_dist / scale_factors[n_levels - 1]
+    dist_ok = (dist >= 0.8 * min_d) & (dist <= 1.2 * max_dist)
+    ratio_d = torch.clamp(max_dist, min=1e-12) / torch.clamp(dist, min=1e-12)
+    lvl = torch.clamp(torch.ceil(torch.log(ratio_d) / log_scale).to(torch.int32),
+                      0, n_levels - 1).long()
+    return dist_ok, lvl
+
+
+def search_by_projection_sim3(
+    pts_w, mp_desc, mp_normal, mp_max_dist, mp_valid,
+    Scw,
+    kp_xy, kp_octave, kp_desc, kp_valid, kp_has_mp,
+    scale_factors,
+    fx: float, fy: float, cx: float, cy: float,
+    bounds: tuple, n_levels: int, log_scale: float,
+    th: float = 7.5, max_dist: int = TH_LOW,
+) -> MatchResult:
+    """ORBmatcher::SearchByProjection(KF, Scw, vpPoints, vpMatched, th)
+    (src/ORBmatcher.cc:394-540): loop map points projected through a
+    Sim3 world->camera into the current keyframe.  Checks: positive
+    depth, in-image, distance within the point's scale band, viewing
+    cos > 0.5, candidate levels [pred-1, pred], radius th * scale[pred],
+    Hamming <= TH_LOW, no ratio test, mutual best; already-matched
+    keypoints are excluded."""
+    pc = sim3_mod.apply(Scw, pts_w)
+    uv, z, in_img = _project_rows(pc, fx, fy, cx, cy, bounds)
+    # camera center in world: Scw^-1 * 0
+    ow = sim3_mod.apply_one(sim3_mod.inv(Scw), torch.zeros_like(pts_w[0]))
+    po = pts_w - ow
+    dist = torch.linalg.norm(po, dim=-1)
+    dist_ok, lvl = _predicted_level(mp_max_dist, dist, scale_factors,
+                                    n_levels, log_scale)
+    vcos = (po * mp_normal).sum(-1) / torch.clamp(dist, min=1e-12)
+    radius = th * scale_factors[lvl]
+
+    row_ok = mp_valid & (z > 0) & in_img & dist_ok & (vcos > 0.5)
+    koct = kp_octave.long()
+    lvl_ok = (koct[None, :] >= lvl[:, None] - 1) & (koct[None, :] <= lvl[:, None])
+    dmat = core.hamming_matrix(mp_desc, kp_desc)
+    mask = (row_ok[:, None] & kp_valid[None, :] & (~kp_has_mp)[None, :]
+            & lvl_ok & _chebyshev_window_mask(uv, kp_xy, radius[:, None]))
+    res = core.best_match(dmat, mask, max_dist=max_dist, ratio=1.0)
+    valid = core.mutual_best(dmat, mask, res)
+    return MatchResult(res.idx, res.dist, valid)
+
+
+def _sim3_directional_match(pc_src, desc_src, valid_src, max_dist_src,
+                            S_dst_src,
+                            kp_xy, kp_octave, kp_desc, kp_valid,
+                            scale_factors, fx, fy, cx, cy, bounds,
+                            n_levels, log_scale, th):
+    """One direction of SearchBySim3: source map points (camera frame of
+    their own KF) mapped through S_dst_src into the destination image and
+    matched against its keypoints (src/ORBmatcher.cc:1430-1530)."""
+    pc = sim3_mod.apply(S_dst_src, pc_src)
+    uv, z, in_img = _project_rows(pc, fx, fy, cx, cy, bounds)
+    dist = torch.linalg.norm(pc, dim=-1)
+    dist_ok, lvl = _predicted_level(max_dist_src, dist, scale_factors,
+                                    n_levels, log_scale)
+    radius = th * scale_factors[lvl]
+
+    row_ok = valid_src & (z > 0) & in_img & dist_ok
+    # candidate octave band [pred-1, pred] (src/ORBmatcher.cc:1494)
+    koct = kp_octave.long()
+    lvl_ok = (koct[None, :] >= lvl[:, None] - 1) & (koct[None, :] <= lvl[:, None])
+    dmat = core.hamming_matrix(desc_src, kp_desc)
+    mask = (row_ok[:, None] & kp_valid[None, :]
+            & lvl_ok & _chebyshev_window_mask(uv, kp_xy, radius[:, None]))
+    return core.best_match(dmat, mask, max_dist=TH_HIGH, ratio=1.0)
+
+
+def search_by_sim3(
+    pc1, desc1, valid1, max_dist1, kp_xy1, kp_octave1, kp_valid1,
+    pc2, desc2, valid2, max_dist2, kp_xy2, kp_octave2, kp_valid2,
+    S12,
+    scale_factors,
+    fx: float, fy: float, cx: float, cy: float,
+    bounds: tuple, n_levels: int, log_scale: float,
+    th: float = 7.5,
+) -> MatchResult:
+    """ORBmatcher::SearchBySim3 (src/ORBmatcher.cc:1368-1630):
+    bidirectional Sim3-projected search between two keyframes' map-point
+    features; a pair is accepted only when both directions agree.  Rows
+    are KF1 features (camera-1 position pc1); returns for each an index
+    into KF2's features."""
+    S21 = sim3_mod.inv(S12)
+    geo = (scale_factors, fx, fy, cx, cy, bounds, n_levels, log_scale, th)
+    # KF2 points into image 1, KF1 points into image 2
+    m21 = _sim3_directional_match(pc2, desc2, valid2, max_dist2, S12,
+                                  kp_xy1, kp_octave1, desc1,
+                                  kp_valid1 & valid1, *geo)
+    m12 = _sim3_directional_match(pc1, desc1, valid1, max_dist1, S21,
+                                  kp_xy2, kp_octave2, desc2,
+                                  kp_valid2 & valid2, *geo)
+    j = m12.idx
+    rows = torch.arange(j.shape[0], device=j.device)
+    agree = m12.valid & m21.valid[j] & (m21.idx[j] == rows)
+    return MatchResult(j, m12.dist, agree)
 
 
 def search_for_triangulation(

@@ -6,8 +6,11 @@ device image persists across frames, and per-frame consumers (the fused
 tracking step, fuse) gather rows on the device by index.
 
 Synchronization: MapStore records touched pids in ``dirty_points``;
-``sync()`` drains the set into one indexed write per column.  Capacity
-grows by 4x re-allocation (full re-upload, amortized).
+``sync()`` drains the set into one indexed copy per column.  Capacity
+grows by 4x re-allocation (full re-upload, amortized).  A sync builds
+new column tensors instead of writing in place, as JAX's functional
+updates do, so a snapshot taken by the tracking thread never changes
+under it while the mapping thread syncs.
 """
 from __future__ import annotations
 
@@ -72,5 +75,5 @@ class DevicePoints:
         if len(rows) == 0:
             return
         ridx = torch.as_tensor(rows, device=self.device)
-        for a, u in zip(self._arrs, self._columns(store, rows)):
-            a[ridx] = u     # in place: the port's mapping is synchronous
+        self._arrs = tuple(a.index_copy(0, ridx, u) for a, u in
+                           zip(self._arrs, self._columns(store, rows)))

@@ -193,8 +193,8 @@ class MapStore:
         # re-allocation past it) and the device it lives on
         self.dev_capacity = int(dev_capacity)
         self.device = device
-        # Map::mMutexUpdateMap equivalent (include/Map.h:148-150).  The
-        # port's pipeline is synchronous, so the lock is uncontended.
+        # Map::mMutexUpdateMap equivalent (include/Map.h:148-150): the
+        # tracking thread and the asynchronous mapper's thread share it
         import threading
         self.lock = threading.RLock()
         # --- map points (numpy SoA with amortized growth) ---
@@ -225,6 +225,10 @@ class MapStore:
         # notified on KeyFrame::EraseAndSetBad (the reference calls
         # mpKeyFrameDB->erase there); wired by System to PlaceRecognition
         self.on_kf_erased = None
+        # keyframes the local mapper has finished (loop closing
+        # included); the tracker rebuilds a next-frame preparation made
+        # before the count moved
+        self.mapped_kfs = 0
         # incrementally-grown (n_kfs, max_n) table of per-feature
         # octaves (rows are immutable once a KF exists) — lets graph
         # scans gather octaves across MANY keyframes in one fancy index

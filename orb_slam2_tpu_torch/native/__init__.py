@@ -1,27 +1,30 @@
 """ctypes bindings for the native host runtime, for the port.
 
-The C++ source is the JAX package's ``orb_slam2_tpu/native/slamcore.cc``
-(framework-free), compiled by path with g++ at first use into
-``build/native/`` at the repository root (git-ignored) — importing
-``orb_slam2_tpu.native`` would pull in jax.  Only the descriptor
-functions the map store calls are bound; each has the pure-numpy
-fallback of the JAX package for hosts without a compiler.
+Port of ``orb_slam2_tpu/native/__init__.py``.  The C++ source is the
+port's own copy of the JAX package's framework-free ``slamcore.cc``,
+beside this file, compiled with g++ at first use into ``build/native/``
+at the repository root (git-ignored).  Bound: the descriptor functions
+the map store calls and the BoW inverted file of the keyframe
+database; each has the pure-numpy fallback of the JAX package for hosts
+without a compiler.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import subprocess
+import threading
 from typing import Optional
 
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ROOT = os.path.dirname(_PKG)
-SRC = os.path.join(_ROOT, "orb_slam2_tpu", "native", "slamcore.cc")
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "slamcore.cc")
 SO = os.path.join(_ROOT, "build", "native", "libslamcore.so")
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_lock = threading.Lock()   # the mapping and tracking threads both load
 
 
 def _try_build() -> bool:
@@ -39,6 +42,11 @@ def _try_build() -> bool:
 
 
 def _load() -> Optional[ctypes.CDLL]:
+    with _lock:
+        return _load_locked()
+
+
+def _load_locked() -> Optional[ctypes.CDLL]:
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
@@ -61,6 +69,19 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.hamming_min_median_batch.argtypes = [c_u32p, c_i64p,
                                              ctypes.c_int64, c_i32p]
     lib.hamming_min_median_batch.restype = None
+    c_f32p = ctypes.POINTER(ctypes.c_float)
+    lib.kfdb_create.restype = ctypes.c_void_p
+    lib.kfdb_destroy.argtypes = [ctypes.c_void_p]
+    lib.kfdb_add.argtypes = [ctypes.c_void_p, ctypes.c_int32, c_i64p,
+                             c_f32p, ctypes.c_int64]
+    lib.kfdb_erase.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+    lib.kfdb_size.argtypes = [ctypes.c_void_p]
+    lib.kfdb_size.restype = ctypes.c_int64
+    lib.kfdb_query.argtypes = [ctypes.c_void_p, c_i64p, c_f32p,
+                               ctypes.c_int64, c_i32p, ctypes.c_int64,
+                               ctypes.c_int64, c_i32p, c_i32p, c_f32p,
+                               ctypes.c_int64]
+    lib.kfdb_query.restype = ctypes.c_int64
     _lib = lib
     return lib
 
@@ -122,3 +143,84 @@ def min_median_descriptor_batch(descs_flat: np.ndarray,
         _ptr(descs_flat, ctypes.c_uint32), _ptr(offsets, ctypes.c_int64),
         n, _ptr(out, ctypes.c_int32))
     return out
+
+
+# ----------------------------------------------------------------------
+# Inverted-file database
+# ----------------------------------------------------------------------
+class NativeKfDatabase:
+    """Native BoW inverted file; falls back to Python dicts when the
+    shared library is unavailable."""
+
+    def __init__(self):
+        self._lib = _load()
+        if self._lib is not None:
+            self._h = self._lib.kfdb_create()
+        else:
+            self._h = None
+            self._inv = {}
+            self._entries = {}
+
+    def __del__(self):
+        if getattr(self, "_lib", None) is not None and self._h:
+            self._lib.kfdb_destroy(self._h)
+            self._h = None
+
+    def add(self, kid: int, bow: dict):
+        words = np.fromiter(bow.keys(), np.int64, len(bow))
+        weights = np.fromiter(bow.values(), np.float32, len(bow))
+        if self._h is not None:
+            self._lib.kfdb_add(self._h, kid, _ptr(words, ctypes.c_int64),
+                               _ptr(weights, ctypes.c_float), len(words))
+        else:
+            self._entries[kid] = bow
+            for w in bow:
+                self._inv.setdefault(w, []).append(kid)
+
+    def erase(self, kid: int):
+        if self._h is not None:
+            self._lib.kfdb_erase(self._h, kid)
+        else:
+            bow = self._entries.pop(kid, None)
+            if bow:
+                for w in bow:
+                    lst = self._inv.get(w)
+                    if lst and kid in lst:
+                        lst.remove(kid)
+
+    def __len__(self) -> int:
+        if self._h is not None:
+            return int(self._lib.kfdb_size(self._h))
+        return len(self._entries)
+
+    def query(self, bow: dict, exclude=(), min_common: int = 1,
+              max_out: int = 4096):
+        """Returns (kids, shared_counts, l1_scores) for all KFs sharing
+        >= min_common words with the query, minus the excluded set."""
+        words = np.fromiter(bow.keys(), np.int64, len(bow))
+        weights = np.fromiter(bow.values(), np.float32, len(bow))
+        if self._h is not None:
+            ex = np.sort(np.asarray(list(exclude), np.int32))
+            out_k = np.empty(max_out, np.int32)
+            out_c = np.empty(max_out, np.int32)
+            out_s = np.empty(max_out, np.float32)
+            m = self._lib.kfdb_query(
+                self._h, _ptr(words, ctypes.c_int64),
+                _ptr(weights, ctypes.c_float), len(words),
+                _ptr(ex, ctypes.c_int32), len(ex), min_common,
+                _ptr(out_k, ctypes.c_int32), _ptr(out_c, ctypes.c_int32),
+                _ptr(out_s, ctypes.c_float), max_out)
+            return out_k[:m].copy(), out_c[:m].copy(), out_s[:m].copy()
+        exclude = set(exclude)
+        counts, scores = {}, {}
+        for w, a in bow.items():
+            for kid in self._inv.get(w, ()):
+                if kid in exclude:
+                    continue
+                counts[kid] = counts.get(kid, 0) + 1
+                b = self._entries[kid].get(w, 0.0)
+                scores[kid] = scores.get(kid, 0.0) + abs(a) + abs(b) - abs(a - b)
+        kids = [k for k, c in counts.items() if c >= min_common]
+        return (np.asarray(kids, np.int32),
+                np.asarray([counts[k] for k in kids], np.int32),
+                np.asarray([0.5 * scores[k] for k in kids], np.float32))

@@ -3,8 +3,9 @@
 Groups the reference's YAML settings (src/Tracking.cc:93-191) and the
 hard-coded thresholds scattered through Tracking/LocalMapping into one
 place, with the reference values as defaults.  Field names and defaults
-are those of the JAX package; the fields of its unported stages (loop
-closing, relocalization, pipelined tracking, BA padding) are absent.
+are those of the JAX package; ``pipelined_tracking`` exists only so that
+System can refuse it, and the other fields of unported stages (BA
+padding, pipeline depth) are absent.
 """
 from __future__ import annotations
 
@@ -55,6 +56,20 @@ class SlamConfig:
     kf_cull_redundancy: float = 0.9     # src/LocalMapping.cc:688-772
     local_ba_iters: int = 10
 
+    # --- loop closing ---
+    loop_min_kfs_since_last: int = 10   # src/LoopClosing.cc:139
+    loop_consistency_threshold: int = 3  # src/LoopClosing.cc:60-61
+    loop_sim3_min_inliers: int = 20     # src/LoopClosing.cc:380-402
+    loop_min_total_matches: int = 40    # src/LoopClosing.cc:418-460
+    # Fix the loop transform's scale to 1 (6-DoF solve).  None = auto:
+    # fixed in pose-prior mode, whose per-frame odometry prior is metric
+    # (upstream sets bFixScale whenever the sensor gives metric scale,
+    # Sim3Solver.cc:41-46, Optimizer.cc:1014).
+    loop_fix_scale: bool | None = None
+
+    # --- relocalization ---
+    reloc_recent_kf_window: int = 10    # Map::GetLastKeyFrames period
+
     # --- padded sizes ---
     # Row counts of the padded search operands grow through
     # power-of-4 buckets starting at these floors (tracking.pad_bucket).
@@ -66,6 +81,9 @@ class SlamConfig:
     # initial row capacity of the device point store (rows are
     # append-only; the store grows by 4x re-allocation past it)
     device_point_capacity: int = 65536
+
+    # one-frame-lag pipelined tracking: not ported; System refuses True
+    pipelined_tracking: bool = False
 
     @property
     def max_frames_between_kf(self) -> int:

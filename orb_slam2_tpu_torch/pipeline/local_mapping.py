@@ -12,11 +12,21 @@ Triangulation searches every neighbor with kernel K3; fuse projects
 points into every target with kernel K2.  The JAX package stacks the
 neighbors/targets and runs them with ``lax.map`` in fixed-size chunks
 with compacted readbacks for its slow chip link; the port loops over
-them and reads the results directly.  The async mapper and full
-(pose-optimizing) local BA are later slices of the port.
+them and reads the results directly.  Loop closing runs at the tail of
+each keyframe (``on_keyframe_processed``).
+
+:class:`AsyncMapper` is the reference's LocalMapping thread: tracking
+enqueues keyframes and mapping (with loop closing) runs on a worker
+thread.  ``LocalMapper.process_keyframe`` holds ``store.lock`` and
+drops it around each device dispatch + read window and at stage
+boundaries, so the tracker only waits on short host sections.  Both
+threads launch on PyTorch's default stream, which serializes their
+device work.  Full (pose-optimizing) local BA is a later slice.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from typing import List
 
 import numpy as np
@@ -189,7 +199,7 @@ def run_structure_ba(store: MapStore, kf_ids: List[int], cfg: SlamConfig,
     fx, fy, cx, cy = (float(cfg.cam.fx), float(cfg.cam.fy),
                       float(cfg.cam.cx), float(cfg.cam.cy))
     n2 = max(store.kfs[k].frame.n for k in kf_ids)
-    with timer.time("sba/device"):
+    with timer.time("sba/device"), store.unlocked():
         xy_stack = torch.stack(
             [store.kfs[k].frame.dev_padded("xy", n2) for k in kf_ids])
         oct_stack = torch.stack(
@@ -236,6 +246,7 @@ class LocalMapper:
         self._fuse_touched: List[int] = []  # merge winners awaiting the
         #                                     batched refresh
         self.timer = StageTimer()
+        self.on_keyframe_processed = None  # wired to loop closing
         scale, _, sigma2, _ = pyramid_scale_factors(cfg.orb.n_levels,
                                                     cfg.orb.scale_factor)
         self.scale_factors = scale
@@ -248,10 +259,24 @@ class LocalMapper:
                                device=self.store.device)
 
     # ------------------------------------------------------------------
-    def process_keyframe(self, kid: int):
-        """One LocalMapping::Run iteration (src/LocalMapping.cc:78-158)."""
+    def process_keyframe(self, kid: int, queue_pressure: bool = False):
+        """One LocalMapping::Run iteration (src/LocalMapping.cc:78-158),
+        under the map lock (Map::mMutexUpdateMap), which each heavy
+        stage drops around its device window.
+
+        ``queue_pressure``: more keyframes are already waiting, so skip
+        fusion and local BA for this one, as the reference's mapping
+        thread does under load (SearchInNeighbors runs only
+        ``if(!CheckNewKeyFrames())``, src/LocalMapping.cc:111, and a new
+        insertion aborts the local BA, src/LocalMapping.cc:122-124).
+        The next quiet keyframe covers the deferred work."""
+        with self.store.lock:
+            self._process_keyframe_locked(kid, queue_pressure)
+
+    def _process_keyframe_locked(self, kid: int, queue_pressure: bool):
         store = self.store
-        log.info("KF %d begin (alloc=%d)", kid, store.n_points())
+        log.info("KF %d begin (pressure=%s, alloc=%d)", kid,
+                 queue_pressure, store.n_points())
         # ProcessNewKeyFrame (src/LocalMapping.cc:180-197): refresh the
         # bound points' descriptors/normals and the covisibility graph
         with self.timer.time("mapping/process_kf"):
@@ -262,23 +287,34 @@ class LocalMapper:
             store.update_points_batch(bound.tolist())
             store.update_connections(kid)
         n0 = store.n_valid_points()
+        store.yield_lock()  # stage boundary: let the tracker in
         with self.timer.time("mapping/cull_points"):
             self._cull_map_points(kid)
+        store.yield_lock()
         with self.timer.time("mapping/triangulate"):
             self._create_new_map_points(kid)
         n1 = store.n_valid_points()
-        with self.timer.time("mapping/fuse"):
-            self._fuse_neighbors(kid)
-        if store.n_valid_keyframes() > 2:
-            with self.timer.time("mapping/local_ba"):
-                run_local_ba(store, kid, self.cfg,
-                             iters=self.cfg.local_ba_iters,
-                             timer=self.timer)
+        store.yield_lock()
+        if not queue_pressure:
+            with self.timer.time("mapping/fuse"):
+                self._fuse_neighbors(kid)
+            store.yield_lock()
+            if store.n_valid_keyframes() > 2:
+                with self.timer.time("mapping/local_ba"):
+                    run_local_ba(store, kid, self.cfg,
+                                 iters=self.cfg.local_ba_iters,
+                                 timer=self.timer)
+            store.yield_lock()
         with self.timer.time("mapping/cull_keyframes"):
             self._cull_keyframes(kid)
+        store.yield_lock()
         log.info("KF %d: +%d map points (total %d), %d keyframes",
                  kid, n1 - n0, store.n_valid_points(),
                  store.n_valid_keyframes())
+        if self.on_keyframe_processed:
+            with self.timer.time("mapping/loop_closing"):
+                self.on_keyframe_processed(kid)
+        store.mapped_kfs += 1
 
     # ------------------------------------------------------------------
     def _cull_map_points(self, kid: int):
@@ -341,18 +377,21 @@ class LocalMapper:
             for b, f2 in enumerate(frames2):
                 valid2[b, :f2.n] = (f2.mp_ids < 0) & f2.valid
 
-        with self.timer.time("tri/device"):
+            Tcw1 = kf1.Tcw.copy()
+            Tcw2 = np.stack([store.kfs[e[0]].Tcw for e in elig]).astype(
+                np.float32)
+
+        with self.timer.time("tri/device"), store.unlocked():
             good, nb, col, _ = _triangulate_neighbors(
                 f1.dev("xy"), f1.dev("desc"), self._t(unbound1),
-                f1.dev("octave"), self._t(kf1.Tcw),
+                f1.dev("octave"), self._t(Tcw1),
                 torch.stack([fr.dev_padded("xy", n2) for fr in frames2]),
                 torch.stack([fr.dev_padded("desc", n2) for fr in frames2]),
                 self._t(valid2),
                 torch.stack([fr.dev_padded("octave", n2) for fr in frames2]),
                 self._t(np.stack([e[1] for e in elig])),
                 self._t(np.stack([e[2] for e in elig])),
-                self._t(np.stack([store.kfs[e[0]].Tcw for e in elig])
-                        .astype(np.float32)),
+                self._t(Tcw2),
                 self._t(np.stack([e[3] for e in elig]).astype(np.float32)),
                 self._t(K.astype(np.float32)),
                 self._t(self.sigma2.astype(np.float32)),
@@ -475,18 +514,20 @@ class LocalMapper:
                    fx=fx, fy=fy, cx=cx, cy=cy,
                    bounds=undistorted_bounds(cfg.cam),
                    n_levels=cfg.orb.n_levels, log_scale=self.log_scale)
-        with self.timer.time("fuse/device"):
+        poses = [store.kfs[t].Tcw.copy() for t in target_kids]
+        pose0 = store.kfs[kid].Tcw.copy()
+        frames = [store.kfs[t].frame for t in target_kids]
+        with self.timer.time("fuse/device"), store.unlocked():
             own_pts = _gather_rows(*dp, self._t(own_rows))
             fwd = []
-            for t in target_kids:
-                fr = store.kfs[t].frame
+            for fr, T in zip(frames, poses):
                 fwd.append(_fuse_one(
-                    *own_pts, self._t(store.kfs[t].Tcw), fr.dev("xy"),
+                    *own_pts, self._t(T), fr.dev("xy"),
                     fr.dev("octave"), fr.dev("desc"), fr.dev("valid"),
                     **geo))
             rev = _fuse_one(
                 *_gather_rows(*dp, self._t(cand_rows)),
-                self._t(store.kfs[kid].Tcw), f0.dev("xy"), f0.dev("octave"),
+                self._t(pose0), f0.dev("xy"), f0.dev("octave"),
                 f0.dev("desc"), f0.dev("valid"), **geo)
             with self.timer.time("fuse/read"):
                 sfeat = torch.stack(fwd).cpu().numpy()
@@ -494,6 +535,7 @@ class LocalMapper:
         with self.timer.time("fuse/apply"):
             for b, t in enumerate(target_kids):
                 self._apply_fuse(t, own, sfeat[b])
+                store.yield_lock()
             self._apply_fuse(kid, cand, rev_feat)
 
     def _apply_fuse(self, kid: int, pids: List[int], feat):
@@ -566,6 +608,7 @@ class LocalMapper:
             all_pids.append(pids)
         if not per_cand:
             return
+        store.yield_lock()  # camera-rate thread gets a slot
         upids = np.unique(np.concatenate(all_pids))
         L = int(self.cfg.orb.n_levels)
         kidm, fim, nm = store.obs.rows(upids)
@@ -586,6 +629,7 @@ class LocalMapper:
             if n_redundant > self.cfg.kf_cull_redundancy * len(fi):
                 flagged.append(cand)
         for cand in flagged:
+            store.yield_lock()
             if self._cull_verify(cand):
                 store.erase_keyframe(cand)
 
@@ -616,3 +660,70 @@ class LocalMapper:
         fine = octs <= levels[obs_l] + 1
         cnt = np.bincount(obs_l[fine], minlength=len(fi))
         return int((cnt >= 3).sum()) > self.cfg.kf_cull_redundancy * len(fi)
+
+
+class AsyncMapper:
+    """The reference's LocalMapping thread + keyframe queue
+    (src/System.cc:96-100; src/LocalMapping.cc:161-167): tracking
+    enqueues a keyframe id and keeps running while mapping (and loop
+    closing, at the tail of ``process_keyframe``) runs here.
+    Synchronization is ``MapStore.lock``.  Both threads use PyTorch's
+    default stream, so their device work is serialized in launch order.
+
+    An exception raised by the worker is re-raised on the tracking
+    thread at the next ``process_keyframe`` / ``drain`` / ``stop``."""
+
+    def __init__(self, mapper: LocalMapper):
+        self.mapper = mapper
+        self._q = queue.Queue()
+        self._exc = None
+        self._thread = threading.Thread(
+            target=self._run, name="local_mapping", daemon=True)
+        self._thread.start()
+
+    def process_keyframe(self, kid: int):
+        self._reraise()
+        self._q.put(kid)
+
+    def idle(self) -> bool:
+        """LocalMapping::AcceptKeyFrames (src/LocalMapping.cc:572-583):
+        no queued keyframe and none being processed.  The tracker's
+        NeedNewKeyFrame gates monocular insertion on it
+        (src/Tracking.cc:559-615)."""
+        return self._q.unfinished_tasks == 0
+
+    def _run(self):
+        while True:
+            kid = self._q.get()
+            try:
+                if kid is None:
+                    return
+                # materialize the new KF's host feature copies (a
+                # device -> host read) before taking the map lock
+                store = self.mapper.store
+                if kid < len(store.kfs):
+                    fr = store.kfs[kid].frame
+                    _ = fr.desc, fr.octave, fr.xy, fr.angle, fr.valid
+                self.mapper.process_keyframe(
+                    kid, queue_pressure=not self._q.empty())
+            except Exception as e:  # re-raised on the caller's thread
+                self._exc = e
+            finally:
+                self._q.task_done()
+
+    def _reraise(self):
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+
+    def drain(self):
+        """Block until the queue is empty (LocalMapping idle), then
+        re-raise any worker exception."""
+        self._q.join()
+        self._reraise()
+
+    def stop(self):
+        """System::Shutdown thread join (src/System.cc:173-192)."""
+        self._q.put(None)
+        self._thread.join()
+        self._reraise()

@@ -10,9 +10,14 @@ Per frame the steady state runs one fused step (:func:`_prior_step_core`)
 on the device: the last-frame projection search and the local-map
 projection search through kernel K2, the chi2 gates and the frustum
 cull; the host then applies the bindings (:meth:`Tracker._fused_verdict`).
-The map starts from the known-pose DLT initializer.  Estimated-pose
-tracking, relocalization and pipelined tracking are later slices of
-the port.
+The map starts from the known-pose DLT initializer.  A LOST frame goes
+to relocalization; when the frame-to-frame match fails, the
+reference-keyframe fallback matches by descriptor, blocked by
+vocabulary node once a vocabulary exists.  Host sections that read or
+change the map take ``store.lock``, as the JAX package's do, so an
+asynchronous mapper can run beside the tracker; the device dispatch and
+read of the fused step run without it.  Estimated-pose tracking and
+pipelined tracking are later slices of the port.
 """
 from __future__ import annotations
 
@@ -200,6 +205,10 @@ class Tracker:
         # wired by System
         self.on_new_keyframe: Optional[Callable[[int], None]] = None
         self.on_reset: Optional[Callable[[], None]] = None
+        # async mapper's AcceptKeyFrames (None = sequential, always idle)
+        self.mapping_idle: Optional[Callable[[], bool]] = None
+        # Relocalizer (carries the shared PlaceRecognition)
+        self.relocalize: Optional[Callable[[Frame], bool]] = None
 
         self.timer = StageTimer()
         # device-side local-map preparation for the fused step, built at
@@ -232,10 +241,11 @@ class Tracker:
             frame = self.factory.make(image, timestamp, Tcw=pose_prior,
                                       init_mode=init_mode)
         if init_mode:
-            self._initialize(frame, pose_prior)
-            self.last_frame = frame
-            if self.state == TrackState.OK:
-                self._prepare_next(frame)
+            with self.store.lock:
+                self._initialize(frame, pose_prior)
+                self.last_frame = frame
+                if self.state == TrackState.OK:
+                    self._prepare_next(frame)
             return frame
 
         ok = False
@@ -243,6 +253,15 @@ class Tracker:
         if self.state == TrackState.OK:
             prep_ok = (self._prep is not None
                        and self._prep["frame"] is self.last_frame)
+            if prep_ok and self._prep["mapped"] != self.store.mapped_kfs:
+                # the mapping thread finished a keyframe after the
+                # preparation was made: rebuild it, so the new points
+                # are searched now (the sequential pipeline prepares
+                # after mapping; the JAX package's asynchronous one
+                # keeps the stale preparation for a frame)
+                with self.timer.time("track/prep_refresh"), self.store.lock:
+                    self._prepare_next(self.last_frame)
+                prep_ok = self._prep is not None
             if prep_ok:
                 with self.timer.time("track/fused_step"):
                     out = self._fused_dispatch(frame)
@@ -252,19 +271,22 @@ class Tracker:
                 elif verdict == "lost":
                     fused_done = True  # local-map stage ran; don't redo
                 else:  # prior_fail -> reference-KF fallback
-                    ok = self._track_reference_kf(frame)
+                    with self.store.lock:
+                        ok = self._track_reference_kf(frame)
             else:
-                with self.timer.time("track/refresh_replaced"):
-                    self._refresh_replaced_bindings(self.last_frame)
-                with self.timer.time("track/prior"):
-                    ok = self._track_with_prior(frame)
-                if not ok:
-                    ok = self._track_reference_kf(frame)
-        # LOST: relocalization is a later slice of the port; the frame
-        # stays lost
+                with self.store.lock:
+                    with self.timer.time("track/refresh_replaced"):
+                        self._refresh_replaced_bindings(self.last_frame)
+                    with self.timer.time("track/prior"):
+                        ok = self._track_with_prior(frame)
+                    if not ok:
+                        ok = self._track_reference_kf(frame)
+        else:  # LOST
+            with self.store.lock:
+                ok = self._do_relocalize(frame)
 
         if ok and not fused_done:
-            with self.timer.time("track/local_map"):
+            with self.timer.time("track/local_map"), self.store.lock:
                 ok = self._track_local_map(frame)
 
         self._post_track(frame, ok)
@@ -274,22 +296,25 @@ class Tracker:
         """The per-frame epilogue: state machine, keyframe decision,
         next-frame preparation, reset (src/Tracking.cc:330-356)."""
         do_reset = False
-        if ok:
-            self.state = TrackState.OK
-            with self.timer.time("track/need_kf"):
-                need = self._need_new_keyframe(frame)
-            if need:
-                with self.timer.time("track/create_kf"):
-                    self._create_new_keyframe(frame)
-        else:
-            self.state = TrackState.LOST
-            self._prep = None
-            do_reset = (self.store.n_valid_keyframes() <= 5
-                        and self.on_reset is not None)
-        if self.state == TrackState.OK:
-            with self.timer.time("track/prep_next"):
-                self._prepare_next(frame)
+        with self.store.lock:
+            if ok:
+                self.state = TrackState.OK
+                with self.timer.time("track/need_kf"):
+                    need = self._need_new_keyframe(frame)
+                if need:
+                    with self.timer.time("track/create_kf"):
+                        self._create_new_keyframe(frame)
+            else:
+                self.state = TrackState.LOST
+                self._prep = None
+                do_reset = (self.store.n_valid_keyframes() <= 5
+                            and self.on_reset is not None)
+            if self.state == TrackState.OK:
+                with self.timer.time("track/prep_next"):
+                    self._prepare_next(frame)
         if do_reset:
+            # outside the map lock: reset drains the mapping worker,
+            # which must be able to take the lock to finish its queue
             self.on_reset()
         log.info("frame %d: state=%s inliers=%d tracked=%d",
                  frame.frame_id, self.state.name, self.matches_inliers,
@@ -517,6 +542,7 @@ class Tracker:
         self.store.dev_points.sync(self.store)
         self._prep = dict(
             frame=frame,
+            mapped=self.store.mapped_kfs,
             bound_pids=bound_pids,
             cand_pids=uniq.astype(np.int64),
             bound_pid_rows=self._t(np.pad(bound_pids.astype(np.int32),
@@ -560,7 +586,7 @@ class Tracker:
         C = len(p["cand_pids"])
         n_matches = int(rvalid[:L].sum())
         store = self.store
-        with self.timer.time("fused/apply"):
+        with self.timer.time("fused/apply"), store.lock:
             if n_matches < self.cfg.track_prior_min_matches:
                 frame.mp_ids[:] = -1
                 return "prior_fail"
@@ -570,7 +596,8 @@ class Tracker:
                 return "prior_fail"
 
             def live_of(pids: np.ndarray) -> np.ndarray:
-                # follow replace chains, drop dead pids
+                # the mapper may have erased/replaced points since the
+                # prep: follow replace chains, drop dead pids
                 # (CheckReplacedMapPointsInLastFrame, src/Tracking.cc:581)
                 pids = np.asarray(pids, np.int64)
                 for _ in range(100):
@@ -619,8 +646,8 @@ class Tracker:
 
     def _track_reference_kf(self, frame: Frame) -> bool:
         """TrackWithReferenceKF (src/Tracking.cc:1080-1096): descriptor
-        match against the reference KF's map points across all pairs
-        (no vocabulary in the port yet), then the trusted-pose gate."""
+        match against the reference KF's map points, then the
+        trusted-pose gate."""
         if self.ref_kf < 0:
             return False
         kf = self.store.kfs[self.ref_kf].frame
@@ -634,11 +661,20 @@ class Tracker:
         pad = n_rows - len(ids)
         valid_rows = np.zeros(n_rows, bool)
         valid_rows[:len(ids)] = True
+        # FeatureVector-style node blocking once a vocabulary exists
+        # (src/ORBmatcher.cc:222-392); the relocalizer carries the
+        # shared PlaceRecognition
+        pr = getattr(self.relocalize, "pr", None)
+        nk = pr.compute_nodes(kf) if pr is not None else None
+        nf = pr.compute_nodes(frame) if nk is not None else None
+        node1 = (self._t(np.pad(nk[ids], (0, pad), constant_values=-1))
+                 if nf is not None else None)
+        node2 = self._t(nf) if nf is not None else None
         res = search.search_descriptors(
             self._t(np.pad(kf.desc[ids], ((0, pad), (0, 0))).view(np.int32)),
             self._t(valid_rows),
-            self._t(np.pad(kf.angle[ids], (0, pad))),
-            frame.dev("desc"), frame.dev("valid"), frame.dev("angle"),
+            self._t(np.pad(kf.angle[ids], (0, pad))), node1,
+            frame.dev("desc"), frame.dev("valid"), frame.dev("angle"), node2,
             ratio=0.7).host()
         rvalid = res.valid[:len(ids)]
         ridx = res.idx[:len(ids)]
@@ -650,6 +686,12 @@ class Tracker:
             frame.mp_ids[:] = -1
             return False
         return self._pose_chi2_filter(frame) >= self.cfg.track_refkf_min_good
+
+    def _do_relocalize(self, frame: Frame) -> bool:
+        if self.relocalize is not None and self.relocalize(frame):
+            self.last_reloc_frame_id = frame.frame_id
+            return True
+        return False
 
     # ------------------------------------------------------------------
     # local map tracking (src/Tracking.cc:619-667, 789-1005)
@@ -799,15 +841,19 @@ class Tracker:
         if len(rp):
             rp = rp[np.asarray(self.store.mp_valid[rp], bool)]
         n_ref = int((self.store.obs.n[rp] >= min_obs).sum()) if len(rp) else 0
-        # the synchronous mapper is always idle (LocalMapping::
-        # AcceptKeyFrames, src/Tracking.cc:559-615)
+        # LocalMapping::AcceptKeyFrames gate (src/Tracking.cc:559-615):
+        # monocular never inserts while mapping is busy, which throttles
+        # keyframe production to the mapper's rate (the sequential
+        # mapper is always idle)
+        idle = self.mapping_idle() if self.mapping_idle else True
         c1a = (frame.frame_id
                >= self.last_kf_frame_id + self.cfg.max_frames_between_kf)
         c1b = (frame.frame_id
-               >= self.last_kf_frame_id + self.cfg.min_frames_between_kf)
+               >= self.last_kf_frame_id + self.cfg.min_frames_between_kf) \
+            and idle
         c2 = (self.matches_inliers < n_ref * self.cfg.ref_ratio
               and self.matches_inliers > 15)
-        return (c1a or c1b) and c2
+        return (c1a or c1b) and c2 and idle
 
     def _create_new_keyframe(self, frame: Frame):
         kid = self.store.add_keyframe(frame)

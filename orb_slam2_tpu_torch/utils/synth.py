@@ -3,7 +3,8 @@
 Port of the planar parts of ``orb_slam2_tpu/utils/synth.py``: a large
 textured ground plane (z = 0) observed by a downward-looking camera
 sweep (the aerial geometry of the reference's shenzhen workload,
-Examples/Monocular/mono_shenzhen.cc).  Views are exact plane-induced
+Examples/Monocular/mono_shenzhen.cc) or a closed circuit for loop
+closing.  Views are exact plane-induced
 homography warps of the texture, so ground-truth poses and structure
 are exact.
 
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..geom.camera import Intrinsics
+from .evaluate import ate_rmse  # noqa: F401  (the JAX module has one too)
 
 
 @dataclass
@@ -132,4 +134,27 @@ def aerial_trajectory(
         T[:3, :3] = Rcw
         T[:3, 3] = -Rcw @ c
         poses.append(T)
+    return poses
+
+
+def loop_trajectory(n_frames: int, radius: float = 8.0,
+                    height: float = 10.0) -> List[np.ndarray]:
+    """Closed circular sweep for loop-closing tests: the camera returns
+    to its start after n_frames, heading along the tangent."""
+    poses = []
+    for i in range(n_frames):
+        th = 2 * np.pi * i / n_frames
+        c = np.array([radius * np.cos(th), radius * np.sin(th), -height])
+        yaw = th + np.pi / 2
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        Rwc = np.array([
+            [cy, -sy, 0.0],
+            [sy, cy, 0.0],
+            [0.0, 0.0, 1.0],
+        ])
+        Rcw = Rwc.T
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = Rcw
+        T[:3, 3] = -Rcw @ c
+        poses.append(T.astype(np.float32))
     return poses

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels (K1, K2, K3) against their plain
+"""The hand-written CUDA kernels (K1, K2, K3, K4) against their plain
 PyTorch versions on the card.  Every test here is marked ``gpu`` and
 skips without a CUDA device.  This file imports no jax, so it runs on a
 machine without the JAX package:
@@ -100,6 +100,22 @@ class TestKernelsOnCard:
         p = ht.masked_top2_epi_plain(*args)
         for a, b in zip(k, p):
             assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("n,m", [(128, 128), (256, 4096), (4096, 384)])
+    def test_hamming_top2(self, cuda, n, m):
+        rng = np.random.default_rng(n + m)
+        d1, d2 = _rand_desc(rng, n), _rand_desc(rng, m)
+        d1[: n // 2] = d2[rng.integers(0, m, n // 2)]
+        v2 = rng.random(m) > 0.2
+        if n == 128:
+            v2[:] = False          # every row without a valid column
+        args = (_t(d1).to(cuda), _t(d2).to(cuda), torch.from_numpy(v2).to(cuda))
+        before = kernels.LAUNCHES["hamming_top2"]
+        out = ht.hamming_top2(*args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["hamming_top2"] == before + 1
+        for o, r in zip(out, ht.hamming_top2_plain(*args)):
+            assert torch.equal(o, r)
 
     def test_wrapper_checks(self, cuda):
         d = torch.zeros((128, 8), dtype=torch.int32, device=cuda)

@@ -1,5 +1,6 @@
 """The port's kernel modules against the JAX package: K1 (FAST score),
-K2 (windowed Hamming top-2) and K3 (epipolar Hamming top-2).
+K2 (windowed Hamming top-2), K3 (epipolar Hamming top-2) and K4
+(unmasked Hamming top-2 with column validity).
 
 On the CPU each port wrapper runs its plain PyTorch version; those are
 held bit for bit to the JAX reference (the Pallas kernels in interpret
@@ -21,7 +22,7 @@ from orb_slam2_tpu_torch import kernels
 from orb_slam2_tpu_torch.matching import hamming_top2 as ht
 from orb_slam2_tpu_torch.ops import (brief as tbrief, distribute as tdist,
                                      fast as tfast, pyramid as tpyr)
-from test_torch_gpu import _epi_problem, _t, _window_problem
+from test_torch_gpu import _epi_problem, _rand_desc, _t, _window_problem
 
 torch.set_num_threads(1)
 
@@ -132,6 +133,86 @@ class TestMaskedTop2:
         assert int(col_row.max()) < 256
         np.testing.assert_array_equal(best.numpy().reshape(reps, 256),
                                       np.tile(best.numpy()[:256], (reps, 1)))
+
+
+# ----------------------------------------------------------------------
+# K4: unmasked Hamming top-2 with column validity
+# ----------------------------------------------------------------------
+def _k4_ref(d1, d2, v2):
+    return [np.asarray(a) for a in jph.hamming_top2(
+        jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(v2), interpret=True)]
+
+
+def _k4_port(d1, d2, v2):
+    return [a.numpy() for a in ht.hamming_top2(_t(d1), _t(d2),
+                                               torch.from_numpy(v2))]
+
+
+class TestHammingTop2:
+    """Bar: best, best_idx and second bit-exact against the Pallas
+    kernel in interpret mode on every row (integer distances; ties to
+    the lowest index), including its BIG + d answer on rows without a
+    valid column; against the XLA twin (which writes BIG exactly) on
+    the rows with >= 2 valid columns."""
+
+    @pytest.mark.parametrize("n,m", [(256, 256), (256, 512), (512, 256)])
+    def test_matches_pallas(self, n, m):
+        rng = np.random.default_rng(n + 3 * m)
+        d1, d2 = _rand_desc(rng, n), _rand_desc(rng, m)
+        # near copies, so ties and small distances occur
+        d1[: n // 2] = d2[rng.integers(0, m, n // 2)] ^ (
+            rng.random((n // 2, 8)) < 0.02).astype(np.uint32)
+        v2 = rng.random(m) > 0.2
+        for o, r in zip(_k4_port(d1, d2, v2), _k4_ref(d1, d2, v2)):
+            np.testing.assert_array_equal(o, r)
+        xb, xi, xs = (np.asarray(a) for a in jph.hamming_top2_xla(
+            jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(v2)))
+        b, i, s = _k4_port(d1, d2, v2)
+        np.testing.assert_array_equal(b, xb)
+        np.testing.assert_array_equal(i, xi)
+        np.testing.assert_array_equal(s, xs)
+
+    def test_all_columns_invalid(self):
+        rng = np.random.default_rng(2)
+        d1, d2 = _rand_desc(rng, 256), _rand_desc(rng, 256)
+        v2 = np.zeros(256, bool)
+        out = _k4_port(d1, d2, v2)
+        for o, r in zip(out, _k4_ref(d1, d2, v2)):
+            np.testing.assert_array_equal(o, r)
+        assert (out[0] > ht.BIG).all() and (out[2] == ht.BIG).all()
+
+    def test_one_valid_column(self):
+        rng = np.random.default_rng(4)
+        d1, d2 = _rand_desc(rng, 128), _rand_desc(rng, 256)
+        v2 = np.zeros(256, bool)
+        v2[200] = True
+        out = _k4_port(d1, d2, v2)
+        for o, r in zip(out, _k4_ref(d1, d2, v2)):
+            np.testing.assert_array_equal(o, r)
+        assert (out[1] == 200).all() and (out[2] == ht.BIG).all()
+
+    def test_identical_descriptors(self):
+        rng = np.random.default_rng(1)
+        d = _rand_desc(rng, 256)
+        d[128:] = d[:128]                 # every row ties at two columns
+        v = np.ones(256, bool)
+        out = _k4_port(d, d, v)
+        for o, r in zip(out, _k4_ref(d, d, v)):
+            np.testing.assert_array_equal(o, r)
+        assert (out[0] == 0).all() and (out[2] == 0).all()
+        np.testing.assert_array_equal(out[1], np.tile(np.arange(128), 2))
+
+    def test_shape_guard_and_no_launch_on_cpu(self):
+        kernels.reset_launch_counts()
+        with pytest.raises(ValueError, match="multiples of 128"):
+            ht.hamming_top2(torch.zeros((100, 8), dtype=torch.int32),
+                            torch.zeros((128, 8), dtype=torch.int32),
+                            torch.ones(128, dtype=torch.bool))
+        assert ht.hamming_top2_auto is ht.hamming_top2
+        ht.hamming_top2(torch.zeros((128, 8), dtype=torch.int32),
+                        torch.zeros((128, 8), dtype=torch.int32),
+                        torch.ones(128, dtype=torch.bool))
+        assert sum(kernels.LAUNCHES.values()) == 0
 
 
 # ----------------------------------------------------------------------

@@ -134,8 +134,9 @@ def test_search_descriptors_exact(feats):
     ref = jsearch.search_descriptors(
         j1["desc"], j1["valid"], j1["angle"], None,
         j2["desc"], j2["valid"], j2["angle"], None, ratio=0.7)
-    out = tsearch.search_descriptors(t1.desc, t1.valid, t1.angle,
-                                     t2.desc, t2.valid, t2.angle, ratio=0.7)
+    out = tsearch.search_descriptors(t1.desc, t1.valid, t1.angle, None,
+                                     t2.desc, t2.valid, t2.angle, None,
+                                     ratio=0.7)
     _assert_match_equal(ref, out)
 
 

@@ -1,10 +1,13 @@
 """The ported slice as a whole: the pose-prior System of both packages on
-the same frames, and the port's tracking step and local mapping started
-from the JAX package's own state.
+the same frames, and the port's tracking step, reference-keyframe
+fallback, local mapping and relocalization started from the JAX
+package's own state.
 
 Size: tests/test_pipeline.py's (640x480, 800 features, 4 levels), 15
 frames of its aerial sweep, rendered once with the port's renderer and
 fed to both packages."""
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +21,8 @@ from orb_slam2_tpu_torch.models.frame import FrameFactory
 from orb_slam2_tpu_torch.ops.extractor import OrbParams
 from orb_slam2_tpu_torch.pipeline.config import SlamConfig
 from orb_slam2_tpu_torch.pipeline.local_mapping import LocalMapper
+from orb_slam2_tpu_torch.pipeline.place_recognition import PlaceRecognition
+from orb_slam2_tpu_torch.pipeline.relocalization import Relocalizer
 from orb_slam2_tpu_torch.pipeline.system import System
 from orb_slam2_tpu_torch.pipeline.tracking import Tracker, TrackState
 from orb_slam2_tpu_torch.utils import ply, synth
@@ -26,6 +31,7 @@ torch.set_num_threads(1)
 
 N_FRAMES = 15
 STEP_FRAME = 7        # a steady-state frame for the one-state tracking test
+RELOC_POSE = 10       # the mapped pose a LOST frame is shown again
 CAM_KW = dict(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640, height=480)
 CFG_KW = dict(fps=10.0, pose_prior=True, init_min_matches=60,
               init_min_triangulated=40, init_min_tracked_after_ba=60)
@@ -52,17 +58,8 @@ def runs():
                                orb=JOrbParams(n_features=800, n_levels=4),
                                **CFG_KW),
                    enable_loop_closing=False)
-    rec = dict(refkf_calls=[], frames={}, mapping=None)
+    rec = dict(frames={}, mapping=None)
     tr = jsys.tracker
-
-    # the reference-KF fallback would use the vocabulary's node ids when
-    # one exists; the comparison holds only if the JAX run never takes it
-    orig_refkf = tr._track_reference_kf
-
-    def refkf(frame):
-        rec["refkf_calls"].append(frame.frame_id)
-        return orig_refkf(frame)
-    tr._track_reference_kf = refkf
 
     orig_make = tr.factory.make
 
@@ -75,6 +72,16 @@ def runs():
     orig_verdict = tr._fused_verdict
 
     def verdict(frame, out, p=None):
+        if frame.frame_id == STEP_FRAME:
+            # the reference-KF fallback from this state, on a copy of
+            # the frame (the vocabulary exists by now, so it blocks the
+            # descriptor match by node)
+            fc = copy.copy(frame)
+            fc.__dict__.pop("bow_nodes", None)
+            fc.mp_ids = np.full_like(frame.mp_ids, -1)
+            rec["refkf"] = dict(ok=tr._track_reference_kf(fc),
+                                mp_ids=fc.mp_ids.copy(),
+                                vocab=jsys.place_rec.ready)
         v = orig_verdict(frame, out, p)
         if frame.frame_id == STEP_FRAME:
             rec["step_after"] = dict(
@@ -115,7 +122,11 @@ def runs():
             pinl=port.tracker.matches_inliers,
             jkf=jsys.store.n_valid_keyframes(),
             pkf=port.store.n_valid_keyframes()))
-    return dict(cfg=cfg, jsys=jsys, port=port, per=per, rec=rec)
+    v = jsys.place_rec.vocab
+    rec["vocab"] = dict(k=v.k, levels=v.levels, centers=v.centers,
+                        idf=v.idf, node_level=v.node_level)
+    return dict(cfg=cfg, jsys=jsys, port=port, per=per, rec=rec,
+                poses=poses, images=images)
 
 
 def test_states_identical(runs):
@@ -147,8 +158,23 @@ def test_map_within_bars(runs):
     assert np.median(np.abs(pj[:, 2])) < 0.08
 
 
-def test_reference_never_took_vocabulary_fallback(runs):
-    assert runs["rec"]["refkf_calls"] == []
+def test_reference_fallback_with_vocabulary_from_one_state(runs):
+    """TrackWithReferenceKF with a trained vocabulary, from the JAX
+    state just before STEP_FRAME: both packages block the descriptor
+    match by vocabulary node (the port with the JAX vocabulary).  Bar:
+    the same verdict and the same binding on >= 99% of the features
+    that either package bound."""
+    ref = runs["rec"]["refkf"]
+    assert ref["vocab"]
+    tracker, frame = _tracker_before_step(runs)
+    tracker.relocalize = Relocalizer(runs["cfg"], tracker.store,
+                                     PlaceRecognition(tracker.store, vocab=(
+                                         interop.vocabulary_from_numpy(
+                                             **runs["rec"]["vocab"]))))
+    assert tracker._track_reference_kf(frame) == ref["ok"]
+    either = (frame.mp_ids >= 0) | (ref["mp_ids"] >= 0)
+    assert either.sum() > 50
+    assert (frame.mp_ids[either] == ref["mp_ids"][either]).mean() >= 0.99
 
 
 def _tracker_before_step(runs):
@@ -233,13 +259,18 @@ def test_mapping_from_one_state(runs):
     assert d.max() < 1e-2, d.max()
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(enable_loop_closing=True),
-    dict(enable_loop_closing=False, async_mapping=True),
-])
-def test_unported_modes_refuse(kwargs):
+@pytest.mark.parametrize("ask", ["config", "prefetch", "next_image"])
+def test_pipelined_tracking_refuses(ask):
+    cfg = port_config()
+    cfg.pipelined_tracking = ask == "config"
     with pytest.raises(NotImplementedError):
-        System(port_config(), device="cpu", **kwargs)
+        system = System(cfg, device="cpu")
+        if ask == "prefetch":
+            system.prefetch(np.zeros((480, 640), np.uint8))
+        else:
+            system.track_monocular_with_pose(
+                np.zeros((480, 640), np.uint8), 0.0, np.eye(4),
+                next_image=np.zeros((480, 640), np.uint8))
 
 
 def test_estimated_mode_refuses():
@@ -254,3 +285,76 @@ def test_ply_export(runs, tmp_path):
     runs["port"].save_map_ply(str(path))
     pts = ply.read_ply_points(str(path))
     np.testing.assert_array_equal(pts, runs["port"].map_points())
+
+
+# ----------------------------------------------------------------------
+# relocalization (these run last: they track one more frame in both
+# Systems of the shared run)
+# ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def reloc(runs):
+    """Both Systems told they are LOST, then shown the mapped pose
+    RELOC_POSE again with its trusted pose (tests/test_loop_closing.py::
+    TestRelocalization::test_reloc_pose_prior).  The JAX store,
+    vocabulary and tracker fields are captured before its frame."""
+    jsys, port, rec = runs["jsys"], runs["port"], runs["rec"]
+    img, T = runs["images"][RELOC_POSE], runs["poses"][RELOC_POSE]
+    before = dict(store=interop.mapstore_state(jsys.store),
+                  ref_kf=jsys.tracker.ref_kf)
+    jrel = jsys.tracker.relocalize
+    got = {}
+
+    def relocalize(frame):
+        ok = jrel(frame)
+        got.update(ok=ok, mp_ids=frame.mp_ids.copy())
+        return ok
+    relocalize.pr = jrel.pr
+    jsys.tracker.relocalize = relocalize
+    jsys.tracker.state = TrackState.LOST
+    jframe = jsys.track_monocular_with_pose(img, 99.0, T)
+    jsys.tracker.relocalize = jrel
+    port.tracker.state = TrackState.LOST
+    pframe = port.track_monocular_with_pose(img, 99.0, T)
+    return dict(before=before, jstate=jsys.state.name, jgot=got,
+                jreloc=jsys.tracker.last_reloc_frame_id,
+                pstate=port.state.name, fid=jframe.frame_id,
+                pinl=port.tracker.matches_inliers,
+                jinl=jsys.tracker.matches_inliers, pfid=pframe.frame_id)
+
+
+def test_lost_frame_relocalizes(reloc):
+    """The port relocalizes a LOST frame at a mapped pose, as the JAX
+    package does (before relocalization was ported the frame stayed
+    LOST).  Bar: both OK with local-map inliers above the
+    relocalization threshold (each System tracks its own map, so the
+    counts differ; the one-state test below compares bindings)."""
+    assert reloc["jstate"] == "OK" and reloc["jreloc"] == reloc["fid"]
+    assert reloc["pstate"] == "OK"
+    assert min(reloc["pinl"], reloc["jinl"]) >= 50
+
+
+def test_relocalization_from_one_state(runs, reloc):
+    """The port's relocalizer on the JAX store and vocabulary as they
+    stood before the LOST frame, given the JAX-extracted frame.  Bar:
+    success, and the same binding on >= 99% of the features that either
+    package's relocalizer bound."""
+    cfg = runs["cfg"]
+    store = interop.mapstore_from_numpy(**reloc["before"]["store"],
+                                        device="cpu")
+    pr = PlaceRecognition(store, vocab=interop.vocabulary_from_numpy(
+        **runs["rec"]["vocab"]))
+    # the BoW database in the JAX run's insertion order (its culled
+    # keyframes were erased, which keeps the others' order)
+    for kid in store.valid_kf_ids():
+        pr.add_keyframe(kid)
+    tracker = Tracker(cfg, store, FrameFactory(cfg.cam, cfg.orb))
+    tracker.relocalize = Relocalizer(cfg, store, pr)
+    tracker.ref_kf = reloc["before"]["ref_kf"]
+    frame = interop.frame_from_numpy(**runs["rec"]["frames"][reloc["fid"]])
+    assert tracker._do_relocalize(frame)
+    assert tracker.last_reloc_frame_id == reloc["fid"]
+    ref = reloc["jgot"]
+    assert ref["ok"]
+    either = (frame.mp_ids >= 0) | (ref["mp_ids"] >= 0)
+    assert (frame.mp_ids >= 0).sum() >= cfg.track_local_min_inliers_reloc
+    assert (ref["mp_ids"][either] == frame.mp_ids[either]).mean() >= 0.99
