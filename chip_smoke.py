@@ -27,6 +27,10 @@ The kernel launch counts are read per path, each path driven with the
 counts set to 0 just before it.  The last three lines are a JSON object
 describing the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
+
+Two diagnostics print no such lines: ``--profile`` runs path A alone
+with torch.profiler over a window of frames, and ``--repeat-b`` runs
+path B four times and says where the runs part.
 """
 from __future__ import annotations
 
@@ -58,10 +62,16 @@ LOOP_REVISIT = 14       # frames of the lap flown again
 LOOP_RADIUS = 20.0      # world units
 LOOP_DRIFT = 0.02       # prior drift per frame, world units
 LOOP_MIN_OK = 0.7       # share of frames tracked OK
+# path A with --profile: the frames recorded by torch.profiler
+PROFILE_FROM = 20
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32
-# outside them, and device memory
-PEAK_BF16 = 989e12
+# H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor cores, float32
+# outside them, and device memory.  A Hamming distance of two 256-bit
+# descriptors is (256 - x.y) / 2 for their +-1 vectors x, y; that
+# 256-term product is exact in int8 with int32 accumulation, so int8
+# is the fastest type that computes it exactly and its rate bounds the
+# Hamming searches.
+PEAK_INT8 = 1979e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -177,7 +187,7 @@ def bound(n_bytes: int, n_ops: int, peak_ops: float) -> dict:
     """The least time the card could take: the larger of the bytes over
     the memory rate and the operations over the peak rate of their
     type.  The Hamming searches count as the 256-deep +-1 product the
-    TPU ran them as (2*N*M*256 operations at the bf16 tensor rate)."""
+    TPU ran them as: 2*N*M*256 operations at the int8 tensor rate."""
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = n_ops / peak_ops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
@@ -257,7 +267,7 @@ def phase_kernels(device, world, cfg):
             max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
             shape=f"{n_rows}x4096",
             **bound(n_rows * (32 + 24 + 8) + 4096 * (32 + 16 + 4),
-                    2 * n_rows * 4096 * 256, PEAK_BF16))
+                    2 * n_rows * 4096 * 256, PEAK_INT8))
 
     # K3 at the triangulation shape (4096x4096)
     args = search_problem(4096, 4096, True, 3, device)
@@ -277,7 +287,7 @@ def phase_kernels(device, world, cfg):
     results["masked_top2_epi"] = dict(
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, shape="4096x4096",
         **bound(4096 * (32 + 16 + 8) + 4096 * (32 + 16 + 4),
-                2 * 4096 * 4096 * 256, PEAK_BF16))
+                2 * 4096 * 4096 * 256, PEAK_INT8))
 
     # K4 at tools/pallas_chip_check.py's shape, 20% of the columns
     # invalid, then a block of rows with no valid column at all
@@ -306,7 +316,7 @@ def phase_kernels(device, world, cfg):
     results["hamming_top2"] = dict(
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, shape="4096x4096",
         **bound(4096 * (32 + 12) + 4096 * (32 + 1),
-                2 * 4096 * 4096 * 256, PEAK_BF16))
+                2 * 4096 * 4096 * 256, PEAK_INT8))
     for name, r in results.items():
         log(f"bound {name} {r['shape']}: {r['bound_ms'] * 1e3:.2f} us "
             f"({r['bound_by']}); kernel at {r['bound_ms'] / r['ms']:.3f} "
@@ -357,10 +367,61 @@ def kf_ate(store, true, poses=None):
     return ate_rmse(np.stack(est), np.stack(gt), align="sim3")
 
 
-def phase_bench(device, world, cfg):
+def device_window(trace_path: str, threads: dict) -> dict:
+    """Reads a torch.profiler chrome trace: the union of the card's
+    kernel, copy and fill intervals, and per host thread the CUDA
+    runtime calls that wait for the card (stream, device and event
+    synchronizations, and copies, which wait for the work queued before
+    them) and the kernel launches.  ``threads`` names threading.Thread
+    objects."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in
+                   ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy_us, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    # a runtime event names its thread by the system thread id, or by
+    # the pthread id (whole or its low 32 bits) where the profiler did
+    # not record the thread's system id
+    names = {}
+    for who, t in threads.items():
+        for key in (t.native_id, t.ident, t.ident & 0xFFFFFFFF):
+            names[key] = who
+    per = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") != "cuda_runtime":
+            continue
+        tid = e.get("tid")
+        who = names.get(tid, f"thread {tid}")
+        d = per.setdefault(who, dict(sync_ms=0.0, copy_ms=0.0,
+                                     launch_ms=0.0, launches=0))
+        n = e["name"]
+        if "Synchronize" in n:
+            d["sync_ms"] += e["dur"] / 1e3
+        elif "Memcpy" in n:
+            d["copy_ms"] += e["dur"] / 1e3
+        elif "LaunchKernel" in n:
+            d["launches"] += 1
+            d["launch_ms"] += e["dur"] / 1e3
+    return dict(busy_ms=busy_us / 1e3, n_device_spans=len(spans),
+                threads=per)
+
+
+def phase_bench(device, world, cfg, profile: bool = False):
     """Path A: bench.py's topology, System(enable_loop_closing=True,
     async_mapping=True), over the sweep; flush_mapping and shutdown at
-    the end."""
+    the end.  The tracker's time per frame is split by the main
+    thread's CPU clock: what it did not run on a CPU it spent blocked,
+    on the map lock (measured) or on the interpreter lock (the rest;
+    CUDA spins while it synchronizes when the process holds fewer
+    contexts than the host has cores, so synchronizations count as run
+    time).  ``profile`` records the
+    card over frames PROFILE_FROM.. with torch.profiler and reads the
+    device's busy share and each thread's waits for the card."""
     import torch
     from orb_slam2_tpu_torch import kernels
     from orb_slam2_tpu_torch.pipeline.system import System
@@ -377,12 +438,19 @@ def phase_bench(device, world, cfg):
     system.store.lock = clock
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    states, frame_ms = [], []
+    states, frame_ms, cpu_ms, lock_ms = [], [], [], []
+    prof = None
     for i, T in enumerate(poses):
-        t0 = time.perf_counter()
+        if profile and i == PROFILE_FROM:
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            prof.start()
+        t0, c0, w0 = time.perf_counter(), time.thread_time(), clock.wait_s
         system.track_monocular_with_pose(frames[i], i * 0.1, T)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
+        cpu_ms.append((time.thread_time() - c0) * 1e3)
+        lock_ms.append((clock.wait_s - w0) * 1e3)
         states.append(system.state)
         log(f"A frame {i:2d}: {system.state.name:15s} "
             f"inliers={system.tracker.matches_inliers:5d} "
@@ -390,6 +458,16 @@ def phase_bench(device, world, cfg):
             f"points={system.store.n_valid_points():6d} "
             f"{frame_ms[-1]:9.1f} ms")
     track_s = sum(frame_ms) / 1e3
+    window = None
+    if prof is not None:
+        prof.stop()
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "path_a_trace.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        prof.export_chrome_trace(path)
+        window = device_window(path, {
+            "tracker": threading.main_thread(),
+            "mapper": system.map_worker._thread})
     t0 = time.perf_counter()
     system.flush_mapping()      # re-raises a mapping-thread exception
     flush_s = time.perf_counter() - t0
@@ -429,6 +507,30 @@ def phase_bench(device, world, cfg):
         f"{clock.wait_s * 1e3:.1f} ms of its {track_s * 1e3:.1f} ms on the "
         f"map lock; final flush {flush_s * 1e3:.1f} ms; peak device "
         f"memory {peak / 2 ** 20:.0f} MiB")
+    wall, cpu, lck = (sum(x[first + 1:]) for x in (frame_ms, cpu_ms,
+                                                     lock_ms))
+    log(f"A: the tracker's {wall:.1f} ms over frames {first + 1}-"
+        f"{N_FRAMES - 1}: {cpu:.1f} ms running on a CPU, {lck:.1f} ms on "
+        f"the map lock, {wall - cpu - lck:.1f} ms blocked otherwise (the "
+        f"interpreter lock) (main thread's CPU clock)")
+    if window is not None:
+        w_wall = sum(frame_ms[PROFILE_FROM:])
+        w_cpu = sum(cpu_ms[PROFILE_FROM:])
+        w_lck = sum(lock_ms[PROFILE_FROM:])
+        tr = window["threads"].get("tracker", {})
+        log(f"A profile, frames {PROFILE_FROM}-{N_FRAMES - 1} "
+            f"(torch.profiler, CUDA activity): {w_wall:.1f} ms of tracker "
+            f"wall time; the card busy {window['busy_ms']:.1f} ms "
+            f"({window['busy_ms'] / w_wall:.3f} of it, "
+            f"{window['n_device_spans']} kernels and copies); the tracker "
+            f"ran {w_cpu:.1f} ms on a CPU, waited {tr.get('sync_ms', 0):.1f}"
+            f" ms in CUDA synchronizations and {tr.get('copy_ms', 0):.1f} "
+            f"ms in copies, {w_lck:.1f} ms on the map lock, and was "
+            f"{w_wall - w_cpu - w_lck:.1f} ms blocked otherwise")
+        for who, d in sorted(window["threads"].items()):
+            log(f"A profile, {who}: {d['launches']} launches taking "
+                f"{d['launch_ms']:.1f} ms, {d['sync_ms']:.1f} ms in "
+                f"synchronizations, {d['copy_ms']:.1f} ms in copies")
     log(f"A: kernel launches {json.dumps(launches)}")
     log("A: timing report:\n" + system.timing_report())
     return launches
@@ -453,37 +555,66 @@ def phase_k4(device, expect):
     return launches
 
 
-def loop_circuit(radius=LOOP_RADIUS, n_lap=LOOP_LAP,
-                 n_revisit=LOOP_REVISIT, drift=LOOP_DRIFT):
+def loop_circuit():
     """True circuit poses (one lap plus its first frames again) and the
-    priors fed in, drifting ``drift`` units per frame in x and half of
+    priors fed in, drifting LOOP_DRIFT units per frame in x and half of
     it in y (tests/test_loop_proof.py's construction)."""
     from orb_slam2_tpu_torch.utils import synth
-    true = synth.loop_trajectory(n_lap, radius=radius, height=FLIGHT_HEIGHT)
-    true = true + true[:n_revisit]
+    true = synth.loop_trajectory(LOOP_LAP, radius=LOOP_RADIUS,
+                                 height=FLIGHT_HEIGHT)
+    true = true + true[:LOOP_REVISIT]
     fed = []
     for t, Tcw in enumerate(true):
         D = np.eye(4, dtype=np.float32)
-        D[:3, 3] = [drift * t, 0.5 * drift * t, 0.0]
+        D[:3, 3] = [LOOP_DRIFT * t, 0.5 * LOOP_DRIFT * t, 0.0]
         fed.append((Tcw @ np.linalg.inv(D)).astype(np.float32))
     return true, fed
 
 
-def phase_loop(device, cfg, **circuit):
+def record_trail(system, trail: list, frame: list) -> None:
+    """At the end of every timed stage of the tracker, the mapper and
+    the loop closer, appends (frame, stage, digest of the map's host
+    state) to ``trail``: two runs part at the first stage whose
+    digests differ."""
+    import contextlib
+    import hashlib
+    store, tracker = system.store, system.tracker
+
+    def digest():
+        h = hashlib.blake2b(digest_size=8)
+        h.update(store.mp_pos.data.tobytes())
+        h.update(store.mp_valid.data.tobytes())
+        for kf in store.kfs:
+            h.update(kf.Tcw.tobytes() + bytes([kf.valid]))
+        if tracker.last_frame is not None:
+            h.update(tracker.last_frame.Tcw.tobytes())
+        h.update(np.int64(tracker.matches_inliers).tobytes())
+        return h.hexdigest()
+
+    for timer in (tracker.timer, system.mapper.timer,
+                  system.loop_closer.timer):
+        def timed(stage, _time=timer.time):
+            with _time(stage):
+                yield
+            trail.append((frame[0], stage, digest()))
+        timer.time = contextlib.contextmanager(timed)
+
+
+def phase_loop(device, cfg, trail: list = None):
     """Path B: a drifted circuit at bench width, sequential mapping, so
-    that whether the loop fires does not depend on thread timing."""
+    that whether the loop fires does not depend on thread timing.
+    ``trail`` collects record_trail's stage digests."""
     import dataclasses
     import torch
     from orb_slam2_tpu_torch import kernels
     from orb_slam2_tpu_torch.pipeline.system import System
     from orb_slam2_tpu_torch.pipeline.tracking import TrackState
     from orb_slam2_tpu_torch.utils import synth
-    true, fed = loop_circuit(**circuit)
+    true, fed = loop_circuit()
     # a square texture that holds the circle plus the footprint's
     # half-diagonal (15 units at height 12) and a unit of margin, at
     # bench.py's 120 px per unit
-    radius = circuit.get("radius", LOOP_RADIUS)
-    side = max(6144, int(np.ceil(2 * (radius + 16.0) * 120.0 / 128)) * 128)
+    side = int(np.ceil(2 * (LOOP_RADIUS + 16.0) * 120.0 / 128)) * 128
     world = synth.make_world(seed=7, tex_size=4096, scale=120.0,
                              tex_shape=(side, side), device=device)
     frames = [synth.render(world, cfg.cam, T) for T in true]
@@ -506,9 +637,13 @@ def phase_loop(device, cfg, **circuit):
         lc._optimize_essential_graph, "group correction + loop fuse",
         "essential graph")
     lc.run_global_ba = staged(lc.run_global_ba, None, "global BA")
+    frame_no = [0]
+    if trail is not None:
+        record_trail(system, trail, frame_no)
     kernels.reset_launch_counts()
     states, frame_ms = [], []
     for i, (img, Tf) in enumerate(zip(frames, fed)):
+        frame_no[0] = i
         t0 = time.perf_counter()
         system.track_monocular_with_pose(img, i * 0.1, Tf)
         torch.cuda.synchronize()
@@ -565,7 +700,48 @@ KERNEL_META = {
 }
 
 
+def repeat_loop(device, cfg) -> int:
+    """--repeat-b: path B four times in one process, twice as the port
+    runs it and twice under torch.use_deterministic_algorithms; says
+    where each pair of runs first parts."""
+    import torch
+    trails, failed = [], 0
+    for det in (False, False, True, True):
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        log(f"B repeat {len(trails)}: deterministic algorithms {det}")
+        trails.append([])
+        try:
+            phase_loop(device, cfg, trails[-1])
+        except SmokeFailure as e:
+            failed += 1
+            log(f"B repeat {len(trails) - 1}: FAIL: {e}")
+    torch.use_deterministic_algorithms(False)
+    for a, b in ((0, 1), (2, 3)):
+        ta, tb = trails[a], trails[b]
+        part = next((k for k, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                    None)
+        if part is None and len(ta) == len(tb):
+            log(f"B repeats {a} and {b}: all {len(ta)} stage digests equal")
+            continue
+        k = min(len(ta), len(tb)) if part is None else part
+        last = ta[k - 1][:2] if k else None
+        log(f"B repeats {a} and {b} part at stage digest {k} of "
+            f"{len(ta)}/{len(tb)}: {ta[k][:2] if k < len(ta) else None} "
+            f"against {tb[k][:2] if k < len(tb) else None}; equal up to "
+            f"{last}")
+    return 1 if failed else 0
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="run only path A, with torch.profiler over "
+                         "frames PROFILE_FROM.. (device busy share, "
+                         "each thread's waits for the card)")
+    ap.add_argument("--repeat-b", action="store_true",
+                    help="run only path B, four times (see repeat_loop)")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -597,6 +773,15 @@ def main() -> int:
 
     cfg = bench_config()
     world, _ = bench_world(device)
+    if args.repeat_b:
+        return repeat_loop(device, cfg)
+    if args.profile:
+        try:
+            phase_bench(device, world, cfg, profile=True)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        return 0
     try:
         timing = phase_kernels(device, world, cfg)
         launches = phase_bench(device, world, cfg)

@@ -225,10 +225,6 @@ class MapStore:
         # notified on KeyFrame::EraseAndSetBad (the reference calls
         # mpKeyFrameDB->erase there); wired by System to PlaceRecognition
         self.on_kf_erased = None
-        # keyframes the local mapper has finished (loop closing
-        # included); the tracker rebuilds a next-frame preparation made
-        # before the count moved
-        self.mapped_kfs = 0
         # incrementally-grown (n_kfs, max_n) table of per-feature
         # octaves (rows are immutable once a KF exists) — lets graph
         # scans gather octaves across MANY keyframes in one fancy index

@@ -26,6 +26,7 @@ import torch
 
 from ..geom import se3
 from . import reproj
+from .segment import IndexSum
 
 CHI2_MONO = 5.991
 # A residual whose point falls behind the camera costs a flat penalty
@@ -60,14 +61,11 @@ def _rho(c2, z, obs_wf, use_huber):
                        torch.zeros_like(rho))
 
 
-def _scatter(vals, idx, n):
-    out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype,
-                      device=vals.device)
-    return out.index_add_(0, idx, vals)
-
-
-def _linearize(cam, pts, obs_cam, obs_pt, obs_uv, obs_isig2, obs_wf,
+def _linearize(cam, pts, per_cam, per_pt, obs_uv, obs_isig2, obs_wf,
                fx, fy, cx, cy, use_huber):
+    """``per_cam``, ``per_pt``: IndexSum over the observations' camera
+    and point rows."""
+    obs_cam, obs_pt = per_cam.idx, per_pt.idx
     res = reproj.project_jacobians(cam[obs_cam], pts[obs_pt], obs_uv,
                                    fx, fy, cx, cy)
     r, z = res.r, res.depth
@@ -78,12 +76,11 @@ def _linearize(cam, pts, obs_cam, obs_pt, obs_uv, obs_isig2, obs_wf,
     Jc, Jp = res.J_pose, res.J_point
     JcT_w = Jc.transpose(1, 2) * w[:, None, None]          # (O, 6, 2)
     JpT_w = Jp.transpose(1, 2) * w[:, None, None]          # (O, 3, 2)
-    K, P = cam.shape[0], pts.shape[0]
     return _Linearized(
-        hcc=_scatter(JcT_w @ Jc, obs_cam, K),
-        gc=_scatter((JcT_w @ r[..., None])[..., 0], obs_cam, K),
-        hpp=_scatter(JpT_w @ Jp, obs_pt, P),
-        gp=_scatter((JpT_w @ r[..., None])[..., 0], obs_pt, P),
+        hcc=per_cam(JcT_w @ Jc),
+        gc=per_cam((JcT_w @ r[..., None])[..., 0]),
+        hpp=per_pt(JpT_w @ Jp),
+        gp=per_pt((JpT_w @ r[..., None])[..., 0]),
         W=JcT_w @ Jp,
         cost=_rho(c2, z, obs_wf, use_huber).sum())
 
@@ -107,10 +104,10 @@ def _inv3_sym(h):
         torch.stack([c02, c12, c22], -1)], -2) * idet[:, None, None]
 
 
-def _solve_step(lin: _Linearized, obs_cam, obs_pt, lam, fixed_cam,
+def _solve_step(lin: _Linearized, per_cam, per_pt, lam, fixed_cam,
                 cg_iters):
     """One damped Schur + PCG solve -> (delta_c (K, 6), delta_p (P, 3))."""
-    K, P = lin.hcc.shape[0], lin.hpp.shape[0]
+    K = lin.hcc.shape[0]
     free = ~fixed_cam
     eye6 = torch.eye(6, dtype=lin.hcc.dtype, device=lin.hcc.device)
     eye3 = torch.eye(3, dtype=lin.hcc.dtype, device=lin.hcc.device)
@@ -125,12 +122,13 @@ def _solve_step(lin: _Linearized, obs_cam, obs_pt, lam, fixed_cam,
     hpp_inv = _inv3_sym(hpp_d)
     W = lin.W
 
+    obs_cam, obs_pt = per_cam.idx, per_pt.idx
+
     def W_x(x):        # per obs W^T x(cam) -> scatter to points
-        return _scatter((W.transpose(1, 2) @ x[obs_cam][..., None])[..., 0],
-                        obs_pt, P)
+        return per_pt((W.transpose(1, 2) @ x[obs_cam][..., None])[..., 0])
 
     def Wt_z(z):       # per obs W z(point) -> scatter to cameras
-        return _scatter((W @ z[obs_pt][..., None])[..., 0], obs_cam, K)
+        return per_cam((W @ z[obs_pt][..., None])[..., 0])
 
     def hinv(v):
         return (hpp_inv @ v[..., None])[..., 0]
@@ -142,7 +140,7 @@ def _solve_step(lin: _Linearized, obs_cam, obs_pt, lam, fixed_cam,
         return torch.where(free[:, None], out, x)
 
     # block-Jacobi preconditioner: the exact Schur diagonal blocks
-    whw = _scatter(W @ hpp_inv[obs_pt] @ W.transpose(1, 2), obs_cam, K)
+    whw = per_cam(W @ hpp_inv[obs_pt] @ W.transpose(1, 2))
     S_diag = torch.where(free[:, None, None], hcc_d - whw,
                          eye6.expand(K, 6, 6))
     M_inv = torch.linalg.inv(S_diag + 1e-8 * eye6)
@@ -177,16 +175,18 @@ def bundle_adjust(cam_Tcw, points, obs_cam, obs_pt, obs_uv, obs_isig2,
     fixed_cam (K,) bool."""
     obs_wf = obs_valid.to(points.dtype)
     obs_cam, obs_pt = obs_cam.long(), obs_pt.long()
+    per_cam = IndexSum(obs_cam, cam_Tcw.shape[0])
+    per_pt = IndexSum(obs_pt, points.shape[0])
 
     def lin_at(cam, pts):
-        return _linearize(cam, pts, obs_cam, obs_pt, obs_uv, obs_isig2,
+        return _linearize(cam, pts, per_cam, per_pt, obs_uv, obs_isig2,
                           obs_wf, fx, fy, cx, cy, use_huber)
 
     cam, pts = cam_Tcw, points
     lin = lin_at(cam, pts)
     lam = torch.tensor(1e-4, dtype=points.dtype, device=points.device)
     for _ in range(iters):
-        dc, dp = _solve_step(lin, obs_cam, obs_pt, lam, fixed_cam, cg_iters)
+        dc, dp = _solve_step(lin, per_cam, per_pt, lam, fixed_cam, cg_iters)
         cam_new = se3.exp(dc) @ cam
         pts_new = pts + dp
         lin_new = lin_at(cam_new, pts_new)

@@ -8,10 +8,11 @@ observations independently, as one batched Levenberg-Marquardt.
 
 The JAX package writes every quantity as a rank-1 "lane" to dodge TPU
 tile padding; the port uses the plain per-observation form: the (O, 2, 3)
-point Jacobians, reduced per point into (P, 3, 3) normal equations with
-``index_add_``, with the same LM schedule (one linearization per
-iteration, per-point accept/reject, damping x0.5 / x4 from 1e-3) and
-the same Huber weighting.
+point Jacobians, reduced per point into (P, 3, 3) normal equations by
+``segment.IndexSum`` (``index_add_`` that repeats on the card), with
+the same LM schedule (one linearization per iteration, per-point
+accept/reject, damping x0.5 / x4 from 1e-3) and the same Huber
+weighting.
 
 Observation layout (flat arrays, length O):
   obs_pt[o]   : point index
@@ -26,6 +27,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from .segment import IndexSum
 
 CHI2_MONO = 5.991
 
@@ -48,6 +51,7 @@ def optimize_points(
 ) -> PointsOptResult:
     P = points0.shape[0]
     obs_pt = obs_pt.long()
+    per_point = IndexSum(obs_pt, P)
     T = obs_Tcw[obs_cam.long()] if obs_cam is not None else obs_Tcw
     R = T[:, :3, :3]                      # (O, 3, 3)
     t = T[:, :3, 3]                       # (O, 3)
@@ -86,9 +90,9 @@ def optimize_points(
             obs_valid,
             torch.where(z > 0, rho, torch.full_like(rho, 1.0e8)),
             torch.zeros_like(rho))
-        H = pts.new_zeros((P, 3, 3)).index_add_(0, obs_pt, Hobs)
-        g = pts.new_zeros((P, 3)).index_add_(0, obs_pt, gobs)
-        cost = pts.new_zeros(P).index_add_(0, obs_pt, rho_eff)
+        H = per_point(Hobs)
+        g = per_point(gobs)
+        cost = per_point(rho_eff)
         return H, g, cost
 
     pts = points0.clone()

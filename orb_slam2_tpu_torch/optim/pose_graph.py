@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..geom import sim3
+from .segment import IndexSum
 
 
 class PoseGraphResult(NamedTuple):
@@ -81,11 +82,11 @@ def optimize_pose_graph(sims0, edge_i, edge_j, edge_meas, edge_weight,
         r = _edge_residual(zero, zero, sims[edge_i], sims[edge_j], edge_meas)
         return (edge_weight * (r * r).sum(-1)).sum()
 
-    def scatter(vals_i, vals_j, shape):
-        out = torch.zeros((K,) + shape, dtype=dt, device=dev)
-        out.index_add_(0, edge_i, vals_i)
-        out.index_add_(0, edge_j, vals_j)
-        return out
+    # the i-side rows, then the j-side rows, into their keyframes
+    per_kf = IndexSum(torch.cat([edge_i, edge_j]), K)
+
+    def scatter(vals_i, vals_j):
+        return per_kf(torch.cat([vals_i, vals_j]))
 
     sims = sims0
     lam = torch.tensor(1e-3, dtype=dt, device=dev)
@@ -96,12 +97,12 @@ def optimize_pose_graph(sims0, edge_i, edge_j, edge_meas, edge_weight,
 
         # gradient g_k = sum_e J^T r
         g = scatter(torch.einsum("eab,ea->eb", Jiw, r),
-                    torch.einsum("eab,ea->eb", Jjw, r), (7,))
+                    torch.einsum("eab,ea->eb", Jjw, r))
         g = torch.where(free[:, None], g, torch.zeros_like(g))
 
         # block-diagonal preconditioner + damping
         diag = scatter(torch.einsum("eab,eac->ebc", Jiw, Ji),
-                       torch.einsum("eab,eac->ebc", Jjw, Jj), (7, 7))
+                       torch.einsum("eab,eac->ebc", Jjw, Jj))
         damp = lam * eye7 * torch.clamp(
             torch.diagonal(diag, dim1=-2, dim2=-1).sum(-1)[:, None, None]
             / 7.0, min=1e-6)
@@ -114,7 +115,7 @@ def optimize_pose_graph(sims0, edge_i, edge_j, edge_meas, edge_weight,
             ri = torch.einsum("eab,eb->ea", Ji, xm[edge_i]) \
                 + torch.einsum("eab,eb->ea", Jj, xm[edge_j])
             out = scatter(torch.einsum("eab,ea->eb", Jiw, ri),
-                          torch.einsum("eab,ea->eb", Jjw, ri), (7,))
+                          torch.einsum("eab,ea->eb", Jjw, ri))
             out = out + (damp @ xm[..., None])[..., 0]
             return torch.where(free[:, None], out, x)
 

@@ -314,7 +314,6 @@ class LocalMapper:
         if self.on_keyframe_processed:
             with self.timer.time("mapping/loop_closing"):
                 self.on_keyframe_processed(kid)
-        store.mapped_kfs += 1
 
     # ------------------------------------------------------------------
     def _cull_map_points(self, kid: int):

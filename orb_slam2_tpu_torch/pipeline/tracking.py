@@ -253,15 +253,6 @@ class Tracker:
         if self.state == TrackState.OK:
             prep_ok = (self._prep is not None
                        and self._prep["frame"] is self.last_frame)
-            if prep_ok and self._prep["mapped"] != self.store.mapped_kfs:
-                # the mapping thread finished a keyframe after the
-                # preparation was made: rebuild it, so the new points
-                # are searched now (the sequential pipeline prepares
-                # after mapping; the JAX package's asynchronous one
-                # keeps the stale preparation for a frame)
-                with self.timer.time("track/prep_refresh"), self.store.lock:
-                    self._prepare_next(self.last_frame)
-                prep_ok = self._prep is not None
             if prep_ok:
                 with self.timer.time("track/fused_step"):
                     out = self._fused_dispatch(frame)
@@ -542,7 +533,6 @@ class Tracker:
         self.store.dev_points.sync(self.store)
         self._prep = dict(
             frame=frame,
-            mapped=self.store.mapped_kfs,
             bound_pids=bound_pids,
             cand_pids=uniq.astype(np.int64),
             bound_pid_rows=self._t(np.pad(bound_pids.astype(np.int32),

@@ -1,17 +1,25 @@
 """The port's asynchronous mapping: ``System(async_mapping=True)`` with a
-flush after every frame (bench.py's warm-up discipline) against the
-sequential pipeline, and the AsyncMapper's queue contract (idle while
-nothing is queued, worker exceptions surfacing on the caller's thread).
+flush after every frame (bench.py's warm-up discipline) against the JAX
+package's own asynchronous run on the same frames, and the AsyncMapper's
+queue contract (idle while nothing is queued, worker exceptions
+surfacing on the caller's thread).
 
 Size: tests/test_torch_slice.py's (640x480, 800 features, 4 levels),
-15 frames of the aerial sweep.  Both runs are the port's, so the bar is
-exact agreement."""
+15 frames of the aerial sweep, rendered once with the port's renderer
+and fed to both packages.  In both packages the tracker prepares the
+next frame's local map before the mapping thread has mapped a new
+keyframe, so the frame after a keyframe searches the map as it stood
+before that keyframe: asynchronous mapping with a flush per frame does
+not equal sequential mapping, in either package."""
 import threading
 
 import numpy as np
 import pytest
 import torch
 
+from orb_slam2_tpu.geom.camera import Intrinsics as JIntrinsics
+from orb_slam2_tpu.ops.extractor import OrbParams as JOrbParams
+from orb_slam2_tpu.pipeline import SlamConfig as JSlamConfig, System as JSystem
 from orb_slam2_tpu_torch.geom.camera import Intrinsics
 from orb_slam2_tpu_torch.ops.extractor import OrbParams
 from orb_slam2_tpu_torch.pipeline.config import SlamConfig
@@ -22,42 +30,68 @@ from orb_slam2_tpu_torch.utils import synth
 torch.set_num_threads(1)
 
 N_FRAMES = 15
-CAM = Intrinsics(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640,
-                 height=480)
+CAM_KW = dict(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640, height=480)
+CFG_KW = dict(fps=10.0, pose_prior=True, init_min_matches=60,
+              init_min_triangulated=40, init_min_tracked_after_ba=60)
+CAM = Intrinsics(**CAM_KW)
 
 
 def _config():
     return SlamConfig(cam=CAM, orb=OrbParams(n_features=800, n_levels=4),
-                      fps=10.0, pose_prior=True, init_min_matches=60,
-                      init_min_triangulated=40, init_min_tracked_after_ba=60)
+                      **CFG_KW)
 
 
-def _run(async_mapping: bool):
-    world = synth.make_world(seed=3)
-    poses = synth.aerial_trajectory(N_FRAMES, speed=0.3)
-    system = System(_config(), async_mapping=async_mapping, device="cpu")
+def _run(system, images, poses):
     per = []
     for i, T in enumerate(poses):
-        system.track_monocular_with_pose(synth.render(world, CAM, T),
-                                         i * 0.1, T)
+        system.track_monocular_with_pose(images[i], i * 0.1, T)
         system.flush_mapping()
-        per.append((system.state.name, system.store.n_valid_keyframes(),
-                    system.store.n_valid_points(),
-                    system.tracker.matches_inliers))
+        per.append(dict(state=system.state.name,
+                        kfs=system.store.n_valid_keyframes(),
+                        inliers=system.tracker.matches_inliers))
     system.shutdown()
-    return system, per
+    return per
 
 
-def test_async_with_flush_equals_sequential():
-    """Bar: identical per-frame states, keyframe counts, valid map-point
-    counts and inliers, the same final map to the bit, and the mapping
-    thread joined by shutdown."""
-    seq, per_seq = _run(False)
-    asy, per_asy = _run(True)
-    assert per_asy == per_seq
-    assert sum(p[0] == "OK" for p in per_seq) >= N_FRAMES - 1
-    np.testing.assert_array_equal(asy.map_points(), seq.map_points())
-    assert asy.map_worker is None
+@pytest.fixture(scope="module")
+def runs():
+    """Both packages with loop detection on the mapping thread, as
+    bench.py runs them, and a flush after every frame."""
+    world = synth.make_world(seed=3)
+    poses = synth.aerial_trajectory(N_FRAMES, speed=0.3)
+    images = [synth.render(world, CAM, T) for T in poses]
+    port = System(_config(), async_mapping=True, device="cpu")
+    per_port = _run(port, images, poses)
+    jsys = JSystem(JSlamConfig(cam=JIntrinsics(**CAM_KW),
+                               orb=JOrbParams(n_features=800, n_levels=4),
+                               **CFG_KW), async_mapping=True)
+    per_jax = _run(jsys, [im.numpy() for im in images], poses)
+    return dict(port=port, jsys=jsys, per_port=per_port, per_jax=per_jax)
+
+
+def test_async_with_flush_matches_the_reference_async(runs):
+    """Bars (tests/test_torch_slice.py's for the sequential pipeline):
+    identical per-frame states; keyframe counts within one at every
+    frame; per-frame inliers within 15% after initialization; final
+    valid map points within 10%.  Extraction agrees to float32 rounding,
+    so a keyframe decision near its threshold may fall one frame apart."""
+    pp, pj = runs["per_port"], runs["per_jax"]
+    assert [p["state"] for p in pp] == [p["state"] for p in pj]
+    assert sum(p["state"] == "OK" for p in pp) >= N_FRAMES - 1
+    for i, (p, j) in enumerate(zip(pp, pj)):
+        assert abs(p["kfs"] - j["kfs"]) <= 1, (i, p, j)
+        if j["inliers"] > 0:
+            assert abs(p["inliers"] - j["inliers"]) <= 0.15 * j["inliers"], \
+                (i, p, j)
+    mp, mj = runs["port"].map_points(), runs["jsys"].map_points()
+    assert abs(len(mp) - len(mj)) <= 0.1 * len(mj), (len(mp), len(mj))
+    assert np.median(np.abs(mp[:, 2])) < 0.08
+
+
+def test_shutdown_joins_the_mapping_thread(runs):
+    """After shutdown the System holds no worker and no mapping thread
+    is alive."""
+    assert runs["port"].map_worker is None
     assert not any(t.name == "local_mapping" and t.is_alive()
                    for t in threading.enumerate())
 

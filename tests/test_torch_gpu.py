@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (K1, K2, K3, K4) against their plain
-PyTorch versions on the card.  Every test here is marked ``gpu`` and
+PyTorch versions on the card, and the solvers' per-target sums
+(``optim.segment.IndexSum``) against ``index_add_`` on the CPU.  Every test here is marked ``gpu`` and
 skips without a CUDA device.  This file imports no jax, so it runs on a
 machine without the JAX package:
 
@@ -13,6 +14,7 @@ import torch
 from orb_slam2_tpu_torch import kernels
 from orb_slam2_tpu_torch.matching import hamming_top2 as ht
 from orb_slam2_tpu_torch.ops import fast as tfast, pyramid as tpyr
+from orb_slam2_tpu_torch.optim.segment import IndexSum
 
 torch.set_num_threads(1)
 
@@ -127,3 +129,26 @@ class TestKernelsOnCard:
             ht.masked_top2_mutual(d.float(), d, ra, ca)
         with pytest.raises(ValueError):     # mixed devices
             ht.masked_top2_mutual(d, d.cpu(), ra, ca)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [50000, 100])
+@pytest.mark.parametrize("trail", [(), (3,), (7, 7)])
+def test_index_sum_repeats(cuda, n, trail):
+    """200000 rows into n targets: a map point's few observations (n =
+    50000) or a keyframe's thousands (n = 100).  Bars: two calls give
+    the same bits; short segments of rows with two or more dimensions
+    sum in row order, bit-exact with ``index_add_`` on the CPU; the
+    rest (tree reductions) within 1e-5 relative of it."""
+    rng = np.random.default_rng(n + len(trail))
+    idx = torch.as_tensor(rng.integers(0, n, 200000))
+    vals = torch.as_tensor(
+        rng.standard_normal((200000,) + trail).astype(np.float32))
+    ref = vals.new_zeros((n,) + trail).index_add_(0, idx, vals)
+    per = IndexSum(idx.to(cuda), n)
+    a, b = per(vals.to(cuda)), per(vals.to(cuda))
+    assert torch.equal(a, b)
+    if trail and not per.long:
+        assert torch.equal(a.cpu(), ref)
+    else:
+        torch.testing.assert_close(a.cpu(), ref, rtol=1e-5, atol=1e-4)

@@ -316,10 +316,8 @@ N_LAP, N_REVISIT, DRIFT, RADIUS = 40, 14, 0.02, 8.0
 def _circuit():
     """tests/test_loop_proof.py's drifted circuit: the true poses render
     the images, priors drifting 0.02 units per frame are fed in.  The
-    radius is 8 instead of 6: on the port's texture the 6-unit circle
-    overlaps itself so much that the revisit keyframe is covisible with
-    the first keyframes before the loop fires, and neither package's
-    correction then beats the drifted priors."""
+    radius is 8 instead of 6, a circle on which both packages'
+    corrections beat the drifted priors (the test's bar)."""
     true = synth.loop_trajectory(N_LAP, radius=RADIUS)
     true = true + true[:N_REVISIT]
     fed = []
