@@ -9,8 +9,9 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
   1. device: the card's name and power limit; build the hand-written
      CUDA kernels (csrc/*.cu) and print nvcc's register/smem report;
   2. kernels: each kernel (K1-K4) against its plain PyTorch version on
-     the card at main-path shapes, bit-exact, with CUDA-event times of
-     both and the least time the card could take (``bound_ms``);
+     the card at main-path shapes (K2 at both of its shapes),
+     bit-exact, with CUDA-event times of both and the least time the
+     card could take (``bound_ms``);
   3. path A, bench.py's topology: ``System(cfg,
      enable_loop_closing=True, async_mapping=True)`` tracks a 40-frame
      1920x1440 aerial sweep with 4000 ORB features on 8 levels through
@@ -74,6 +75,10 @@ PROFILE_FROM = 20
 PEAK_INT8 = 1979e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# 67 TFLOP/s counts a fused multiply-add as two operations: 128 lanes a
+# clock on each of 132 SMs at 1.98 GHz.  A subtract, min or max is one
+# instruction for one operation, so K1's work runs at half of it.
+PEAK_FP32_INSTR = PEAK_FP32 / 2
 
 
 class SmokeFailure(Exception):
@@ -112,6 +117,34 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Mean milliseconds per call of ``fn`` on the card with no host in
+    the way: ``reps`` calls captured in one CUDA graph, replayed
+    ``replays`` times between CUDA events.  ``cuda_ms`` of a call whose
+    Python wrapper takes longer than its kernels measures the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 # ----------------------------------------------------------------------
@@ -210,12 +243,17 @@ def k4_problem(n_rows: int, n_cols: int, invalid: float, seed: int, device):
 
 
 def phase_kernels(device, world, cfg):
-    """Each kernel against its plain version, bit-exact, with times."""
+    """Each kernel against its plain version, bit-exact, with times:
+    ``ms`` is the device's time per call with the calls captured in a
+    CUDA graph (graph_ms), ``loop_ms`` the time per call of a loop of
+    wrapper calls (cuda_ms, which a fast kernel's host wrapper can
+    set), ``plain_ms`` the plain version's (cuda_ms).  Returns one
+    entry per (kernel, shape)."""
     import torch
     from orb_slam2_tpu_torch.matching import hamming_top2 as ht
     from orb_slam2_tpu_torch.ops import fast, pyramid
     from orb_slam2_tpu_torch.utils import synth
-    results = {}
+    results = []
 
     # K1 on all 8 levels of a rendered 1920x1440 frame
     _, poses = bench_world(device)
@@ -233,61 +271,51 @@ def phase_kernels(device, world, cfg):
               f"{tuple(lvl.shape)} level: max |diff| "
               f"{(ki - pi).abs().max().item()}")
         err = max(err, (ki - pi).abs().max().item())
-    ms = cuda_ms(lambda: [fast.fast_score(lvl) for lvl in levels])
+    frame = lambda: [fast.fast_score(lvl) for lvl in levels]  # noqa: E731
+    ms, loop_ms = graph_ms(frame), cuda_ms(frame)
     plain_ms = cuda_ms(lambda: [fast.fast_score_map(lvl) for lvl in levels])
     # per pixel: read 4 B, write 4 B; 32 ring differences, 2 x (64 arc
-    # mins + 16 maxes) and one max = 193 float ops on the CUDA cores
+    # mins + 16 maxes) and one max = 193 float instructions
     pixels = sum(int(lvl.numel()) for lvl in levels)
-    results["fast_score"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        shape="8 levels of 1920x1440",
-        **bound(8 * pixels, 193 * pixels, PEAK_FP32))
-    log(f"K1 fast_score: interior bit-exact on 8 levels; "
-        f"{ms:.4f} ms per frame (plain {plain_ms:.4f} ms)")
+    results.append(dict(
+        name="fast_score", max_abs_err=err, ms=ms, loop_ms=loop_ms,
+        plain_ms=plain_ms, shape="8 levels of 1920x1440 (all 8 launches)",
+        **bound(8 * pixels, 193 * pixels, PEAK_FP32_INSTR)))
+    log(f"K1 fast_score: interior bit-exact on 8 levels; {ms:.4f} ms per "
+        f"frame of 8 launches, {ms / 8:.4f} ms per launch (loop of wrapper "
+        f"calls {loop_ms:.4f} ms; plain {plain_ms:.4f} ms)")
 
-    # K2 at the last-frame (4096x4096) and local-map (16384x4096) shapes
-    for n_rows, seed in ((4096, 1), (16384, 2)):
-        args = search_problem(n_rows, 4096, False, seed, device)
-        k = ht.masked_top2_mutual(*args)
-        p = ht.masked_top2_mutual_plain(*args)
+    # K2 at the last-frame (4096x4096) and local-map (16384x4096)
+    # shapes, K3 at the triangulation shape (4096x4096)
+    for name, n_rows, seed, near in (("masked_top2_mutual", 4096, 1, 100),
+                                     ("masked_top2_mutual", 16384, 2, 100),
+                                     ("masked_top2_epi", 4096, 3, 50)):
+        epi = name == "masked_top2_epi"
+        what = "K3" if epi else "K2"
+        args = search_problem(n_rows, 4096, epi, seed, device)
+        kern = getattr(ht, name)
+        plain = getattr(ht, f"{name}_plain")
+        k = kern(*args)
+        p = plain(*args)
         torch.cuda.synchronize()
-        for a, b, what in zip(k, p, ("best", "second", "column")):
+        for a, b, key in zip(k, p, ("best", "second", "column")):
             check(torch.equal(a, b),
-                  f"K2 {what} keys differ at {n_rows}x4096 "
+                  f"{what} {key} keys differ at {n_rows}x4096 "
                   f"({(a != b).sum().item()} entries)")
-        n_match = int((k[0] // ht.COL_STRIDE <= 100).sum())
-        check(n_match > 0, "K2 test problem admits no match")
-        ms = cuda_ms(lambda: ht.masked_top2_mutual(*args))
-        plain_ms = cuda_ms(lambda: ht.masked_top2_mutual_plain(*args),
-                           reps=5)
-        log(f"K2 masked_top2_mutual {n_rows}x4096: keys bit-exact "
-            f"({n_match} rows matched); {ms:.4f} ms "
-            f"(plain {plain_ms:.4f} ms)")
-        results["masked_top2_mutual"] = dict(
-            max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-            shape=f"{n_rows}x4096",
-            **bound(n_rows * (32 + 24 + 8) + 4096 * (32 + 16 + 4),
-                    2 * n_rows * 4096 * 256, PEAK_INT8))
-
-    # K3 at the triangulation shape (4096x4096)
-    args = search_problem(4096, 4096, True, 3, device)
-    k = ht.masked_top2_epi(*args)
-    p = ht.masked_top2_epi_plain(*args)
-    torch.cuda.synchronize()
-    for a, b, what in zip(k, p, ("best", "second", "column")):
-        check(torch.equal(a, b),
-              f"K3 {what} keys differ at 4096x4096 "
-              f"({(a != b).sum().item()} entries)")
-    n_match = int((k[0] // ht.COL_STRIDE <= 50).sum())
-    check(n_match > 0, "K3 test problem admits no match")
-    ms = cuda_ms(lambda: ht.masked_top2_epi(*args))
-    plain_ms = cuda_ms(lambda: ht.masked_top2_epi_plain(*args), reps=5)
-    log(f"K3 masked_top2_epi 4096x4096: keys bit-exact ({n_match} rows "
-        f"matched); {ms:.4f} ms (plain {plain_ms:.4f} ms)")
-    results["masked_top2_epi"] = dict(
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, shape="4096x4096",
-        **bound(4096 * (32 + 16 + 8) + 4096 * (32 + 16 + 4),
-                2 * 4096 * 4096 * 256, PEAK_INT8))
+        n_match = int((k[0] // ht.COL_STRIDE <= near).sum())
+        check(n_match > 0, f"{what} test problem admits no match")
+        ms = graph_ms(lambda: kern(*args))
+        loop_ms = cuda_ms(lambda: kern(*args))
+        plain_ms = cuda_ms(lambda: plain(*args), reps=5)
+        log(f"{what} {name} {n_rows}x4096: keys bit-exact ({n_match} rows "
+            f"matched); {ms:.4f} ms (loop of wrapper calls {loop_ms:.4f} "
+            f"ms; plain {plain_ms:.4f} ms)")
+        row_bytes = 32 + (16 if epi else 24) + 8
+        results.append(dict(
+            name=name, max_abs_err=0.0, ms=ms, loop_ms=loop_ms,
+            plain_ms=plain_ms, shape=f"{n_rows}x4096",
+            **bound(n_rows * row_bytes + 4096 * (32 + 16 + 4),
+                    2 * n_rows * 4096 * 256, PEAK_INT8)))
 
     # K4 at tools/pallas_chip_check.py's shape, 20% of the columns
     # invalid, then a block of rows with no valid column at all
@@ -308,17 +336,20 @@ def phase_kernels(device, world, cfg):
               f"block ({(a != b).sum().item()} rows)")
     check(bool((kb[0] >= ht.BIG).all() and (kb[2] == ht.BIG).all()),
           "K4 all-invalid rows must give BIG + d and second == BIG")
-    ms = cuda_ms(lambda: ht.hamming_top2(*args))
+    ms = graph_ms(lambda: ht.hamming_top2(*args))
+    loop_ms = cuda_ms(lambda: ht.hamming_top2(*args))
     plain_ms = cuda_ms(lambda: ht.hamming_top2_plain(*args), reps=5)
     log(f"K4 hamming_top2 4096x4096 (20% columns invalid): bit-exact "
         f"({n_match} rows within 64 bits), all-invalid 512x4096 block "
-        f"bit-exact; {ms:.4f} ms (plain {plain_ms:.4f} ms)")
-    results["hamming_top2"] = dict(
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, shape="4096x4096",
+        f"bit-exact; {ms:.4f} ms (loop of wrapper calls {loop_ms:.4f} ms; "
+        f"plain {plain_ms:.4f} ms)")
+    results.append(dict(
+        name="hamming_top2", max_abs_err=0.0, ms=ms, loop_ms=loop_ms,
+        plain_ms=plain_ms, shape="4096x4096",
         **bound(4096 * (32 + 12) + 4096 * (32 + 1),
-                2 * 4096 * 4096 * 256, PEAK_INT8))
-    for name, r in results.items():
-        log(f"bound {name} {r['shape']}: {r['bound_ms'] * 1e3:.2f} us "
+                2 * 4096 * 4096 * 256, PEAK_INT8)))
+    for r in results:
+        log(f"bound {r['name']} {r['shape']}: {r['bound_ms'] * 1e3:.2f} us "
             f"({r['bound_by']}); kernel at {r['bound_ms'] / r['ms']:.3f} "
             f"of it")
     return results
@@ -691,9 +722,9 @@ def phase_loop(device, cfg, trail: list = None):
 KERNEL_META = {
     "fast_score": ("orb_slam2_tpu_torch/csrc/fast_score.cu",
                    "orb_slam2_tpu/ops/fast.py:81"),
-    "masked_top2_mutual": ("orb_slam2_tpu_torch/csrc/hamming_top2.cu",
+    "masked_top2_mutual": ("orb_slam2_tpu_torch/csrc/masked_top2.cu",
                            "orb_slam2_tpu/matching/pallas_hamming.py:187"),
-    "masked_top2_epi": ("orb_slam2_tpu_torch/csrc/hamming_top2.cu",
+    "masked_top2_epi": ("orb_slam2_tpu_torch/csrc/masked_top2.cu",
                         "orb_slam2_tpu/matching/pallas_hamming.py:307"),
     "hamming_top2": ("orb_slam2_tpu_torch/csrc/hamming_top2.cu",
                      "orb_slam2_tpu/matching/pallas_hamming.py:47"),
@@ -794,15 +825,15 @@ def main() -> int:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     rows = []
-    for name, (source, replaces) in KERNEL_META.items():
-        t = timing[name]
+    for t in timing:
+        source, replaces = KERNEL_META[t["name"]]
         # no single PyTorch call computes any of the four functions
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=launches[name],
+        rows.append(dict(name=t["name"], route="cuda", source=source,
+                         replaces=replaces, launches=launches[t["name"]],
                          max_abs_err=t["max_abs_err"], ms=t["ms"],
                          plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                          bound_by=t["bound_by"], library_ms=None,
-                         shape=t["shape"]))
+                         shape=t["shape"], loop_ms=t["loop_ms"]))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Build, load and count the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources compile with one ``nvcc`` call into a shared library with a
-plain C interface, bound with ``ctypes``: no PyTorch headers, so the
-build takes seconds.  The library is built at first use into
+Each source compiles in its own ``nvcc`` process, all started together,
+and one more links the objects into a shared library with a plain C
+interface, bound with ``ctypes``: no PyTorch headers, so the build takes
+seconds.  The library is built at first use into
 ``build/cuda/`` at the repository root (git-ignored) and rebuilt when a
 source is newer than it.  Nothing is compiled or loaded at import time.
 
@@ -31,7 +32,7 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cuda")
 LIB_PATH = os.path.join(BUILD_DIR, "liborb_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # C entry point per kernel: argument ctypes after the leading pointers
 _SIGNATURES = {
@@ -39,11 +40,11 @@ _SIGNATURES = {
                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_int, ctypes.c_void_p]),
     "masked_top2_mutual": ("orb_masked_top2_mutual",
-                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                           + [ctypes.c_void_p] * 4),
+                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p] * 5),
     "masked_top2_epi": ("orb_masked_top2_epi",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                        + [ctypes.c_void_p] * 4),
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                        + [ctypes.c_void_p] * 5),
     "hamming_top2": ("orb_hamming_top2",
                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                      + [ctypes.c_void_p] * 4),
@@ -78,16 +79,31 @@ def build(force: bool = False) -> dict:
             and os.path.getmtime(LIB_PATH) >= newest):
         return dict(seconds=0.0, ptxas="", built=False)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+    objs, procs = [], []
+    for src in sources:
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    report = [proc.communicate()[0] for proc in procs]
+    for src, proc, out in zip(sources, procs, report):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                               f"({proc.returncode}):\n{out}")
+    tmp = f"{LIB_PATH}.{tag}"
+    proc = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs],
                           capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, LIB_PATH)
     return dict(seconds=time.perf_counter() - t0,
-                ptxas=(proc.stdout + proc.stderr).strip(), built=True)
+                ptxas="\n".join(report).strip(), built=True)
 
 
 def library() -> ctypes.CDLL:

@@ -26,11 +26,15 @@ M <= COL_STRIDE and N <= ROW_STRIDE, which both the kernels' wrappers
 and the plain versions check (the JAX twins alias past those limits).
 
 On a CUDA tensor :func:`masked_top2_mutual` / :func:`masked_top2_epi`
-launch the hand-written kernels of ``csrc/hamming_top2.cu``; on a CPU
-tensor they run :func:`masked_top2_mutual_plain` /
-:func:`masked_top2_epi_plain`.
+launch the hand-written kernel of ``csrc/masked_top2.cu`` (distances on
+the tensor cores as a +-1 int8 product, laid out as
+:func:`pm1_operand` shows; the columns cut into :func:`n_splits` splits
+merged inside the launch); on a CPU tensor they run
+:func:`masked_top2_mutual_plain` / :func:`masked_top2_epi_plain`.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -42,6 +46,9 @@ BIG = 1 << 20        # K4: added to the distance of an invalid column
 MASK_D = 1023        # masked-pair distance sentinel (real max is 256)
 COL_STRIDE = 4096    # key = d * COL_STRIDE + col  (requires M <= 4096)
 ROW_STRIDE = 16384   # colkey = d * ROW_STRIDE + row (requires N <= 16384)
+INT_MAX = 2 ** 31 - 1
+COL_CHUNK = 32       # K2/K3: columns a block stages at a time
+BLOCKS_PER_SM = 4    # K2/K3: blocks an SM holds (128 registers a thread)
 
 
 def _check_sizes(n: int, m: int) -> None:
@@ -97,6 +104,40 @@ def masked_top2_epi_plain(desc1, desc2, row_attr, col_attr):
     return _keys_plain(ok, desc1, desc2)
 
 
+def pm1_operand(desc):
+    """Plain version of the operand layout K2/K3 stage for the tensor
+    cores: (N, 8) int32 descriptors -> (N, 256) int8, +1 for a set bit
+    and -1 for a clear one, so that ``256 - a @ b.T == 2 * hamming``.
+    Within word w, bits 0-3 of byte t go to k = 32w + 4t + 0..3 and
+    bits 4-7 to k = 32w + 16 + 4t + 0..3: the k order of one thread's
+    mma.m16n8k32 fragment, so that a byte feeds one 8-byte load."""
+    shifts = torch.arange(32, dtype=torch.int64, device=desc.device)
+    bits = (desc.to(torch.int64)[:, :, None] >> shifts) & 1   # (N, 8, 32)
+    t = torch.arange(4).repeat_interleave(8)     # byte of bit position b
+    i = torch.arange(32) % 8                     # bit within that byte
+    k = t * 4 + torch.where(i < 4, i, i - 4 + 16)
+    out = torch.empty_like(bits)
+    out[:, :, k.to(desc.device)] = bits
+    return (out * 2 - 1).to(torch.int8).reshape(desc.shape[0], 256)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def n_splits(n: int, m: int, n_sm: int) -> int:
+    """Column splits K2/K3 cut each 128-row tile into: the largest power
+    of two whose grid fits in one wave of BLOCKS_PER_SM blocks on each
+    of the card's n_sm SMs (at least 1, at most one split per COL_CHUNK
+    columns).  The fastest on the H100 at both main-path shapes
+    (PERF.md)."""
+    s = 1
+    while 2 * s * (n // TILE) <= BLOCKS_PER_SM * n_sm:
+        s *= 2
+    return min(s, m // COL_CHUNK)
+
+
 def _launch(name: str, desc1, desc2, row_attr, col_attr, n_row_attr: int):
     """Validate and launch K2 / K3 on CUDA tensors."""
     n, m = desc1.shape[0], desc2.shape[0]
@@ -116,13 +157,18 @@ def _launch(name: str, desc1, desc2, row_attr, col_attr, n_row_attr: int):
                              f"{tuple(t.shape)} {t.dtype}")
     desc1, desc2, row_attr, col_attr = (t.contiguous() for t in
                                         (desc1, desc2, row_attr, col_attr))
-    bkey = torch.empty(n, dtype=torch.int32, device=desc1.device)
-    skey = torch.empty(n, dtype=torch.int32, device=desc1.device)
-    ckey = torch.full((m,), 2 ** 31 - 1, dtype=torch.int32,
-                      device=desc1.device)
-    kernels.call(name, desc1, desc2, row_attr, col_attr, n, m,
-                 bkey, skey, ckey)
-    return bkey, skey, ckey
+    dev = desc1.device
+    splits = n_splits(n, m, _sm_count(dev.index))
+    bkey = torch.empty(n, dtype=torch.int32, device=dev)
+    skey = torch.empty(n, dtype=torch.int32, device=dev)
+    # the column keys, then one arrival counter per row tile
+    ckey = torch.full((m + n // TILE,), INT_MAX, dtype=torch.int32,
+                      device=dev)
+    part = torch.empty(2 * splits * n if splits > 1 else 1,
+                       dtype=torch.int32, device=dev)
+    kernels.call(name, desc1, desc2, row_attr, col_attr, n, m, splits,
+                 bkey, skey, ckey, part)
+    return bkey, skey, ckey[:m]
 
 
 def masked_top2_mutual(desc1, desc2, row_attr, col_attr):

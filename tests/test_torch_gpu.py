@@ -63,6 +63,20 @@ def _epi_problem(seed, n, m):
     return d1, d2, row_attr, col_attr
 
 
+def _both(fn, args):
+    """One call of K2/K3 (exactly one launch) against its plain version,
+    bit for bit; returns the kernel's keys."""
+    name = f"masked_top2_{fn}"
+    before = kernels.LAUNCHES[name]
+    k = getattr(ht, name)(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    p = getattr(ht, f"{name}_plain")(*args)
+    for a, b, what in zip(k, p, ("best", "second", "column")):
+        assert torch.equal(a, b), f"{what} keys: {(a != b).sum().item()} differ"
+    return k
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -87,21 +101,15 @@ class TestKernelsOnCard:
             p = tfast.fast_score_map(lvl)
             assert torch.equal(k[3:-3, 3:-3], p[3:-3, 3:-3])
 
-    @pytest.mark.parametrize("n,m", [(256, 384), (4096, 4096), (16384, 4096)])
+    @pytest.mark.parametrize("n,m", [(256, 384), (4096, 4096), (16384, 4096),
+                                     (128, 128), (128, 4096), (4096, 128)])
     def test_masked_top2_mutual(self, cuda, n, m):
-        args = [_t(a).to(cuda) for a in _window_problem(n, n, m)]
-        k = ht.masked_top2_mutual(*args)
-        p = ht.masked_top2_mutual_plain(*args)
-        for a, b in zip(k, p):
-            assert torch.equal(a, b)
+        _both("mutual", [_t(a).to(cuda) for a in _window_problem(n, n, m)])
 
-    @pytest.mark.parametrize("n,m", [(128, 256), (4096, 4096)])
+    @pytest.mark.parametrize("n,m", [(128, 256), (4096, 4096), (128, 128),
+                                     (128, 4096), (4096, 128), (16384, 4096)])
     def test_masked_top2_epi(self, cuda, n, m):
-        args = [_t(a).to(cuda) for a in _epi_problem(n, n, m)]
-        k = ht.masked_top2_epi(*args)
-        p = ht.masked_top2_epi_plain(*args)
-        for a, b in zip(k, p):
-            assert torch.equal(a, b)
+        _both("epi", [_t(a).to(cuda) for a in _epi_problem(n, n, m)])
 
     @pytest.mark.parametrize("n,m", [(128, 128), (256, 4096), (4096, 384)])
     def test_hamming_top2(self, cuda, n, m):
@@ -129,6 +137,111 @@ class TestKernelsOnCard:
             ht.masked_top2_mutual(d.float(), d, ra, ca)
         with pytest.raises(ValueError):     # mixed devices
             ht.masked_top2_mutual(d, d.cpu(), ra, ca)
+
+
+def _pass_all(fn, n, m, rng):
+    """Attributes that admit every pair (a few rows and columns
+    invalid)."""
+    rval = rng.random(n) > 0.05
+    cval = rng.random(m) > 0.05
+    if fn == "mutual":
+        ra = np.stack([np.zeros(n), np.zeros(n), np.full(n, 1e6),
+                       np.full(n, -1), np.full(n, 9), rval], 1)
+        ca = np.stack([rng.uniform(0, 100, m), rng.uniform(0, 100, m),
+                       rng.integers(0, 8, m), cval], 1)
+    else:   # the line x = 0, every column on it
+        ra = np.stack([np.ones(n), np.zeros(n), np.zeros(n), rval], 1)
+        ca = np.stack([np.zeros(m), rng.uniform(0, 100, m), np.ones(m),
+                       cval], 1)
+    return ra.astype(np.float32), ca.astype(np.float32)
+
+
+def _last_split_begin(n, m):
+    """First column of the kernel's last column split at shape (n, m)."""
+    s = ht.n_splits(n, m, torch.cuda.get_device_properties(0)
+                    .multi_processor_count)
+    chunks = m // ht.COL_CHUNK
+    return (s - 1) * chunks // s * ht.COL_CHUNK
+
+
+@pytest.mark.gpu
+class TestMaskedTop2Edges:
+    """The tensor-core design's edges for K2 (mutual) and K3 (epi):
+    column splits merged inside the launch, row tiles, ties.  Bar:
+    bit-exact against the plain versions, one launch per call (the
+    shapes 128x128 to 16384x4096 are TestKernelsOnCard's)."""
+
+    @pytest.mark.parametrize("fn", ["mutual", "epi"])
+    @pytest.mark.parametrize("n,m", [(256, 384), (4096, 4096),
+                                     (16384, 4096)])
+    def test_ties_across_splits_and_tiles(self, cuda, fn, n, m):
+        """64 distinct descriptors repeat along the columns (ties in
+        every split) and 128 along the rows (ties in every row tile):
+        the lowest column and the lowest row must win."""
+        rng = np.random.default_rng(n + m)
+        base = _rand_desc(rng, 128)
+        d2 = np.tile(base[:64], (m // 64, 1))
+        d1 = np.tile(base, (n // 128, 1))
+        d1[: n // 2] ^= (rng.random((n // 2, 8)) < 0.01).astype(np.uint32)
+        ra, ca = _pass_all(fn, n, m, rng)
+        k = _both(fn, [_t(a).to(cuda) for a in (d1, d2, ra, ca)])
+        bd = k[0] // ht.COL_STRIDE
+        assert bool((bd[(k[1] // ht.COL_STRIDE) == bd] < ht.MASK_D).any())
+
+    @pytest.mark.parametrize("fn", ["mutual", "epi"])
+    @pytest.mark.parametrize("n,m", [(4096, 4096), (128, 4096), (256, 384)])
+    def test_rows_admitting_none_or_one_in_last_split(self, cuda, fn, n, m):
+        """Only the last split's columns sit where rows look, one spot
+        per column: a third of the rows admit exactly one column there,
+        a third none, a third the whole last split."""
+        rng = np.random.default_rng(n * 3 + m)
+        d1, d2 = _rand_desc(rng, n), _rand_desc(rng, m)
+        j0 = _last_split_begin(n, m)
+        cx = np.zeros(m)
+        cx[j0:] = 1000.0 + 10.0 * np.arange(m - j0)
+        pick = rng.integers(j0, m, n)
+        kind = np.arange(n) % 3          # 0: one, 1: none, 2: the split
+        half = 5.0 * (m - j0)            # the last split spans 2 * half
+        if fn == "mutual":
+            x = np.where(kind == 0, cx[pick],
+                         np.where(kind == 1, -5000.0, 1000.0 + half))
+            rad = np.where(kind == 2, half + 1.0, 1.0)
+            ra = np.stack([x, np.zeros(n), rad, np.full(n, -1),
+                           np.full(n, 9), np.ones(n)], 1)
+            ca = np.stack([cx, np.zeros(m), np.zeros(m), np.ones(m)], 1)
+        else:
+            # kinds 0 and 1: the line x = X admits |x_j - X| < 0.5; kind
+            # 2: the line y = 0, on which only the last split lies
+            x = np.where(kind == 0, cx[pick], -5000.0)
+            a = np.where(kind == 2, 0.0, 1.0)
+            ra = np.stack([a, 1.0 - a, -a * x, np.ones(n)], 1)
+            cy = np.where(np.arange(m) < j0, 100.0, 0.0)
+            ca = np.stack([cx, cy, np.full(m, 0.25), np.ones(m)], 1)
+        args = [_t(v).to(cuda) for v in (d1, d2, ra.astype(np.float32),
+                                         ca.astype(np.float32))]
+        k = _both(fn, args)
+        bd = (k[0] // ht.COL_STRIDE).cpu().numpy()
+        bcol = (k[0] % ht.COL_STRIDE).cpu().numpy()
+        assert (bd[kind == 1] == ht.MASK_D).all()
+        one = kind == 0
+        assert (bcol[one] == pick[one]).all() and (bd[one] < ht.MASK_D).all()
+        assert ((k[1] // ht.COL_STRIDE).cpu().numpy()[one] == ht.MASK_D).all()
+
+    @pytest.mark.parametrize("fn", ["mutual", "epi"])
+    def test_column_best_in_another_row_tile(self, cuda, fn):
+        """Each of the first 128 columns has an exact copy in the fourth
+        row tile: its best row lies there, three tiles from the first."""
+        rng = np.random.default_rng(7)
+        n, m = 512, 256
+        d1, d2 = _rand_desc(rng, n), _rand_desc(rng, m)
+        d1[384:] = d2[:128]
+        ra, ca = _pass_all(fn, n, m, rng)
+        ra[:, -1] = 1.0
+        ca[:, -1] = 1.0
+        k = _both(fn, [_t(a).to(cuda) for a in (d1, d2, ra, ca)])
+        ck = k[2][:128].cpu().numpy()
+        np.testing.assert_array_equal(ck // ht.ROW_STRIDE, 0)
+        np.testing.assert_array_equal(ck % ht.ROW_STRIDE, 384 + np.arange(128))
 
 
 @pytest.mark.gpu

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from orb_slam2_tpu.matching import pallas_hamming as jph
+from orb_slam2_tpu.matching import core as jcore, pallas_hamming as jph
 from orb_slam2_tpu.ops import (brief as jbrief, distribute as jdist,
                                fast as jfast, pyramid as jpyr)
 from orb_slam2_tpu_torch import kernels
@@ -115,6 +115,73 @@ class TestMaskedTop2:
             plain(d1, d2, ra, ca)
         with pytest.raises(ValueError, match="keys need"):
             ht._launch(f"masked_top2_{fn}", d1, d2, ra, ca, n_attr)
+
+    @pytest.mark.parametrize("n_splits", [2, 3])
+    @pytest.mark.parametrize("fn", ["mutual", "epi"])
+    def test_split_merge_matches_pallas(self, fn, n_splits):
+        """The CUDA kernel cuts the columns into splits and merges their
+        (best, second) keys by the TPU kernel's rule.  Here the plain
+        version runs on each slice (cut as the kernel cuts them), the
+        slice keys are shifted to global columns and merged; the result
+        equals the Pallas kernel's keys bit for bit.  The second half of
+        the columns repeats the first, so ties cross the slices and the
+        lowest column must win."""
+        n, m = 256, 384
+        problem = _window_problem if fn == "mutual" else _epi_problem
+        d1, d2, ra, ca = problem(17 + n_splits, n, m)
+        d2[m // 2:], ca[m // 2:] = d2[:m // 2], ca[:m // 2]
+        jfn = getattr(jph, f"masked_top2_{fn}")
+        ref = [np.asarray(a) for a in jfn(
+            jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(ra),
+            jnp.asarray(ca), interpret=True)]
+        plain = getattr(ht, f"masked_top2_{fn}_plain")
+        chunks = m // ht.COL_CHUNK
+        cuts = [s * chunks // n_splits * ht.COL_CHUNK
+                for s in range(n_splits + 1)]
+        b = s = None
+        ckeys = []
+        for c0, c1 in zip(cuts[:-1], cuts[1:]):
+            pb, ps, pc = plain(_t(d1), _t(d2[c0:c1]), _t(ra), _t(ca[c0:c1]))
+            pb, ps = pb + c0, ps + c0          # slice columns -> global
+            if b is None:
+                b, s = pb, ps
+            else:
+                b, s = (torch.minimum(b, pb),
+                        torch.minimum(torch.maximum(b, pb),
+                                      torch.minimum(s, ps)))
+            ckeys.append(pc)
+        out = (b, s, torch.cat(ckeys))
+        for o, r in zip(out, ref):
+            np.testing.assert_array_equal(o.numpy(), r)
+        bd, sd = ref[0] // ht.COL_STRIDE, ref[1] // ht.COL_STRIDE
+        assert ((bd == sd) & (bd < ht.MASK_D)).sum() > 0   # ties occurred
+
+    def test_pm1_operand_gives_hamming(self):
+        """The kernel's +-1 int8 operand layout: 256 - a.b == 2d."""
+        rng = np.random.default_rng(11)
+        d1, d2 = _rand_desc(rng, 96), _rand_desc(rng, 160)
+        d1[:32] = d2[:32]
+        a8 = ht.pm1_operand(_t(d1))
+        assert a8.dtype == torch.int8 and a8.shape == (96, 256)
+        assert bool((a8.abs() == 1).all())
+        a = a8.to(torch.int32)
+        b = ht.pm1_operand(_t(d2)).to(torch.int32)
+        ref = np.asarray(jcore.hamming_matrix(jnp.asarray(d1),
+                                              jnp.asarray(d2)))
+        np.testing.assert_array_equal((256 - a @ b.T).numpy(), 2 * ref)
+
+    @pytest.mark.parametrize("n,m", [(4096, 4096), (16384, 4096),
+                                     (128, 128), (128, 4096), (4096, 128)])
+    def test_n_splits_fill_the_card(self, n, m):
+        """The grid is one wave of BLOCKS_PER_SM blocks per SM of a
+        132-SM card, filled at least half where the columns allow, and
+        every split has a chunk."""
+        s = ht.n_splits(n, m, 132)
+        assert 1 <= s <= m // ht.COL_CHUNK
+        assert s & (s - 1) == 0 or s == m // ht.COL_CHUNK
+        blocks, wave = s * (n // ht.TILE), ht.BLOCKS_PER_SM * 132
+        assert blocks <= wave or s == 1
+        assert 2 * blocks > wave or s == m // ht.COL_CHUNK
 
     def test_tall_row_sets_split_into_chunks(self):
         """_windowed_top2 splits rows past ROW_STRIDE; the column-best
