@@ -29,9 +29,14 @@ counts set to 0 just before it.  The last three lines are a JSON object
 describing the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 
-Two diagnostics print no such lines: ``--profile`` runs path A alone
-with torch.profiler over a window of frames, and ``--repeat-b`` runs
-path B four times and says where the runs part.
+Three diagnostics print no such lines: ``--profile`` runs path A alone
+with torch.profiler over a window of frames, ``--repeat-b`` runs path B
+four times and says where the runs part, and ``--kernels-from DIR``
+runs phases 1 and 2 alone with the port imported from DIR.  To compare
+two commits on one card, unpack the other one (``git archive``) into a
+git-ignored directory and run, one after another on the same card,
+``--kernels-from`` that directory, this checkout, this checkout and that
+directory again.
 """
 from __future__ import annotations
 
@@ -66,19 +71,19 @@ LOOP_MIN_OK = 0.7       # share of frames tracked OK
 # path A with --profile: the frames recorded by torch.profiler
 PROFILE_FROM = 20
 
-# H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor cores, float32
-# outside them, and device memory.  A Hamming distance of two 256-bit
-# descriptors is (256 - x.y) / 2 for their +-1 vectors x, y; that
-# 256-term product is exact in int8 with int32 accumulation, so int8
-# is the fastest type that computes it exactly and its rate bounds the
-# Hamming searches.
+# H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor cores and
+# device memory.  A Hamming distance of two 256-bit descriptors is
+# (256 - x.y) / 2 for their +-1 vectors x, y; that 256-term product is
+# exact in int8 with int32 accumulation, so int8 is the fastest type
+# that computes it exactly and its rate bounds the Hamming searches.
 PEAK_INT8 = 1979e12
-PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
-# 67 TFLOP/s counts a fused multiply-add as two operations: 128 lanes a
-# clock on each of 132 SMs at 1.98 GHz.  A subtract, min or max is one
-# instruction for one operation, so K1's work runs at half of it.
-PEAK_FP32_INSTR = PEAK_FP32 / 2
+# K1's arithmetic is bf16 (it rounds the input and every ring difference
+# to bf16; min and max are exact).  Outside the tensor cores the H100
+# does packed bf16x2 subtracts, mins and maxes at 256 results a clock per
+# SM: NVIDIA's H100 whitepaper gives 133.8 TFLOP/s of non-tensor bf16,
+# counting a fused multiply-add as two, so 67 T simple operations/s.
+PEAK_BF16_SIMT = 67e12
 
 
 class SmokeFailure(Exception):
@@ -275,12 +280,12 @@ def phase_kernels(device, world, cfg):
     ms, loop_ms = graph_ms(frame), cuda_ms(frame)
     plain_ms = cuda_ms(lambda: [fast.fast_score_map(lvl) for lvl in levels])
     # per pixel: read 4 B, write 4 B; 32 ring differences, 2 x (64 arc
-    # mins + 16 maxes) and one max = 193 float instructions
+    # mins + 16 maxes) and one max = 193 bf16 operations
     pixels = sum(int(lvl.numel()) for lvl in levels)
     results.append(dict(
         name="fast_score", max_abs_err=err, ms=ms, loop_ms=loop_ms,
         plain_ms=plain_ms, shape="8 levels of 1920x1440 (all 8 launches)",
-        **bound(8 * pixels, 193 * pixels, PEAK_FP32_INSTR)))
+        **bound(8 * pixels, 193 * pixels, PEAK_BF16_SIMT)))
     log(f"K1 fast_score: interior bit-exact on 8 levels; {ms:.4f} ms per "
         f"frame of 8 launches, {ms / 8:.4f} ms per launch (loop of wrapper "
         f"calls {loop_ms:.4f} ms; plain {plain_ms:.4f} ms)")
@@ -772,6 +777,11 @@ def main() -> int:
                          "each thread's waits for the card)")
     ap.add_argument("--repeat-b", action="store_true",
                     help="run only path B, four times (see repeat_loop)")
+    ap.add_argument("--kernels-from", metavar="DIR",
+                    help="run only phases 1 and 2 (build, each kernel "
+                         "against its plain version, timed) with "
+                         "orb_slam2_tpu_torch imported from the checkout "
+                         "DIR, and print the results as one JSON line")
     args = ap.parse_args()
     try:
         import torch
@@ -783,11 +793,12 @@ def main() -> int:
               "card", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(here, "orb_slam2_tpu_torch")):
-        print("chip_smoke: orb_slam2_tpu_torch/ is not beside this script",
+    root = os.path.abspath(args.kernels_from or here)
+    if not os.path.isdir(os.path.join(root, "orb_slam2_tpu_torch")):
+        print(f"chip_smoke: orb_slam2_tpu_torch/ is not in {root}",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, here)
+    sys.path.insert(0, root)
     from orb_slam2_tpu_torch import kernels
 
     device = torch.device("cuda:0")
@@ -806,9 +817,13 @@ def main() -> int:
     world, _ = bench_world(device)
     if args.repeat_b:
         return repeat_loop(device, cfg)
-    if args.profile:
+    if args.profile or args.kernels_from:
         try:
-            phase_bench(device, world, cfg, profile=True)
+            if args.profile:
+                phase_bench(device, world, cfg, profile=True)
+            else:
+                log(json.dumps({"tree": root, "kernels": phase_kernels(
+                    device, world, cfg)}))
         except SmokeFailure as e:
             print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
             return 1

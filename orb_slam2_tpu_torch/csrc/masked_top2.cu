@@ -38,7 +38,8 @@
 // work in registers and fills the card:
 //   - a block owns a 128-row tile (4 warps x 32 rows: two m16 tiles per
 //     warp) and one of S column splits; the grid is S x N/128, with S
-//     chosen by the wrapper so that every SM holds several blocks;
+//     chosen by orb_masked_top2_splits from the card's SM count so that
+//     the grid is one wave of kBlocksPerSm blocks on every SM;
 //   - the split's columns stream through shared memory 32 at a time,
 //     double-buffered: the next chunk's descriptors and attributes are
 //     loaded into registers while the current one is computed;
@@ -74,6 +75,7 @@
 namespace {
 
 constexpr int kThreads = 128;           // 4 warps
+constexpr int kBlocksPerSm = 4;         // 128 registers a thread
 constexpr int kTileRows = 128;          // rows per block, 32 per warp
 constexpr int kChunk = 32;              // columns per staged chunk
 constexpr int kNTiles = kChunk / 8;     // n8 tiles per chunk
@@ -198,7 +200,7 @@ struct EpipolarGate {
 };
 
 template <class Gate>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 masked_top2_kernel(const int* __restrict__ desc1, const int* __restrict__ desc2,
                    const float* __restrict__ row_attr,
                    const float* __restrict__ col_attr, int n_rows, int n_cols,
@@ -370,18 +372,6 @@ masked_top2_kernel(const int* __restrict__ desc1, const int* __restrict__ desc2,
     }
   }
 
-  if (n_splits == 1) {
-    if (t == 0) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int row = row0 + warp * 32 + q * 8 + g;
-        bkey[row] = best[q];
-        skey[row] = second_key(best[q], second[q]);
-      }
-    }
-    return;
-  }
-
   int* part_b = part;
   int* part_s = part + (size_t)n_splits * n_rows;
   if (t == 0) {
@@ -410,6 +400,16 @@ masked_top2_kernel(const int* __restrict__ desc1, const int* __restrict__ desc2,
   skey[row] = second_key(b, s);
 }
 
+// Column splits per row tile: the largest power of two whose grid fits
+// in one wave of kBlocksPerSm blocks on each of n_sm SMs (the fastest on
+// the H100 at both main-path shapes, PERF.md), at most one per chunk.
+int splits_for(int n_sm, int n_rows, int n_cols) {
+  int s = 1;
+  while (2 * s * (n_rows / kTileRows) <= kBlocksPerSm * n_sm) s *= 2;
+  const int most = n_cols / kChunk;
+  return s < most ? s : most;
+}
+
 template <class Gate>
 int launch(const int* desc1, const int* desc2, const float* row_attr,
            const float* col_attr, int n_rows, int n_cols, int n_splits,
@@ -434,13 +434,26 @@ int launch(const int* desc1, const int* desc2, const float* row_attr,
 
 }  // namespace
 
+// The column split count S that K2 and K3 take for N x M on CUDA device
+// `device` (N % 128 == 0, M % 32 == 0), or minus a cudaError_t.
+extern "C" int orb_masked_top2_splits(int device, int n_rows, int n_cols) {
+  if (n_rows < kTileRows || n_rows % kTileRows || n_cols < kChunk ||
+      n_cols % kChunk)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  int n_sm = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(
+      &n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return splits_for(n_sm, n_rows, n_cols);
+}
+
 // desc1 (N, 8) / desc2 (M, 8) int32 bit patterns of the uint32 words;
 // row_attr (N, 6) and col_attr (M, 4) float32; N % 128 == 0,
-// M % 128 == 0, N <= 16384, M <= 4096, 1 <= n_splits <= M / 32, all
-// contiguous on the current device.  ckey holds M + N/128 int32, all
-// INT_MAX on entry (the column keys, then the row tiles' arrival
-// counters); part holds 2 * n_splits * N int32 of scratch (unused when
-// n_splits == 1).  Writes bkey, skey (N,) and ckey[:M].  Returns
+// M % 128 == 0, N <= 16384, M <= 4096, n_splits from
+// orb_masked_top2_splits, all contiguous on the current device.  ckey
+// holds M + N/128 int32, all INT_MAX on entry (the column keys, then the
+// row tiles' arrival counters); part holds 2 * n_splits * N int32 of
+// scratch.  Writes bkey, skey (N,) and ckey[:M].  Returns
 // cudaGetLastError().
 extern "C" int orb_masked_top2_mutual(const int* desc1, const int* desc2,
                                       const float* row_attr,

@@ -50,6 +50,11 @@ _SIGNATURES = {
                      + [ctypes.c_void_p] * 4),
 }
 
+# C entry points that launch nothing: argument ctypes
+_HELPERS = {
+    "orb_masked_top2_splits": [ctypes.c_int] * 3,
+}
+
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES = {name: 0 for name in _SIGNATURES}
 
@@ -113,7 +118,8 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             build()
             lib = ctypes.CDLL(LIB_PATH)
-            for cname, argtypes in _SIGNATURES.values():
+            for cname, argtypes in (*_SIGNATURES.values(),
+                                    *_HELPERS.items()):
                 fn = getattr(lib, cname)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -136,3 +142,15 @@ def call(name: str, *args) -> None:
                            f"cudaError {err}")
     with _lock:
         LAUNCHES[name] += 1
+
+
+def masked_top2_splits(device: int, n: int, m: int) -> int:
+    """The column split count K2 and K3 launch with for an (n, m) search
+    on CUDA device ``device``: the grid policy lives beside the kernel
+    (``csrc/masked_top2.cu``), which sizes it by the card's SM count.
+    The wrapper allocates scratch for that many splits."""
+    s = library().orb_masked_top2_splits(device, n, m)
+    if s < 1:
+        raise RuntimeError(f"orb_masked_top2_splits({n}, {m}) failed: "
+                           f"cudaError {-s}")
+    return s

@@ -28,8 +28,8 @@ and the plain versions check (the JAX twins alias past those limits).
 On a CUDA tensor :func:`masked_top2_mutual` / :func:`masked_top2_epi`
 launch the hand-written kernel of ``csrc/masked_top2.cu`` (distances on
 the tensor cores as a +-1 int8 product, laid out as
-:func:`pm1_operand` shows; the columns cut into :func:`n_splits` splits
-merged inside the launch); on a CPU tensor they run
+:func:`pm1_operand` shows; the columns cut into as many splits as fill
+the card, merged inside the launch); on a CPU tensor they run
 :func:`masked_top2_mutual_plain` / :func:`masked_top2_epi_plain`.
 """
 from __future__ import annotations
@@ -47,8 +47,6 @@ MASK_D = 1023        # masked-pair distance sentinel (real max is 256)
 COL_STRIDE = 4096    # key = d * COL_STRIDE + col  (requires M <= 4096)
 ROW_STRIDE = 16384   # colkey = d * ROW_STRIDE + row (requires N <= 16384)
 INT_MAX = 2 ** 31 - 1
-COL_CHUNK = 32       # K2/K3: columns a block stages at a time
-BLOCKS_PER_SM = 4    # K2/K3: blocks an SM holds (128 registers a thread)
 
 
 def _check_sizes(n: int, m: int) -> None:
@@ -122,20 +120,8 @@ def pm1_operand(desc):
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def n_splits(n: int, m: int, n_sm: int) -> int:
-    """Column splits K2/K3 cut each 128-row tile into: the largest power
-    of two whose grid fits in one wave of BLOCKS_PER_SM blocks on each
-    of the card's n_sm SMs (at least 1, at most one split per COL_CHUNK
-    columns).  The fastest on the H100 at both main-path shapes
-    (PERF.md)."""
-    s = 1
-    while 2 * s * (n // TILE) <= BLOCKS_PER_SM * n_sm:
-        s *= 2
-    return min(s, m // COL_CHUNK)
+def _splits(index: int, n: int, m: int) -> int:
+    return kernels.masked_top2_splits(index, n, m)
 
 
 def _launch(name: str, desc1, desc2, row_attr, col_attr, n_row_attr: int):
@@ -158,14 +144,13 @@ def _launch(name: str, desc1, desc2, row_attr, col_attr, n_row_attr: int):
     desc1, desc2, row_attr, col_attr = (t.contiguous() for t in
                                         (desc1, desc2, row_attr, col_attr))
     dev = desc1.device
-    splits = n_splits(n, m, _sm_count(dev.index))
+    splits = _splits(dev.index, n, m)
     bkey = torch.empty(n, dtype=torch.int32, device=dev)
     skey = torch.empty(n, dtype=torch.int32, device=dev)
     # the column keys, then one arrival counter per row tile
     ckey = torch.full((m + n // TILE,), INT_MAX, dtype=torch.int32,
                       device=dev)
-    part = torch.empty(2 * splits * n if splits > 1 else 1,
-                       dtype=torch.int32, device=dev)
+    part = torch.empty(2 * splits * n, dtype=torch.int32, device=dev)
     kernels.call(name, desc1, desc2, row_attr, col_attr, n, m, splits,
                  bkey, skey, ckey, part)
     return bkey, skey, ckey[:m]

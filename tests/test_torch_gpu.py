@@ -157,11 +157,11 @@ def _pass_all(fn, n, m, rng):
 
 
 def _last_split_begin(n, m):
-    """First column of the kernel's last column split at shape (n, m)."""
-    s = ht.n_splits(n, m, torch.cuda.get_device_properties(0)
-                    .multi_processor_count)
-    chunks = m // ht.COL_CHUNK
-    return (s - 1) * chunks // s * ht.COL_CHUNK
+    """First column of the kernel's last column split at shape (n, m):
+    the split count is the kernel's own choice for this card, and a
+    split is a run of whole 32-column chunks."""
+    s = kernels.masked_top2_splits(0, n, m)
+    return (s - 1) * (m // 32) // s * 32
 
 
 @pytest.mark.gpu

@@ -7,6 +7,10 @@ held bit for bit to the JAX reference (the Pallas kernels in interpret
 mode, as tests/test_pallas_hamming.py runs them, and the XLA
 ``fast_score_map`` twin of K1).  The CUDA kernels themselves are tested
 against the plain versions on the card by tests/test_torch_gpu.py."""
+import ctypes
+import glob
+import os
+import re
 import subprocess
 import sys
 
@@ -135,8 +139,8 @@ class TestMaskedTop2:
             jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(ra),
             jnp.asarray(ca), interpret=True)]
         plain = getattr(ht, f"masked_top2_{fn}_plain")
-        chunks = m // ht.COL_CHUNK
-        cuts = [s * chunks // n_splits * ht.COL_CHUNK
+        chunk = 32              # the kernel stages columns 32 at a time
+        cuts = [s * (m // chunk) // n_splits * chunk
                 for s in range(n_splits + 1)]
         b = s = None
         ckeys = []
@@ -169,19 +173,6 @@ class TestMaskedTop2:
         ref = np.asarray(jcore.hamming_matrix(jnp.asarray(d1),
                                               jnp.asarray(d2)))
         np.testing.assert_array_equal((256 - a @ b.T).numpy(), 2 * ref)
-
-    @pytest.mark.parametrize("n,m", [(4096, 4096), (16384, 4096),
-                                     (128, 128), (128, 4096), (4096, 128)])
-    def test_n_splits_fill_the_card(self, n, m):
-        """The grid is one wave of BLOCKS_PER_SM blocks per SM of a
-        132-SM card, filled at least half where the columns allow, and
-        every split has a chunk."""
-        s = ht.n_splits(n, m, 132)
-        assert 1 <= s <= m // ht.COL_CHUNK
-        assert s & (s - 1) == 0 or s == m // ht.COL_CHUNK
-        blocks, wave = s * (n // ht.TILE), ht.BLOCKS_PER_SM * 132
-        assert blocks <= wave or s == 1
-        assert 2 * blocks > wave or s == m // ht.COL_CHUNK
 
     def test_tall_row_sets_split_into_chunks(self):
         """_windowed_top2 splits rows past ROW_STRIDE; the column-best
@@ -337,3 +328,34 @@ def test_import_pulls_in_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def _c_params(cname):
+    """The parameters of the C entry point ``cname`` in csrc/*.cu."""
+    for path in sorted(glob.glob(os.path.join(kernels.SRC_DIR, "*.cu"))):
+        with open(path) as f:
+            found = re.search(r'extern "C" int ' + cname + r"\(([^)]*)\)",
+                              f.read())
+        if found:
+            return [" ".join(p.split()) for p in found.group(1).split(",")]
+    raise AssertionError(f'no extern "C" int {cname}(...) in csrc/')
+
+
+_ENTRY_POINTS = ([(c, a, True) for c, a in kernels._SIGNATURES.values()]
+                 + [(c, a, False) for c, a in kernels._HELPERS.items()])
+
+
+@pytest.mark.parametrize("cname,argtypes,launches", _ENTRY_POINTS,
+                         ids=[e[0] for e in _ENTRY_POINTS])
+def test_ctypes_signatures_match_sources(cname, argtypes, launches):
+    """ctypes checks nothing against the C source, so kernels.py's
+    argument types must match it by hand: a pointer where the source
+    takes a pointer, an int where it takes an int, and a launching entry
+    point ends with the stream."""
+    params = _c_params(cname)
+    assert len(params) == len(argtypes), params
+    for p, a in zip(params, argtypes):
+        assert a in (ctypes.c_void_p, ctypes.c_int)
+        assert ("*" in p) == (a is ctypes.c_void_p), (p, a)
+        assert "*" in p or p.split()[0] == "int", p
+    assert (params[-1] == "void* stream") == launches, params
