@@ -9,15 +9,18 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
   1. device: the card's name and power limit; build the hand-written
      CUDA kernels (csrc/*.cu) and print nvcc's register/smem report;
   2. kernels: each kernel (K1-K4) against its plain PyTorch version on
-     the card at main-path shapes (K2 at both of its shapes),
-     bit-exact, with CUDA-event times of both and the least time the
-     card could take (``bound_ms``);
+     the card at main-path shapes (K1 as one launch for a frame's 8
+     levels, and on an adversarial image; K2 at both of its shapes; K4
+     also with no valid column and past 4096 columns), bit-exact, with
+     CUDA-event times of both and the least time the card could take
+     (``bound_ms``);
   3. path A, bench.py's topology: ``System(cfg,
      enable_loop_closing=True, async_mapping=True)`` tracks a 40-frame
      1920x1440 aerial sweep with 4000 ORB features on 8 levels through
      ``track_monocular_with_pose`` while local mapping and loop
      detection run on the mapping thread; checks tracking, map quality,
-     the vocabulary and BoW database, and that K1-K3 launched;
+     the vocabulary and BoW database, that K1-K3 launched and K1 once a
+     frame, and prints the searches' launches by shape;
   4. path C: K4 through its entry point ``hamming_top2`` at 4096x4096
      with 20% of the columns invalid;
   5. path B, a loop that closes at full width: a drifted circuit with
@@ -78,11 +81,12 @@ PROFILE_FROM = 20
 # that computes it exactly and its rate bounds the Hamming searches.
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
-# K1's arithmetic is bf16 (it rounds the input and every ring difference
-# to bf16; min and max are exact).  Outside the tensor cores the H100
-# does packed bf16x2 subtracts, mins and maxes at 256 results a clock per
-# SM: NVIDIA's H100 whitepaper gives 133.8 TFLOP/s of non-tensor bf16,
-# counting a fused multiply-add as two, so 67 T simple operations/s.
+# K1's arithmetic is bf16 (it rounds the input and its two folded
+# differences to bf16; min and max are exact).  Outside the tensor cores
+# the H100 does packed bf16x2 subtracts, mins and maxes at 256 results a
+# clock per SM: NVIDIA's H100 whitepaper gives 133.8 TFLOP/s of
+# non-tensor bf16, counting a fused multiply-add as two, so 67 T simple
+# operations/s.
 PEAK_BF16_SIMT = 67e12
 
 
@@ -255,40 +259,65 @@ def phase_kernels(device, world, cfg):
     set), ``plain_ms`` the plain version's (cuda_ms).  Returns one
     entry per (kernel, shape)."""
     import torch
+    from orb_slam2_tpu_torch import kernels
     from orb_slam2_tpu_torch.matching import hamming_top2 as ht
     from orb_slam2_tpu_torch.ops import fast, pyramid
     from orb_slam2_tpu_torch.utils import synth
     results = []
 
-    # K1 on all 8 levels of a rendered 1920x1440 frame
+    # K1 on all 8 levels of a rendered 1920x1440 frame, in one launch
+    # (a checkout from before score_maps launches once per level)
     _, poses = bench_world(device)
     img = synth.render(world, cfg.cam, poses[0]).float()
     levels = pyramid.build_pyramid(img, cfg.orb.n_levels,
                                    cfg.orb.scale_factor)
+    one_launch = hasattr(fast, "score_maps")
+    if one_launch:
+        frame = lambda: fast.score_maps(levels)  # noqa: E731
+    else:
+        frame = lambda: [fast.fast_score(lvl) for lvl in levels]  # noqa: E731
+    n0 = kernels.LAUNCHES["fast_score"]
+    scores = frame()
+    torch.cuda.synchronize()
+    n_launch = kernels.LAUNCHES["fast_score"] - n0
+    check(n_launch == (1 if one_launch else len(levels)),
+          f"K1 took {n_launch} launches for a frame's {len(levels)} levels")
+    # 255 beside values below 2^-10, where fl32(r - p) itself rounds
+    rng = np.random.default_rng(11)
+    adv = rng.integers(0, 256, tuple(img.shape)).astype(np.float32)
+    adv[rng.random(adv.shape) < 0.4] = 255.0
+    tiny = rng.random(adv.shape) < 0.3
+    adv[tiny] = rng.uniform(2.0 ** -24, 2.0 ** -10, int(tiny.sum()))
+    adv = torch.as_tensor(adv, device=device)
     err = 0.0
-    for lvl in levels:
-        k = fast.fast_score(lvl)
+    for what, lvl, k in [*zip(range(len(levels)), levels, scores),
+                         ("adversarial", adv, fast.fast_score(adv))]:
         p = fast.fast_score_map(lvl)
         torch.cuda.synchronize()
         ki, pi = k[3:-3, 3:-3], p[3:-3, 3:-3]
         check(torch.equal(ki, pi),
-              f"K1 differs from fast_score_map on the interior of a "
-              f"{tuple(lvl.shape)} level: max |diff| "
+              f"K1 differs from fast_score_map on the interior of "
+              f"{what} {tuple(lvl.shape)}: max |diff| "
               f"{(ki - pi).abs().max().item()}")
         err = max(err, (ki - pi).abs().max().item())
-    frame = lambda: [fast.fast_score(lvl) for lvl in levels]  # noqa: E731
     ms, loop_ms = graph_ms(frame), cuda_ms(frame)
     plain_ms = cuda_ms(lambda: [fast.fast_score_map(lvl) for lvl in levels])
-    # per pixel: read 4 B, write 4 B; 32 ring differences, 2 x (64 arc
-    # mins + 16 maxes) and one max = 193 bf16 operations
+    # per pixel: read 4 B, write 4 B; the fewest bf16 operations of the
+    # folded form: arc extremes A and B at 42 two-input reductions for
+    # the 16 runs of 9 and 15 to combine them each (van Herk / Gil-Werman
+    # over the circular 16-axis), 2 differences, 2 roundings and 1 max:
+    # 2 x 57 + 5 = 119 (15.2 us at PEAK_BF16_SIMT, under the 20.4 us the
+    # bytes take, so bound by bytes)
     pixels = sum(int(lvl.numel()) for lvl in levels)
     results.append(dict(
         name="fast_score", max_abs_err=err, ms=ms, loop_ms=loop_ms,
-        plain_ms=plain_ms, shape="8 levels of 1920x1440 (all 8 launches)",
-        **bound(8 * pixels, 193 * pixels, PEAK_BF16_SIMT)))
-    log(f"K1 fast_score: interior bit-exact on 8 levels; {ms:.4f} ms per "
-        f"frame of 8 launches, {ms / 8:.4f} ms per launch (loop of wrapper "
-        f"calls {loop_ms:.4f} ms; plain {plain_ms:.4f} ms)")
+        plain_ms=plain_ms,
+        shape=f"8 levels of 1920x1440 ({n_launch} launches)",
+        **bound(8 * pixels, 119 * pixels, PEAK_BF16_SIMT)))
+    log(f"K1 fast_score: interior bit-exact on 8 levels and on a "
+        f"{tuple(adv.shape)} adversarial image; {ms:.4f} ms per frame of "
+        f"{n_launch} launch(es) (loop of wrapper calls {loop_ms:.4f} ms; "
+        f"plain {plain_ms:.4f} ms)")
 
     # K2 at the last-frame (4096x4096) and local-map (16384x4096)
     # shapes, K3 at the triangulation shape (4096x4096)
@@ -341,13 +370,19 @@ def phase_kernels(device, world, cfg):
               f"block ({(a != b).sum().item()} rows)")
     check(bool((kb[0] >= ht.BIG).all() and (kb[2] == ht.BIG).all()),
           "K4 all-invalid rows must give BIG + d and second == BIG")
+    wide = k4_problem(128, 8192, 0.2, 6, device)
+    kw, pw = ht.hamming_top2(*wide), ht.hamming_top2_plain(*wide)
+    torch.cuda.synchronize()
+    for a, b, what in zip(kw, pw, ("best", "best_idx", "second")):
+        check(torch.equal(a, b), f"K4 {what} differs at 128x8192 "
+              f"({(a != b).sum().item()} rows)")
     ms = graph_ms(lambda: ht.hamming_top2(*args))
     loop_ms = cuda_ms(lambda: ht.hamming_top2(*args))
     plain_ms = cuda_ms(lambda: ht.hamming_top2_plain(*args), reps=5)
     log(f"K4 hamming_top2 4096x4096 (20% columns invalid): bit-exact "
-        f"({n_match} rows within 64 bits), all-invalid 512x4096 block "
-        f"bit-exact; {ms:.4f} ms (loop of wrapper calls {loop_ms:.4f} ms; "
-        f"plain {plain_ms:.4f} ms)")
+        f"({n_match} rows within 64 bits), all-invalid 512x4096 block and "
+        f"128x8192 bit-exact; {ms:.4f} ms (loop of wrapper calls "
+        f"{loop_ms:.4f} ms; plain {plain_ms:.4f} ms)")
     results.append(dict(
         name="hamming_top2", max_abs_err=0.0, ms=ms, loop_ms=loop_ms,
         plain_ms=plain_ms, shape="4096x4096",
@@ -532,6 +567,11 @@ def phase_bench(device, world, cfg, profile: bool = False):
           "A: the BoW keyframe database is empty")
     for name in ("fast_score", "masked_top2_mutual", "masked_top2_epi"):
         check(launches[name] > 0, f"A: kernel {name} never launched")
+    check(launches["fast_score"] == N_FRAMES,
+          f"A: K1 launched {launches['fast_score']} times over {N_FRAMES} "
+          f"frames, not once a frame")
+    shapes = {f"{k[0]} {k[1]}x{k[2]}": v
+              for k, v in sorted(kernels.SHAPES.items())}
     steady = frame_ms[first + 1:]
     log(f"A: {len(ok_idx)}/{N_FRAMES} frames OK (initialized at frame "
         f"{first}), {n_kf} keyframes, {len(pts)} map points, median |z| "
@@ -568,6 +608,7 @@ def phase_bench(device, world, cfg, profile: bool = False):
                 f"{d['launch_ms']:.1f} ms, {d['sync_ms']:.1f} ms in "
                 f"synchronizations, {d['copy_ms']:.1f} ms in copies")
     log(f"A: kernel launches {json.dumps(launches)}")
+    log(f"A: search launches by rows x columns {json.dumps(shapes)}")
     log("A: timing report:\n" + system.timing_report())
     return launches
 
@@ -731,7 +772,7 @@ KERNEL_META = {
                            "orb_slam2_tpu/matching/pallas_hamming.py:187"),
     "masked_top2_epi": ("orb_slam2_tpu_torch/csrc/masked_top2.cu",
                         "orb_slam2_tpu/matching/pallas_hamming.py:307"),
-    "hamming_top2": ("orb_slam2_tpu_torch/csrc/hamming_top2.cu",
+    "hamming_top2": ("orb_slam2_tpu_torch/csrc/masked_top2.cu",
                      "orb_slam2_tpu/matching/pallas_hamming.py:47"),
 }
 
@@ -810,7 +851,8 @@ def main() -> int:
     kernels.library()
     log(f"build: {info['seconds']:.1f} s")
     for line in info["ptxas"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "Compiling entry",
+                                    "stack frame")):
             log(f"ptxas: {line.strip()}")
 
     cfg = bench_config()
@@ -848,7 +890,8 @@ def main() -> int:
                          max_abs_err=t["max_abs_err"], ms=t["ms"],
                          plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                          bound_by=t["bound_by"], library_ms=None,
-                         shape=t["shape"], loop_ms=t["loop_ms"]))
+                         shape=t["shape"], loop_ms=t["loop_ms"],
+                         share=t["bound_ms"] / t["ms"]))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ relocalization.  Every kernel the JAX package wrote in Pallas is
 hand-written CUDA for Hopper (``csrc/``, built and loaded by
 ``kernels``):
 
-- K1 ``ops.fast.score_map``         (FAST score map)
+- K1 ``ops.fast.score_maps``        (FAST score maps, a frame's levels
+  in one launch)
 - K2 ``matching.hamming_top2.masked_top2_mutual`` (windowed top-2)
 - K3 ``matching.hamming_top2.masked_top2_epi``    (epipolar top-2)
 - K4 ``matching.hamming_top2.hamming_top2``       (unmasked top-2; no

@@ -1,4 +1,4 @@
-// K2 and K3: the masked 256-bit Hamming top-2 searches, for Hopper (sm_90a).
+// K2, K3 and K4: the 256-bit Hamming top-2 searches, for Hopper (sm_90a).
 //
 // Replace the TPU kernels of orb_slam2_tpu/matching/pallas_hamming.py:
 //   K2 _masked_kernel (wrapped by masked_top2_mutual): a pair (i, j)
@@ -6,13 +6,25 @@
 //      window and its octave is in row i's [lmin, lmax];
 //   K3 _epi_kernel (wrapped by masked_top2_epi): the gate is
 //      (a*x + b*y + c)^2 < thr with row i's pre-normalised epipolar line
-//      and column j's point and chi2*sigma^2 threshold.
-// A masked pair has distance MASK_D = 1023.  Outputs, all int32:
+//      and column j's point and chi2*sigma^2 threshold;
+//   K4 _kernel (wrapped by hamming_top2): no gate, column validity only.
+// For K2 and K3 a masked pair has distance MASK_D = 1023.  Outputs, all
+// int32:
 //   bkey[i] = min_j d(i,j)*4096 + j                      (best)
 //   skey[i] = min( {key(i,j) : j != best}  U  {1023*4096 + best} )
 //   ckey[j] = min_i d(i,j)*16384 + i                     (column best)
 // Taking the min of packed keys reproduces argmin's lowest-index
 // tie-break.  Keys need M <= 4096 and N <= 16384; the wrapper checks it.
+// K4 keeps the TPU kernel's semantics: an invalid column costs d + BIG,
+// second never exceeds BIG.  Its key is (d + 257*invalid) * 2^21 + j, so
+// every invalid key lies above every valid one; a row carries the best
+// and true second key over all columns, merged across splits by the same
+// rule, and after the last merge
+//   best key valid:   best = d, idx = j, second = its d if valid, else BIG
+//   best key invalid: best = BIG + d, idx = j, second = BIG
+// which is the plain version's d + BIG with the lowest-index argmin and
+// second <= BIG for rows with 0, 1 or more valid columns.  K4 has no
+// column keys, so N is free; its keys need M <= 2^21.
 //
 // Distances on the tensor cores.  As the TPU kernel did on its matrix
 // unit, a distance is (256 - x.y) / 2 for the descriptors' +-1 vectors
@@ -30,12 +42,15 @@
 //
 // What bounds it on the H100: the epilogue on the CUDA cores, not the
 // tensor cores or memory.  The compiled chunk loop issues ~22
-// instructions a pair: the gate (2 FADD + 4 FSETP for K2, 3 FMUL +
-// 2 FADD + 1 FSETP for K3), two packed keys (1 SEL + 2 IMAD), the row
-// top-2 (3 integer min/max) and the column min, against 1/16 of an mma
-// a pair; the operands are only (N + M) * 32 B of descriptors and 16-24 B
+// instructions a pair for K2/K3: the gate (2 FADD + 4 FSETP for K2,
+// 3 FMUL + 2 FADD + 1 FSETP for K3), two packed keys (1 SEL + 2 IMAD),
+// the row top-2 (3 integer min/max) and the column min, against 1/16 of
+// an mma a pair; K4 has no gate and no column key: one IMAD (the
+// column's key base, validity folded in, less acc * 2^20) and the row
+// top-2.  The operands are only (N + M) * 32 B of descriptors and 1-24 B
 // of attributes per row or column.  So the design keeps every pair's
-// work in registers and fills the card:
+// work in registers and fills the card (one kernel, the gate a template
+// parameter):
 //   - a block owns a 128-row tile (4 warps x 32 rows: two m16 tiles per
 //     warp) and one of S column splits; the grid is S x N/128, with S
 //     chosen by orb_masked_top2_splits from the card's SM count so that
@@ -53,16 +68,16 @@
 //     kernel's rule best = min(b0, b1), second = min(max(b0, b1),
 //     min(s0, s1)), exact for distinct keys; skey's masked replacement
 //     of the best column is applied once at the end;
-//   - columns: a min over the thread's 4 rows, shuffles across the 8
-//     lanes groups, a shared-memory atomicMin across warps, and one
+//   - columns (K2/K3): a min over the thread's 4 rows, shuffles across
+//     the 8 lanes groups, a shared-memory atomicMin across warps, and one
 //     global atomicMin per column and block into a buffer the wrapper
 //     fills with INT_MAX; a min of integers is order-free, so results
 //     are deterministic;
 //   - splits merge inside the launch: every block writes its rows'
 //     (best, second) to scratch, and the last block of a row tile to
-//     arrive (an atomic counter per tile, stored after ckey in the same
-//     INT_MAX-filled buffer, so it counts up from INT_MAX) merges them in
-//     split order and writes bkey and skey.
+//     arrive (an atomic counter per tile in an INT_MAX-filled buffer,
+//     for K2/K3 the same one as ckey, after it, so it counts up from
+//     INT_MAX) merges them in split order and writes the row outputs.
 // K3's line test uses __fmul_rn/__fadd_rn, which the compiler never
 // contracts into an FMA: the gate rounds exactly as the plain PyTorch
 // version's separate multiply and add do.
@@ -85,6 +100,11 @@ constexpr int kRowStride = 16384;
 constexpr int kMaskD = 1023;
 constexpr int kMaskedAcc = 256 - 2 * kMaskD;   // the acc of d = kMaskD
 constexpr unsigned kArrivalBase = 0x7FFFFFFFu;  // counters start at INT_MAX
+// K4: key = (d + kInvalidD * invalid) << kK4ColBits | col
+constexpr int kK4ColBits = 21;
+constexpr int kK4MaxCols = 1 << kK4ColBits;
+constexpr int kInvalidD = 257;                  // above every real d
+constexpr int kBig = 1 << 20;                   // the TPU kernel's BIG
 
 constexpr int kLutBytes = 256 * 8;
 constexpr int kRowBytes = kTileRows * kDescBytes;
@@ -153,10 +173,19 @@ __device__ __forceinline__ int second_key(int b, int s) {
   return min(s, kMaskD * kColStride + (b & (kColStride - 1)));
 }
 
+// A gate: what a block stages per column (Attr: fetch loads it, fold
+// prepares it), per row (load), whether a pair passes (ok), and whether
+// the search has column keys.
+//
 // K2 gate.  Row attributes (N, 6): u, v, radius, lmin, lmax, valid.
 // Column attributes (M, 4): x, y, octave, valid.  An invalid row gets
 // radius -inf, an invalid column x = NaN: both fail |u - x| <= radius.
 struct WindowGate {
+  static constexpr bool kColumnKeys = true;
+  using Attr = float4;
+  __device__ __forceinline__ static float4 fetch(const void* ca, int j) {
+    return static_cast<const float4*>(ca)[j];
+  }
   float u, v, rad, lmin, lmax;
   __device__ __forceinline__ void load(const float* __restrict__ ra, int i) {
     const float* r = ra + (size_t)i * 6;
@@ -166,7 +195,7 @@ struct WindowGate {
     lmin = r[3];
     lmax = r[4];
   }
-  __device__ __forceinline__ static float4 fold(float4 c) {
+  __device__ __forceinline__ static float4 fold(float4 c, int) {
     if (!(c.w > 0.0f)) c.x = __int_as_float(0x7fc00000);
     return c;
   }
@@ -181,6 +210,11 @@ struct WindowGate {
 // An invalid row gets a = NaN, an invalid column threshold NaN: both
 // fail e*e < threshold.
 struct EpipolarGate {
+  static constexpr bool kColumnKeys = true;
+  using Attr = float4;
+  __device__ __forceinline__ static float4 fetch(const void* ca, int j) {
+    return static_cast<const float4*>(ca)[j];
+  }
   float a, b, c;
   __device__ __forceinline__ void load(const float* __restrict__ ra, int i) {
     const float4 r = reinterpret_cast<const float4*>(ra)[i];
@@ -188,7 +222,7 @@ struct EpipolarGate {
     b = r.y;
     c = r.z;
   }
-  __device__ __forceinline__ static float4 fold(float4 col) {
+  __device__ __forceinline__ static float4 fold(float4 col, int) {
     if (!(col.w > 0.0f)) col.z = __int_as_float(0x7fc00000);
     return col;
   }
@@ -199,20 +233,43 @@ struct EpipolarGate {
   }
 };
 
+// K4 gate: every pair passes.  Column attributes (M,) bool, validity.
+// A column stages its key base, (256 << 20) + (257 << 21 if invalid) + j,
+// and a pair's key is base - acc * 2^20, as d * 2^21 = (256 - acc) * 2^20.
+struct ValidGate {
+  static constexpr bool kColumnKeys = false;
+  using Attr = int;
+  __device__ __forceinline__ static int fetch(const void* ca, int j) {
+    return static_cast<const unsigned char*>(ca)[j];
+  }
+  __device__ __forceinline__ static int fold(int valid, int j) {
+    return (256 << (kK4ColBits - 1)) + (valid ? 0 : kInvalidD << kK4ColBits) +
+           j;
+  }
+  __device__ __forceinline__ void load(const float*, int) {}
+};
+
+// Row outputs: K2/K3 write bkey to out0 and skey to out1 (out2 unused);
+// K4 writes best, idx and second to out0, out1, out2.  ckey (K2/K3 only)
+// and counters (one per row tile) hold INT_MAX on entry.
 template <class Gate>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 masked_top2_kernel(const int* __restrict__ desc1, const int* __restrict__ desc2,
                    const float* __restrict__ row_attr,
-                   const float* __restrict__ col_attr, int n_rows, int n_cols,
-                   int n_splits, int* __restrict__ bkey,
-                   int* __restrict__ skey, int* __restrict__ ckey,
+                   const void* __restrict__ col_attr, int n_rows, int n_cols,
+                   int n_splits, int* __restrict__ out0,
+                   int* __restrict__ out1, int* __restrict__ out2,
+                   int* __restrict__ ckey, unsigned* __restrict__ counters,
                    int* __restrict__ part) {
+  using Attr = typename Gate::Attr;
   extern __shared__ __align__(16) unsigned char smem[];
   uint2* lut = reinterpret_cast<uint2*>(smem);
   unsigned char* s_rows = smem + kLutBytes;
   unsigned char* s_cols = s_rows + kRowBytes;  // two chunk buffers
-  float4* s_attr = reinterpret_cast<float4*>(s_cols + 2 * kColBufBytes);
-  int* s_cmin = reinterpret_cast<int*>(s_attr + 2 * kChunk);  // the split
+  Attr* s_attr = reinterpret_cast<Attr*>(s_cols + 2 * kColBufBytes);
+  // the split's column keys (K2/K3)
+  int* s_cmin =
+      reinterpret_cast<int*>(s_cols + 2 * kColBufBytes + 2 * kAttrBytes);
   __shared__ int s_last;
 
   const int tid = threadIdx.x;
@@ -230,24 +287,28 @@ masked_top2_kernel(const int* __restrict__ desc1, const int* __restrict__ desc2,
 
   for (int v = tid; v < 256; v += kThreads)
     lut[v] = make_uint2(expand4(v & 15), expand4(v >> 4));
-  for (int j = tid; j < n_split_cols; j += kThreads) s_cmin[j] = INT_MAX;
+  if constexpr (Gate::kColumnKeys) {
+    for (int j = tid; j < n_split_cols; j += kThreads) s_cmin[j] = INT_MAX;
+  }
 
   // a chunk is staged by every thread: column tid/4, words 2*(tid%4) + 0..1
   const int pc = tid >> 2;
   const int pw = (tid & 3) * 2;
   int2 raw;
-  float4 raw_attr = make_float4(0.f, 0.f, 0.f, 0.f);
+  Attr raw_attr{};
+  int attr_col = 0;
   auto fetch = [&](int c) {
     raw = *reinterpret_cast<const int2*>(desc2 + (size_t)(c * kChunk + pc) * 8 +
                                          pw);
-    if (tid < kChunk)
-      raw_attr = reinterpret_cast<const float4*>(col_attr)[c * kChunk + tid];
+    attr_col = c * kChunk + tid;
+    if (tid < kChunk) raw_attr = Gate::fetch(col_attr, attr_col);
   };
   auto stage = [&](int buf) {
     unsigned char* dst = s_cols + buf * kColBufBytes + pc * kDescBytes;
     expand_col_word(dst, pc, pw, static_cast<uint32_t>(raw.x), lut);
     expand_col_word(dst, pc, pw + 1, static_cast<uint32_t>(raw.y), lut);
-    if (tid < kChunk) s_attr[buf * kChunk + tid] = Gate::fold(raw_attr);
+    if (tid < kChunk)
+      s_attr[buf * kChunk + tid] = Gate::fold(raw_attr, attr_col);
   };
 
   fetch(c_begin);
@@ -292,7 +353,7 @@ masked_top2_kernel(const int* __restrict__ desc1, const int* __restrict__ desc2,
   for (int c = c_begin; c < c_end; ++c) {
     const int buf = (c - c_begin) & 1;
     const unsigned char* sc = s_cols + buf * kColBufBytes;
-    const float4* sa = s_attr + buf * kChunk;
+    const Attr* sa = s_attr + buf * kChunk;
 
     int acc[2][kNTiles][4];
 #pragma unroll
@@ -320,35 +381,50 @@ masked_top2_kernel(const int* __restrict__ desc1, const int* __restrict__ desc2,
 #pragma unroll
     for (int n = 0; n < kNTiles; ++n) {
       const int cl = n * 8 + t * 2;
-      const int col = c * kChunk + cl;
-      const float4 ca[2] = {sa[cl], sa[cl + 1]};
-      int cm[2] = {INT_MAX, INT_MAX};
+      if constexpr (!Gate::kColumnKeys) {
+        // K4: key = the column's base - acc * 2^20 (ValidGate::fold)
+        const int base[2] = {sa[cl], sa[cl + 1]};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int row = row0 + warp * 32 + q * 8 + g;
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = base[e] - acc[q >> 1][n][2 * (q & 1) + e] *
+                                          (1 << (kK4ColBits - 1));
+            second[q] = min(second[q], max(best[q], key));
+            best[q] = min(best[q], key);
+          }
+        }
+      } else {
+        const int col = c * kChunk + cl;
+        const Attr ca[2] = {sa[cl], sa[cl + 1]};
+        int cm[2] = {INT_MAX, INT_MAX};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = row0 + warp * 32 + q * 8 + g;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            // accumulator element (row, col + e): tile q >> 1, slot
+            // 2 * (q & 1) + e; acc = 256 - 2d, so d*4096 = (256 - acc)*2048;
+            // a masked pair takes the acc of d = 1023
+            const int x = gate[q].ok(ca[e]) ? acc[q >> 1][n][2 * (q & 1) + e]
+                                            : kMaskedAcc;
+            const int key = (256 * 2048 + col + e) - x * 2048;
+            const int ck = (256 * 8192 + row) - x * 8192;
+            second[q] = min(second[q], max(best[q], key));
+            best[q] = min(best[q], key);
+            cm[e] = min(cm[e], ck);
+          }
+        }
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          // accumulator element (row, col + e): tile q >> 1, slot
-          // 2 * (q & 1) + e; acc = 256 - 2d, so d*4096 = (256 - acc)*2048;
-          // a masked pair takes the acc of d = 1023
-          const int x = gate[q].ok(ca[e]) ? acc[q >> 1][n][2 * (q & 1) + e]
-                                          : kMaskedAcc;
-          const int key = (256 * 2048 + col + e) - x * 2048;
-          const int ck = (256 * 8192 + row) - x * 8192;
-          second[q] = min(second[q], max(best[q], key));
-          best[q] = min(best[q], key);
-          cm[e] = min(cm[e], ck);
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1)
+            cm[e] = min(cm[e], __shfl_xor_sync(0xffffffffu, cm[e], o));
         }
-      }
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1)
-          cm[e] = min(cm[e], __shfl_xor_sync(0xffffffffu, cm[e], o));
-      }
-      if (g == 0) {
-        atomicMin(s_cmin + col - col0, cm[0]);
-        atomicMin(s_cmin + col - col0 + 1, cm[1]);
+        if (g == 0) {
+          atomicMin(s_cmin + col - col0, cm[0]);
+          atomicMin(s_cmin + col - col0 + 1, cm[1]);
+        }
       }
     }
 
@@ -359,8 +435,10 @@ masked_top2_kernel(const int* __restrict__ desc1, const int* __restrict__ desc2,
     __syncthreads();
   }
 
-  for (int j = tid; j < n_split_cols; j += kThreads)
-    atomicMin(ckey + col0 + j, s_cmin[j]);
+  if constexpr (Gate::kColumnKeys) {
+    for (int j = tid; j < n_split_cols; j += kThreads)
+      atomicMin(ckey + col0 + j, s_cmin[j]);
+  }
 
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
@@ -385,8 +463,8 @@ masked_top2_kernel(const int* __restrict__ desc1, const int* __restrict__ desc2,
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    unsigned* counter = reinterpret_cast<unsigned*>(ckey + n_cols) + blockIdx.y;
-    s_last = atomicAdd(counter, 1u) == kArrivalBase + (unsigned)n_splits - 1u;
+    s_last = atomicAdd(counters + blockIdx.y, 1u) ==
+             kArrivalBase + (unsigned)n_splits - 1u;
   }
   __syncthreads();
   if (!s_last) return;
@@ -396,8 +474,17 @@ masked_top2_kernel(const int* __restrict__ desc1, const int* __restrict__ desc2,
   for (int sp = 0; sp < n_splits; ++sp)
     merge2(b, s, __ldcg(part_b + (size_t)sp * n_rows + row),
            __ldcg(part_s + (size_t)sp * n_rows + row));
-  bkey[row] = b;
-  skey[row] = second_key(b, s);
+  if constexpr (Gate::kColumnKeys) {
+    out0[row] = b;
+    out1[row] = second_key(b, s);
+  } else {
+    const int bd = b >> kK4ColBits;
+    const int sd = s >> kK4ColBits;
+    const bool valid = bd < kInvalidD;
+    out0[row] = valid ? bd : kBig + bd - kInvalidD;
+    out1[row] = b & (kK4MaxCols - 1);
+    out2[row] = valid && sd < kInvalidD ? sd : kBig;
+  }
 }
 
 // Column splits per row tile: the largest power of two whose grid fits
@@ -412,29 +499,33 @@ int splits_for(int n_sm, int n_rows, int n_cols) {
 
 template <class Gate>
 int launch(const int* desc1, const int* desc2, const float* row_attr,
-           const float* col_attr, int n_rows, int n_cols, int n_splits,
-           int* bkey, int* skey, int* ckey, int* part, void* stream) {
+           const void* col_attr, int n_rows, int n_cols, int n_splits,
+           int* out0, int* out1, int* out2, int* ckey, unsigned* counters,
+           int* part, void* stream) {
+  // K2/K3 keep the split's column keys in shared memory, K4 has none
+  constexpr int kColKeyBytes = Gate::kColumnKeys ? (int)sizeof(int) : 0;
   static const cudaError_t attr = cudaFuncSetAttribute(
       masked_top2_kernel<Gate>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kFixedSmem + kColStride * (int)sizeof(int));
+      kFixedSmem + kColStride * kColKeyBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int n_chunks = n_cols / kChunk;
-  if (n_rows % kTileRows || n_cols % kChunk || n_splits < 1 ||
-      n_splits > n_chunks)
+  const int most_cols = Gate::kColumnKeys ? kColStride : kK4MaxCols;
+  if (n_rows % kTileRows || n_cols % kChunk || n_cols > most_cols ||
+      n_splits < 1 || n_splits > n_chunks)
     return static_cast<int>(cudaErrorInvalidValue);
   const int split_cols = (n_chunks + n_splits - 1) / n_splits * kChunk;
-  const size_t smem = kFixedSmem + split_cols * sizeof(int);
+  const size_t smem = kFixedSmem + (size_t)split_cols * kColKeyBytes;
   const dim3 grid(n_splits, n_rows / kTileRows);
   masked_top2_kernel<Gate><<<grid, kThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
-      desc1, desc2, row_attr, col_attr, n_rows, n_cols, n_splits, bkey, skey,
-      ckey, part);
+      desc1, desc2, row_attr, col_attr, n_rows, n_cols, n_splits, out0, out1,
+      out2, ckey, counters, part);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The column split count S that K2 and K3 take for N x M on CUDA device
+// The column split count S that K2, K3 and K4 take for N x M on CUDA device
 // `device` (N % 128 == 0, M % 32 == 0), or minus a cudaError_t.
 extern "C" int orb_masked_top2_splits(int device, int n_rows, int n_cols) {
   if (n_rows < kTileRows || n_rows % kTileRows || n_cols < kChunk ||
@@ -462,7 +553,9 @@ extern "C" int orb_masked_top2_mutual(const int* desc1, const int* desc2,
                                       int* skey, int* ckey, int* part,
                                       void* stream) {
   return launch<WindowGate>(desc1, desc2, row_attr, col_attr, n_rows, n_cols,
-                            n_splits, bkey, skey, ckey, part, stream);
+                            n_splits, bkey, skey, nullptr, ckey,
+                            reinterpret_cast<unsigned*>(ckey + n_cols), part,
+                            stream);
 }
 
 // As orb_masked_top2_mutual with row_attr (N, 4): the epipolar gate.
@@ -473,6 +566,24 @@ extern "C" int orb_masked_top2_epi(const int* desc1, const int* desc2,
                                    int* skey, int* ckey, int* part,
                                    void* stream) {
   return launch<EpipolarGate>(desc1, desc2, row_attr, col_attr, n_rows,
-                              n_cols, n_splits, bkey, skey, ckey, part,
+                              n_cols, n_splits, bkey, skey, nullptr, ckey,
+                              reinterpret_cast<unsigned*>(ckey + n_cols), part,
                               stream);
+}
+
+// K4.  desc1 (N, 8) / desc2 (M, 8) int32 bit patterns of the uint32
+// words, valid2 (M,) bool; N % 128 == 0, M % 128 == 0, M <= 2^21,
+// n_splits from orb_masked_top2_splits, all contiguous on the current
+// device.  counters holds N/128 int32, all INT_MAX on entry; part holds
+// 2 * n_splits * N int32 of scratch.  Writes best, idx, second (N,)
+// int32.  Returns cudaGetLastError().
+extern "C" int orb_hamming_top2(const int* desc1, const int* desc2,
+                                const unsigned char* valid2, int n_rows,
+                                int n_cols, int n_splits, int* best, int* idx,
+                                int* second, int* counters, int* part,
+                                void* stream) {
+  return launch<ValidGate>(desc1, desc2, nullptr, valid2, n_rows, n_cols,
+                           n_splits, best, idx, second, nullptr,
+                           reinterpret_cast<unsigned*>(counters), part,
+                           stream);
 }

@@ -7,11 +7,12 @@ seconds.  The library is built at first use into
 ``build/cuda/`` at the repository root (git-ignored) and rebuilt when a
 source is newer than it.  Nothing is compiled or loaded at import time.
 
-Each kernel wrapper (``ops.fast.score_map``,
+Each kernel wrapper (``ops.fast.fast_score_levels``,
 ``matching.hamming_top2.masked_top2_mutual`` / ``masked_top2_epi`` /
 ``hamming_top2``) calls :func:`call`, which launches on PyTorch's
 current stream, raises if the launch failed, and adds one to the
-kernel's entry in :data:`LAUNCHES`.  The tracking thread and the
+kernel's entry in :data:`LAUNCHES` (and, for a search, to its
+(rows, columns) entry in :data:`SHAPES`).  The tracking thread and the
 mapping thread both launch, so the lazy build and the counts are
 guarded by one lock.
 """
@@ -36,9 +37,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # C entry point per kernel: argument ctypes after the leading pointers
 _SIGNATURES = {
-    "fast_score": ("orb_fast_score",
-                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_void_p]),
+    "fast_score": ("orb_fast_score_levels",
+                   [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]),
     "masked_top2_mutual": ("orb_masked_top2_mutual",
                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                            + [ctypes.c_void_p] * 5),
@@ -46,8 +46,8 @@ _SIGNATURES = {
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                         + [ctypes.c_void_p] * 5),
     "hamming_top2": ("orb_hamming_top2",
-                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                     + [ctypes.c_void_p] * 4),
+                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p] * 6),
 }
 
 # C entry points that launch nothing: argument ctypes
@@ -57,6 +57,8 @@ _HELPERS = {
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES = {name: 0 for name in _SIGNATURES}
+# launches per (kernel, rows, columns) of the searches since then
+SHAPES = {}
 
 _lib = None
 _lock = threading.Lock()
@@ -66,6 +68,7 @@ def reset_launch_counts() -> None:
     with _lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        SHAPES.clear()
 
 
 def _nvcc() -> str:
@@ -127,10 +130,11 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def call(name: str, *args) -> None:
+def call(name: str, *args, shape=None) -> None:
     """Launch kernel ``name`` on the current CUDA stream.  Tensor
-    arguments pass as device pointers, ints as C ints.  Raises
-    RuntimeError when the launch is refused."""
+    arguments pass as device pointers, ints as C ints, ctypes arrays as
+    host pointers.  Raises RuntimeError when the launch is refused.
+    ``shape`` (a search's (rows, columns)) is counted in SHAPES."""
     cname, _ = _SIGNATURES[name]
     fn = getattr(library(), cname)
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -142,6 +146,9 @@ def call(name: str, *args) -> None:
                            f"cudaError {err}")
     with _lock:
         LAUNCHES[name] += 1
+        if shape is not None:
+            key = (name, *shape)
+            SHAPES[key] = SHAPES.get(key, 0) + 1
 
 
 def masked_top2_splits(device: int, n: int, m: int) -> int:

@@ -6,7 +6,8 @@ kernels and their XLA twins).
 
 K4, :func:`hamming_top2`, is the unmasked search with column validity:
 (best, best_idx, second) per row.  No pipeline stage calls it, in the
-port as in the JAX package.
+port as in the JAX package.  On a CUDA tensor it launches the same
+tensor-core kernel as K2/K3 with no gate (``csrc/masked_top2.cu``).
 
 K2 and K3 are the inner loop of every projection and epipolar search:
 for each row, the best and second-best admissible column by Hamming
@@ -43,6 +44,7 @@ from . import core
 
 TILE = 128           # row/column multiple the kernels take
 BIG = 1 << 20        # K4: added to the distance of an invalid column
+K4_MAX_COLS = 1 << 21  # K4: key = (d + 257 * invalid) * 2^21 + col
 MASK_D = 1023        # masked-pair distance sentinel (real max is 256)
 COL_STRIDE = 4096    # key = d * COL_STRIDE + col  (requires M <= 4096)
 ROW_STRIDE = 16384   # colkey = d * ROW_STRIDE + row (requires N <= 16384)
@@ -152,7 +154,7 @@ def _launch(name: str, desc1, desc2, row_attr, col_attr, n_row_attr: int):
                       device=dev)
     part = torch.empty(2 * splits * n, dtype=torch.int32, device=dev)
     kernels.call(name, desc1, desc2, row_attr, col_attr, n, m, splits,
-                 bkey, skey, ckey, part)
+                 bkey, skey, ckey, part, shape=(n, m))
     return bkey, skey, ckey[:m]
 
 
@@ -203,12 +205,17 @@ def hamming_top2_plain(desc1, desc2, valid2):
 def hamming_top2(desc1, desc2, valid2):
     """K4: the fused Hamming top-2.  Same contract as
     :func:`hamming_top2_plain`; N and M must be multiples of 128 (as the
-    TPU kernel asks).  CUDA tensors launch the kernel of
-    ``csrc/hamming_top2.cu``, CPU tensors run the plain version."""
+    TPU kernel asks) and M <= ``K4_MAX_COLS`` (2^21 = 2,097,152: the
+    kernel packs (distance, column) into an int32 key).  CUDA tensors
+    launch the kernel of ``csrc/masked_top2.cu`` (K2/K3's tensor-core
+    search without a gate), CPU tensors run the plain version."""
     n, m = desc1.shape[0], desc2.shape[0]
     if n % TILE or m % TILE:
         raise ValueError(f"hamming_top2 takes N and M in multiples of "
                          f"{TILE}, got N={n}, M={m}")
+    if m > K4_MAX_COLS:
+        raise ValueError(f"hamming_top2 keys need M <= {K4_MAX_COLS}, "
+                         f"got M={m}")
     if not desc1.is_cuda:
         return hamming_top2_plain(desc1, desc2, valid2)
     expect = ((desc1, (n, 8), torch.int32), (desc2, (m, 8), torch.int32),
@@ -220,11 +227,17 @@ def hamming_top2(desc1, desc2, valid2):
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"hamming_top2: expected {shape} {dtype}, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    desc1, desc2 = desc1.contiguous(), desc2.contiguous()
-    v2 = valid2.to(torch.int32).contiguous()
-    best, idx, second = (torch.empty(n, dtype=torch.int32,
-                                     device=desc1.device) for _ in range(3))
-    kernels.call("hamming_top2", desc1, desc2, v2, n, m, best, idx, second)
+    desc1, desc2, valid2 = (t.contiguous() for t in (desc1, desc2, valid2))
+    dev = desc1.device
+    splits = _splits(dev.index, n, m)
+    best, idx, second = (torch.empty(n, dtype=torch.int32, device=dev)
+                         for _ in range(3))
+    # one arrival counter per row tile
+    counters = torch.full((n // TILE,), INT_MAX, dtype=torch.int32,
+                          device=dev)
+    part = torch.empty(2 * splits * n, dtype=torch.int32, device=dev)
+    kernels.call("hamming_top2", desc1, desc2, valid2, n, m, splits, best,
+                 idx, second, counters, part, shape=(n, m))
     return best, idx, second
 
 

@@ -78,13 +78,17 @@ def extract(image: torch.Tensor, params: OrbParams) -> Features:
     budgets = features_per_level(params.n_features, params.n_levels,
                                  params.scale_factor)
     sf, _, _, _ = pyramid.scale_factors(params.n_levels, params.scale_factor)
+    # every used level's FAST scores at once (K1: one launch on the card)
+    used = [lvl for lvl, n_l in enumerate(budgets) if n_l > 0]
+    scores = dict(zip(used, fast.score_maps([levels[lvl] for lvl in used])))
 
     parts = []
     for lvl, (img_l, n_l) in enumerate(zip(levels, budgets)):
         if n_l == 0:
             continue
         keep, score = fast.detect(
-            img_l, th_hi=params.th_fast_hi, th_lo=params.th_fast_lo)
+            img_l, th_hi=params.th_fast_hi, th_lo=params.th_fast_lo,
+            score=scores[lvl])
         ys, xs, resp, valid = distribute.grid_topk(keep, score, n_l)
         ang = orientation.ic_angle(img_l, ys, xs)
         blurred = pyramid.gaussian_blur_7x7(img_l)

@@ -10,6 +10,7 @@ machine without the JAX package:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from orb_slam2_tpu_torch import kernels
 from orb_slam2_tpu_torch.matching import hamming_top2 as ht
@@ -21,6 +22,62 @@ torch.set_num_threads(1)
 
 def _rand_desc(rng, n):
     return rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+
+
+def _arc_extreme(r, inner, outer):
+    """Over the circular 16-axis of ``r`` (16 tensors): ``inner`` over
+    each run of 9, ``outer`` over the 16 runs, in the kernel's order
+    (van Herk / Gil-Werman: each run a block suffix joined to a block
+    prefix, blocks [0..8], [9..17], [18..26] mod 16)."""
+    s0 = [r[8]]                            # s0[-1 - i] = inner(r[8-i..8])
+    for k in range(7, -1, -1):
+        s0.insert(0, inner(r[k], s0[0]))
+    p1 = [r[9]]                            # p1[j] = inner(r[9..9+j])
+    for j in range(1, 8):
+        p1.append(inner(p1[-1], r[(9 + j) % 16]))
+    s1 = [r[1]]                            # s1[k] = inner(r[9+k..17])
+    for k in range(7, -1, -1):
+        s1.insert(0, inner(r[(9 + k) % 16], s1[0]))
+    p2 = [r[2]]                            # p2[j] = inner(r[18..18+j])
+    for j in range(1, 6):
+        p2.append(inner(p2[-1], r[2 + j]))
+    runs = ([s0[0]] + [inner(s0[k], p1[k - 1]) for k in range(1, 9)]
+            + [s1[0]] + [inner(s1[k - 9], p2[k - 10]) for k in range(10, 16)])
+    w = 8
+    while w:
+        runs = [outer(runs[k], runs[k + w]) for k in range(w)] + runs[w:]
+        w //= 2
+    return runs[0]
+
+
+def _fast_score_folded(image):
+    """Plain mirror of K1's arithmetic (csrc/fast_score.cu): the arc
+    extremes A = max_k min_arc r and B = min_k max_arc r on the bf16
+    pixels, then max(bf16(A - p), -bf16(B - p)) with each difference in
+    float32.  Wraps at the edges as ``fast_score_map`` does.  The last
+    max orders -0 below +0, as ``jnp.maximum`` does (``torch.maximum``
+    picks between +0 and -0 by argument order and size)."""
+    im = image.to(torch.bfloat16)
+    r = [torch.roll(im, (-dy, -dx), dims=(0, 1)) for dy, dx in tfast.CIRCLE]
+    a = _arc_extreme(r, torch.minimum, torch.maximum)
+    b = _arc_extreme(r, torch.maximum, torch.minimum)
+    p = im.float()
+    bright = (a.float() - p).to(torch.bfloat16)
+    dark = -(b.float() - p).to(torch.bfloat16)
+    score = torch.maximum(bright, dark)
+    plus_zero = ((bright == 0) & (dark == 0)
+                 & ~(torch.signbit(bright) & torch.signbit(dark)))
+    return torch.where(plus_zero, torch.zeros_like(score), score).float()
+
+
+def _adversarial_image(rng, shape):
+    """255 beside values below 2^-10: fl32(r - p) itself rounds before
+    the bf16 rounding, so a single rounding would differ."""
+    img = rng.integers(0, 256, shape).astype(np.float32)
+    img[rng.random(shape) < 0.4] = 255.0
+    tiny = rng.random(shape) < 0.3
+    img[tiny] = rng.uniform(2.0 ** -24, 2.0 ** -10, int(tiny.sum()))
+    return img
 
 
 def _t(a):
@@ -242,6 +299,143 @@ class TestMaskedTop2Edges:
         ck = k[2][:128].cpu().numpy()
         np.testing.assert_array_equal(ck // ht.ROW_STRIDE, 0)
         np.testing.assert_array_equal(ck % ht.ROW_STRIDE, 384 + np.arange(128))
+
+
+def _k1_check(images, launches=1):
+    """K1 on ``images`` (CUDA) in ``launches`` launches; each score map
+    equals ``fast_score_map`` and the folded mirror on the interior, and
+    ``fast_score_map`` of the zero-padded image everywhere (the kernel's
+    zero halo)."""
+    n0 = kernels.LAUNCHES["fast_score"]
+    out = tfast.score_maps(images)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fast_score"] == n0 + launches
+    for im, k in zip(images, out):
+        assert k.shape == im.shape and k.dtype == torch.float32
+        p = tfast.fast_score_map(im)
+        assert torch.equal(k[3:-3, 3:-3], p[3:-3, 3:-3])
+        assert torch.equal(k[3:-3, 3:-3], _fast_score_folded(im)[3:-3, 3:-3])
+        padded = tfast.fast_score_map(F.pad(im, (8, 8, 8, 8)))[8:-8, 8:-8]
+        assert torch.equal(k, padded)
+    return out
+
+
+@pytest.mark.gpu
+class TestFastScoreLevels:
+    """K1 redesigned: a frame's levels in one launch.  Bar: equal to the
+    plain version on the interior (and to the plain version of the
+    zero-padded image everywhere), one launch per 8 images."""
+
+    def test_eight_levels_one_launch(self, cuda):
+        rng = np.random.default_rng(8)
+        img = torch.as_tensor(
+            rng.integers(0, 256, (1440, 1920)).astype(np.float32), device=cuda)
+        levels = tpyr.build_pyramid(img, 8, 1.2)
+        assert not torch.equal(levels[1], levels[1].round())  # resized
+        _k1_check(levels)
+
+    def test_odd_sizes_and_levels_below_a_tile(self, cuda):
+        rng = np.random.default_rng(9)
+        shapes = [(5, 7), (1, 300), (300, 1), (31, 127), (33, 129),
+                  (97, 131), (64, 256), (402, 536)]
+        _k1_check([torch.as_tensor(rng.integers(0, 256, s).astype(np.float32),
+                                   device=cuda) for s in shapes])
+
+    def test_non_integer_and_adversarial(self, cuda):
+        rng = np.random.default_rng(10)
+        images = [rng.uniform(0, 255, (200, 300)),
+                  _adversarial_image(rng, (1440, 1920)),
+                  _adversarial_image(rng, (83, 111))]
+        _k1_check([torch.as_tensor(a.astype(np.float32), device=cuda)
+                   for a in images])
+
+    def test_more_than_eight_images(self, cuda):
+        rng = np.random.default_rng(11)
+        images = [torch.as_tensor(rng.integers(0, 256, (40 + i, 70 - i))
+                                  .astype(np.float32), device=cuda)
+                  for i in range(tfast.MAX_LEVELS + 1)]
+        _k1_check(images, launches=2)
+
+    def test_single_image(self, cuda):
+        rng = np.random.default_rng(12)
+        img = torch.as_tensor(rng.integers(0, 256, (100, 150))
+                              .astype(np.float32), device=cuda)
+        n0 = kernels.LAUNCHES["fast_score"]
+        k = tfast.score_map(img)
+        assert kernels.LAUNCHES["fast_score"] == n0 + 1
+        assert torch.equal(k, tfast.fast_score(img))
+        assert torch.equal(k[3:-3, 3:-3], tfast.fast_score_map(img)[3:-3, 3:-3])
+        with pytest.raises(ValueError):      # CPU and CUDA images mixed
+            tfast.score_maps([img, img.cpu()])
+
+
+def _k4_both(d1, d2, v2, cuda):
+    """One call of K4 (exactly one launch) against its plain version."""
+    args = (_t(d1).to(cuda), _t(d2).to(cuda), torch.from_numpy(v2).to(cuda))
+    before = kernels.LAUNCHES["hamming_top2"]
+    out = ht.hamming_top2(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hamming_top2"] == before + 1
+    for o, r, what in zip(out, ht.hamming_top2_plain(*args),
+                          ("best", "idx", "second")):
+        assert torch.equal(o, r), f"{what}: {(o != r).sum().item()} differ"
+    return [o.cpu().numpy() for o in out]
+
+
+@pytest.mark.gpu
+class TestHammingTop2Edges:
+    """K4 redesigned on K2/K3's tensor-core search: column splits merged
+    inside the launch, validity folded into the keys.  Bar: bit-exact
+    against ``hamming_top2_plain``, one launch per call."""
+
+    @pytest.mark.parametrize("n,m", [(256, 384), (4096, 4096), (128, 8192)])
+    def test_ties_across_splits(self, cuda, n, m):
+        rng = np.random.default_rng(n + m)
+        base = _rand_desc(rng, 128)
+        d2 = np.tile(base[:64], (m // 64, 1))
+        d1 = np.tile(base, (n // 128, 1))
+        d1[: n // 2] ^= (rng.random((n // 2, 8)) < 0.01).astype(np.uint32)
+        v2 = rng.random(m) > 0.2
+        best, _, second = _k4_both(d1, d2, v2, cuda)
+        assert ((best == second) & (best < ht.BIG)).any()
+
+    @pytest.mark.parametrize("n,m", [(4096, 4096), (128, 4096), (256, 384)])
+    def test_only_valid_column_in_last_split(self, cuda, n, m):
+        rng = np.random.default_rng(n * 3 + m)
+        d1, d2 = _rand_desc(rng, n), _rand_desc(rng, m)
+        v2 = np.zeros(m, bool)
+        j = m - 1 - int(rng.integers(0, m - _last_split_begin(n, m)))
+        v2[j] = True
+        best, idx, second = _k4_both(d1, d2, v2, cuda)
+        assert (idx == j).all() and (best <= 256).all()
+        assert (second == ht.BIG).all()
+
+    def test_all_invalid_block(self, cuda):
+        rng = np.random.default_rng(5)
+        d1, d2 = _rand_desc(rng, 512), _rand_desc(rng, 4096)
+        d1[:256] = d2[rng.integers(0, 4096, 256)]
+        best, _, second = _k4_both(d1, d2, np.zeros(4096, bool), cuda)
+        assert (best >= ht.BIG).all() and (second == ht.BIG).all()
+        assert (best[:256] == ht.BIG).all()
+
+    def test_columns_above_4096(self, cuda):
+        rng = np.random.default_rng(6)
+        d1, d2 = _rand_desc(rng, 128), _rand_desc(rng, 8192)
+        d1[:64] = d2[8192 - 64:]
+        v2 = rng.random(8192) > 0.2
+        best, idx, _ = _k4_both(d1, d2, v2, cuda)
+        hit = v2[8192 - 64:]
+        assert (idx[:64][hit] == np.arange(8192 - 64, 8192)[hit]).all()
+
+    def test_size_guard(self, cuda):
+        m = ht.K4_MAX_COLS + ht.TILE
+        d1 = torch.zeros((128, 8), dtype=torch.int32, device=cuda)
+        d2 = torch.zeros((1, 8), dtype=torch.int32, device=cuda).expand(m, 8)
+        v2 = torch.ones(1, dtype=torch.bool, device=cuda).expand(m)
+        n0 = kernels.LAUNCHES["hamming_top2"]
+        with pytest.raises(ValueError, match="keys need"):
+            ht.hamming_top2(d1, d2, v2)
+        assert kernels.LAUNCHES["hamming_top2"] == n0
 
 
 @pytest.mark.gpu

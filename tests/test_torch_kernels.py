@@ -26,7 +26,9 @@ from orb_slam2_tpu_torch import kernels
 from orb_slam2_tpu_torch.matching import hamming_top2 as ht
 from orb_slam2_tpu_torch.ops import (brief as tbrief, distribute as tdist,
                                      fast as tfast, pyramid as tpyr)
-from test_torch_gpu import _epi_problem, _rand_desc, _t, _window_problem
+from test_torch_gpu import (_adversarial_image, _epi_problem,
+                            _fast_score_folded, _rand_desc, _t,
+                            _window_problem)
 
 torch.set_num_threads(1)
 
@@ -62,6 +64,54 @@ class TestFastScore:
     def test_kernel_wrapper_refuses_cpu_tensor(self):
         with pytest.raises(ValueError):
             tfast.fast_score(torch.zeros(32, 32))
+
+    @pytest.mark.parametrize("kind", ["integer", "resized", "constant",
+                                      "adversarial"])
+    def test_fold_matches_reference(self, kind):
+        """The kernel's arithmetic (``_fast_score_folded``: arc extremes
+        on the bf16 pixels, two roundings a pixel) against the JAX
+        package's ``fast_score_map`` (16 roundings a pixel): every bit
+        of the interior, the sign of zero included."""
+        rng = np.random.default_rng(21)
+        if kind == "integer":
+            images = [rng.integers(0, 256, (64, 96)).astype(np.float32)]
+        elif kind == "resized":
+            img = rng.integers(0, 256, (120, 160)).astype(np.float32)
+            images = [np.array(lvl) for lvl in
+                      jpyr.build_pyramid(jnp.asarray(img), 4, 1.2)[1:]]
+        elif kind == "constant":
+            images = [np.full((40, 50), 77.0, np.float32)]
+        else:
+            images = [_adversarial_image(rng, (70, 90))]
+        for img in images:
+            ref = np.asarray(jfast.fast_score_map(jnp.asarray(img)))
+            out = _fast_score_folded(torch.from_numpy(img)).numpy()
+            np.testing.assert_array_equal(out[3:-3, 3:-3].view(np.uint32),
+                                          ref[3:-3, 3:-3].view(np.uint32))
+
+    def test_extractor_scores_all_levels_in_one_call(self, monkeypatch):
+        """extract() takes every level's scores from one score_maps call
+        and hands them to detect(score=...); the Features equal those of
+        detect computing each level's score itself."""
+        from orb_slam2_tpu_torch.ops import extractor as tex
+        img = torch.from_numpy(np.random.default_rng(5).integers(
+            0, 256, (160, 200)).astype(np.float32))
+        params = tex.OrbParams(n_features=300, n_levels=4)
+        calls = []
+        score_maps = tfast.score_maps
+
+        def spy(levels):
+            calls.append(len(levels))
+            return score_maps(levels)
+        monkeypatch.setattr(tfast, "score_maps", spy)
+        out = tex.extract(img, params)
+        assert calls == [4]
+        monkeypatch.setattr(tfast, "score_maps",
+                            lambda levels: [None] * len(levels))
+        ref = tex.extract(img, params)
+        assert int(ref.valid.sum()) > 100
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
 
 
 # ----------------------------------------------------------------------
@@ -259,6 +309,68 @@ class TestHammingTop2:
             np.testing.assert_array_equal(o, r)
         assert (out[0] == 0).all() and (out[2] == 0).all()
         np.testing.assert_array_equal(out[1], np.tile(np.arange(128), 2))
+
+    @pytest.mark.parametrize("n_splits", [2, 3])
+    @pytest.mark.parametrize("valid", ["none", "one_in_last", "some", "all"])
+    def test_split_merge_matches_pallas(self, valid, n_splits):
+        """The CUDA kernel cuts the columns into splits (32-column
+        chunks), carries per row the best and true second key
+        (d + 257 * invalid) * 2^21 + col, merges splits by K2's rule and
+        decodes the last merge.  Here the plain version runs on each
+        slice, its answer is turned into those keys (a second at BIG is
+        an invalid key: only its being invalid matters), the slices are
+        merged and decoded; the result equals the Pallas kernel's bit for
+        bit.  The second half of the columns repeats the first, so ties
+        cross the slices and the lowest column must win."""
+        n, m = 256, 384
+        rng = np.random.default_rng(31 + n_splits)
+        d2 = _rand_desc(rng, m)
+        d2[m // 2:] = d2[:m // 2]
+        d1 = d2[rng.integers(0, m, n)] ^ (
+            rng.random((n, 8)) < 0.03).astype(np.uint32)
+        d1[: n // 4] = _rand_desc(rng, n // 4)
+        chunk = 32
+        cuts = [s * (m // chunk) // n_splits * chunk
+                for s in range(n_splits + 1)]
+        v2 = {"none": np.zeros(m, bool), "all": np.ones(m, bool),
+              "some": rng.random(m) > 0.3}.get(valid)
+        if v2 is None:
+            v2 = np.zeros(m, bool)
+            v2[cuts[-2] + 5] = True
+        bits, inv_d = 21, 257
+        b = s = None
+        for c0, c1 in zip(cuts[:-1], cuts[1:]):
+            pb, pi, ps = (a.to(torch.int64) for a in ht.hamming_top2_plain(
+                _t(d1), _t(d2[c0:c1]), torch.from_numpy(v2[c0:c1])))
+            bd = torch.where(pb < ht.BIG, pb, pb - ht.BIG + inv_d)
+            kb = (bd << bits) + pi + c0
+            sd = torch.where((pb < ht.BIG) & (ps < ht.BIG), ps, inv_d)
+            ks = (sd << bits) + (1 << bits) - 1
+            if b is None:
+                b, s = kb, ks
+            else:
+                b, s = (torch.minimum(b, kb),
+                        torch.minimum(torch.maximum(b, kb),
+                                      torch.minimum(s, ks)))
+        bd, sd = b >> bits, s >> bits
+        ok = bd < inv_d
+        out = (torch.where(ok, bd, ht.BIG + bd - inv_d),
+               b & ((1 << bits) - 1),
+               torch.where(ok & (sd < inv_d), sd, ht.BIG))
+        ref = _k4_ref(d1, d2, v2)
+        for o, r in zip(out, ref):
+            np.testing.assert_array_equal(o.numpy(), r)
+        if valid in ("some", "all"):
+            assert (ref[0] == ref[2]).sum() > 0          # ties occurred
+
+    def test_column_limit(self):
+        """K4's keys hold the column in 21 bits: M past 2^21 is refused,
+        on the CPU as on the card."""
+        m = ht.K4_MAX_COLS + ht.TILE
+        d2 = torch.zeros((1, 8), dtype=torch.int32).expand(m, 8)
+        with pytest.raises(ValueError, match="keys need"):
+            ht.hamming_top2(torch.zeros((128, 8), dtype=torch.int32), d2,
+                            torch.ones(1, dtype=torch.bool).expand(m))
 
     def test_shape_guard_and_no_launch_on_cpu(self):
         kernels.reset_launch_counts()
