@@ -14,27 +14,45 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      also with no valid column and past 4096 columns), bit-exact, with
      CUDA-event times of both and the least time the card could take
      (``bound_ms``);
-  3. path A, bench.py's topology: ``System(cfg,
-     enable_loop_closing=True, async_mapping=True)`` tracks a 40-frame
-     1920x1440 aerial sweep with 4000 ORB features on 8 levels through
-     ``track_monocular_with_pose`` while local mapping and loop
-     detection run on the mapping thread; checks tracking, map quality,
-     the vocabulary and BoW database, that K1-K3 launched and K1 once a
-     frame, and prints the searches' launches by shape;
-  4. path C: K4 through its entry point ``hamming_top2`` at 4096x4096
+  3. path A, bench.py's configuration: ``System(cfg,
+     enable_loop_closing=True, async_mapping=True)`` with
+     ``pipelined_tracking`` at depth 3 tracks a 40-frame 1920x1440 aerial
+     sweep with 4000 ORB features on 8 levels through
+     ``track_monocular_with_pose(..., next_image=)`` after a
+     ``prefetch`` of the first frame, and ends with ``flush_tracking``,
+     while local mapping and loop detection run on the mapping thread;
+     no synchronization per frame.  Checks tracking, that nothing is left
+     in flight, map quality, the vocabulary and BoW database, that K1-K3
+     launched and K1 once a frame plus once per prefetch that was
+     discarded; prints fps as bench.py measures it, the searches'
+     launches by shape and the synchronizations of one extraction;
+  4. path A-seq: path A with ``pipelined_tracking=False``, for its fps
+     and frame times beside path A's on the same card;
+  5. path C: K4 through its entry point ``hamming_top2`` at 4096x4096
      with 20% of the columns invalid;
-  5. path B, a loop that closes at full width: a drifted circuit with
+  6. path B, a loop that closes at full width: a drifted circuit with
      sequential mapping must run DetectLoop -> Sim3 -> correction ->
      essential graph -> global BA and lower the keyframe ATE below the
-     drifted priors'; prints the loop-closing stage times.
+     drifted priors'; prints the loop-closing stage times;
+  7. path D, estimated-pose mode at full width: path A's world and a
+     50-frame sweep through ``track_monocular`` with no pose (the H/F
+     two-view bootstrap, the motion model, pose-optimizing local BA,
+     sequential mapping with loop detection): initialized within 10
+     frames, 0.8 of the frames after it OK, the Sim3-aligned ATE of the
+     camera centers under 1% of the distance flown; then a noise frame
+     must go LOST and a mapped frame's image relocalize through EPnP to
+     within 1% of the distance flown and 1 degree of the pose tracked
+     for it.
 The kernel launch counts are read per path, each path driven with the
 counts set to 0 just before it.  The last three lines are a JSON object
 describing the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 
-Three diagnostics print no such lines: ``--profile`` runs path A alone
-with torch.profiler over a window of frames, ``--repeat-b`` runs path B
-four times and says where the runs part, and ``--kernels-from DIR``
+Four diagnostics print no such lines: ``--profile`` runs path A alone
+(pipelined) with torch.profiler over a window of frames, ``--repeat-a``
+runs paths A-seq, A, A, A-seq one after another for the spread of their
+fps and frame times, ``--repeat-b`` runs path B four times and says
+where the runs part, and ``--kernels-from DIR``
 runs phases 1 and 2 alone with the port imported from DIR.  To compare
 two commits on one card, unpack the other one (``git archive``) into a
 git-ignored directory and run, one after another on the same card,
@@ -53,6 +71,7 @@ import time
 import numpy as np
 
 N_FRAMES = 40
+PIPELINE_DEPTH = 3      # bench.py's default BENCH_PIPELINE_DEPTH
 FLIGHT_HEIGHT = 12.0
 # map points lie on the plane z = 0; tests/test_pipeline.py holds the
 # median |z| under 0.08 at flight height 10, scaled here to height 12
@@ -73,6 +92,15 @@ LOOP_DRIFT = 0.02       # prior drift per frame, world units
 LOOP_MIN_OK = 0.7       # share of frames tracked OK
 # path A with --profile: the frames recorded by torch.profiler
 PROFILE_FROM = 20
+# path D: estimated-pose mode over path A's world.  50 frames leave at
+# least 6 keyframes (a loss then does not reset the map), which 40 may
+# not; the bars are tests/test_pipeline.py's TestEstimatedMode scaled
+D_FRAMES = 50
+D_INIT_BY = 10          # frames by which the two-view bootstrap succeeds
+D_MIN_OK = 0.8          # share of the frames after it tracked OK
+D_ATE_SHARE = 0.01      # ATE bar, share of the distance flown
+D_MIN_KEYFRAMES = 6     # a loss with <= 5 keyframes resets the map
+D_RELOC_DEG = 1.0       # relocalized pose against the tracked one
 
 # H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor cores and
 # device memory.  A Hamming distance of two 256-bit descriptors is
@@ -482,22 +510,58 @@ def device_window(trace_path: str, threads: dict) -> dict:
                 threads=per)
 
 
-def phase_bench(device, world, cfg, profile: bool = False):
-    """Path A: bench.py's topology, System(enable_loop_closing=True,
-    async_mapping=True), over the sweep; flush_mapping and shutdown at
-    the end.  The tracker's time per frame is split by the main
+def extraction_syncs(system, image) -> list:
+    """The host synchronizations of one extraction on the card, by
+    torch.cuda.set_sync_debug_mode("warn"): (file:line, count) of the
+    warnings, most frequent first.  A synchronizing extraction returns
+    from ``factory.start`` only when its work is done, so a prefetch
+    cannot overlap it."""
+    import collections
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            system.factory.start(image)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return sites.most_common()
+
+
+def phase_bench(device, world, cfg, pipelined: bool = True,
+                profile: bool = False) -> dict:
+    """Path A (``pipelined``): bench.py's configuration,
+    System(enable_loop_closing=True, async_mapping=True) with
+    ``pipelined_tracking`` at depth PIPELINE_DEPTH, driven as bench.py
+    drives it: ``prefetch`` of the first frame, ``next_image`` with each
+    call, ``flush_tracking`` at the end; no synchronization per frame.
+    Path A-seq: the same calls with ``pipelined_tracking=False``.  fps
+    as bench.py measures it: the frames from the first after
+    initialization over the time from the start of its call to the
+    return of ``flush_tracking``.  Frame times are each call's on the
+    host clock.  The tracker's time per frame is split by the main
     thread's CPU clock: what it did not run on a CPU it spent blocked,
     on the map lock (measured) or on the interpreter lock (the rest;
     CUDA spins while it synchronizes when the process holds fewer
     contexts than the host has cores, so synchronizations count as run
-    time).  ``profile`` records the
-    card over frames PROFILE_FROM.. with torch.profiler and reads the
-    device's busy share and each thread's waits for the card."""
+    time).  ``profile`` records the card over frames PROFILE_FROM..
+    with torch.profiler and reads the device's busy share and each
+    thread's waits for the card."""
+    import dataclasses
     import torch
     from orb_slam2_tpu_torch import kernels
     from orb_slam2_tpu_torch.pipeline.system import System
     from orb_slam2_tpu_torch.pipeline.tracking import TrackState
     from orb_slam2_tpu_torch.utils import synth
+    name = "A" if pipelined else "A-seq"
+    cfg = dataclasses.replace(cfg, pipelined_tracking=pipelined,
+                              pipeline_depth=PIPELINE_DEPTH)
     _, poses = bench_world(device)
     # the frames are rendered on the card before the timed loop, as
     # bench.py stages its sequence
@@ -505,32 +569,62 @@ def phase_bench(device, world, cfg, profile: bool = False):
     torch.cuda.synchronize()
     system = System(cfg, enable_loop_closing=True, async_mapping=True,
                     device=device)
+    if pipelined and not profile:
+        sites = extraction_syncs(system, frames[0])
+        log(f"{name}: one extraction synchronizes with the host "
+            f"{sum(n for _, n in sites)} times "
+            f"(torch.cuda.set_sync_debug_mode): {sites}")
     clock = LockWaitClock(system.store.lock)
     system.store.lock = clock
+    # a prefetch made for the other feature budget (init_mode) is
+    # extracted again: one more K1 launch, allowed and printed
+    discarded = []
+    make = system.factory.make
+
+    def make_counted(image, timestamp=0.0, Tcw=None, init_mode=False,
+                     started=None):
+        if started is not None and started[2] != init_mode:
+            discarded.append(timestamp)
+            log(f"{name}: the prefetched extraction at t={timestamp:.1f} "
+                f"was made with init_mode={started[2]}; extracted again")
+        return make(image, timestamp, Tcw=Tcw, init_mode=init_mode,
+                    started=started)
+    system.factory.make = make_counted
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    states, frame_ms, cpu_ms, lock_ms = [], [], [], []
+    states, starts, frame_ms, cpu_ms, lock_ms = [], [], [], [], []
     prof = None
+    system.prefetch(frames[0])
     for i, T in enumerate(poses):
         if profile and i == PROFILE_FROM:
             prof = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA])
             prof.start()
+        nxt = frames[i + 1] if i + 1 < len(frames) else None
         t0, c0, w0 = time.perf_counter(), time.thread_time(), clock.wait_s
-        system.track_monocular_with_pose(frames[i], i * 0.1, T)
-        torch.cuda.synchronize()
+        system.track_monocular_with_pose(frames[i], i * 0.1, T,
+                                         next_image=nxt)
+        starts.append(t0)
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         cpu_ms.append((time.thread_time() - c0) * 1e3)
         lock_ms.append((clock.wait_s - w0) * 1e3)
         states.append(system.state)
-        log(f"A frame {i:2d}: {system.state.name:15s} "
+        log(f"{name} frame {i:2d}: {system.state.name:15s} "
             f"inliers={system.tracker.matches_inliers:5d} "
             f"kfs={system.store.n_valid_keyframes():3d} "
             f"points={system.store.n_valid_points():6d} "
             f"{frame_ms[-1]:9.1f} ms")
+    system.flush_tracking()
+    t_end = time.perf_counter()
+    check(not system.tracker._pending,
+          f"{name}: {len(system.tracker._pending)} steps in flight after "
+          f"flush_tracking")
+    check(system.state == TrackState.OK,
+          f"{name}: the last frame is {system.state.name} after the flush")
     track_s = sum(frame_ms) / 1e3
     window = None
     if prof is not None:
+        torch.cuda.synchronize()
         prof.stop()
         path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "path_a_trace.json")
@@ -547,45 +641,48 @@ def phase_bench(device, world, cfg, profile: bool = False):
     peak = torch.cuda.max_memory_allocated()
 
     ok_idx = [i for i, s in enumerate(states) if s == TrackState.OK]
-    check(bool(ok_idx), "A: the map never initialized")
+    check(bool(ok_idx), f"{name}: the map never initialized")
     first = ok_idx[0]
     check(all(s == TrackState.OK for s in states[first:]),
-          f"A: a frame after initialization (frame {first}) is not OK: "
-          f"{[s.name for s in states]}")
+          f"{name}: a frame after initialization (frame {first}) is not "
+          f"OK: {[s.name for s in states]}")
     n_kf = system.store.n_valid_keyframes()
-    check(n_kf >= MIN_KEYFRAMES, f"A: only {n_kf} keyframes")
+    check(n_kf >= MIN_KEYFRAMES, f"{name}: only {n_kf} keyframes")
     pts = system.map_points()
     check(len(pts) > 0 and bool(np.isfinite(pts).all()),
-          "A: map points missing or not finite")
+          f"{name}: map points missing or not finite")
     med_z = float(np.median(np.abs(pts[:, 2])))
     check(med_z < MEDIAN_Z_BAR,
-          f"A: map points off the plane: median |z| {med_z:.4f} >= "
+          f"{name}: map points off the plane: median |z| {med_z:.4f} >= "
           f"{MEDIAN_Z_BAR}")
     pr = system.place_rec
-    check(pr.ready, "A: the vocabulary was never trained")
+    check(pr.ready, f"{name}: the vocabulary was never trained")
     check(pr.db is not None and len(pr.db.bow) > 0,
-          "A: the BoW keyframe database is empty")
-    for name in ("fast_score", "masked_top2_mutual", "masked_top2_epi"):
-        check(launches[name] > 0, f"A: kernel {name} never launched")
-    check(launches["fast_score"] == N_FRAMES,
-          f"A: K1 launched {launches['fast_score']} times over {N_FRAMES} "
-          f"frames, not once a frame")
+          f"{name}: the BoW keyframe database is empty")
+    for k in ("fast_score", "masked_top2_mutual", "masked_top2_epi"):
+        check(launches[k] > 0, f"{name}: kernel {k} never launched")
+    check(launches["fast_score"] == N_FRAMES + len(discarded),
+          f"{name}: K1 launched {launches['fast_score']} times over "
+          f"{N_FRAMES} frames and {len(discarded)} discarded prefetches")
     shapes = {f"{k[0]} {k[1]}x{k[2]}": v
               for k, v in sorted(kernels.SHAPES.items())}
     steady = frame_ms[first + 1:]
-    log(f"A: {len(ok_idx)}/{N_FRAMES} frames OK (initialized at frame "
-        f"{first}), {n_kf} keyframes, {len(pts)} map points, median |z| "
-        f"{med_z:.4f}, {len(pr.db.bow)} keyframes in the BoW database")
-    log(f"A: frame time after init with the mapping thread live: median "
-        f"{np.median(steady):.1f} ms, mean {np.mean(steady):.1f} ms, max "
-        f"{np.max(steady):.1f} ms (host clock around "
-        f"torch.cuda.synchronize()); the tracker waited "
+    fps = (N_FRAMES - first - 1) / (t_end - starts[first + 1])
+    log(f"{name}: {len(ok_idx)}/{N_FRAMES} frames OK (initialized at "
+        f"frame {first}), {n_kf} keyframes, {len(pts)} map points, median "
+        f"|z| {med_z:.4f}, {len(pr.db.bow)} keyframes in the BoW database, "
+        f"{len(discarded)} prefetched extractions discarded")
+    log(f"{name}: {fps:.2f} fps over frames {first + 1}-{N_FRAMES - 1} "
+        f"(to the return of flush_tracking); frame time with the mapping "
+        f"thread live: median {np.median(steady):.1f} ms, mean "
+        f"{np.mean(steady):.1f} ms, max {np.max(steady):.1f} ms (host "
+        f"clock per call, no synchronization); the tracker waited "
         f"{clock.wait_s * 1e3:.1f} ms of its {track_s * 1e3:.1f} ms on the "
-        f"map lock; final flush {flush_s * 1e3:.1f} ms; peak device "
+        f"map lock; final mapping flush {flush_s * 1e3:.1f} ms; peak device "
         f"memory {peak / 2 ** 20:.0f} MiB")
     wall, cpu, lck = (sum(x[first + 1:]) for x in (frame_ms, cpu_ms,
                                                      lock_ms))
-    log(f"A: the tracker's {wall:.1f} ms over frames {first + 1}-"
+    log(f"{name}: the tracker's {wall:.1f} ms over frames {first + 1}-"
         f"{N_FRAMES - 1}: {cpu:.1f} ms running on a CPU, {lck:.1f} ms on "
         f"the map lock, {wall - cpu - lck:.1f} ms blocked otherwise (the "
         f"interpreter lock) (main thread's CPU clock)")
@@ -594,7 +691,7 @@ def phase_bench(device, world, cfg, profile: bool = False):
         w_cpu = sum(cpu_ms[PROFILE_FROM:])
         w_lck = sum(lock_ms[PROFILE_FROM:])
         tr = window["threads"].get("tracker", {})
-        log(f"A profile, frames {PROFILE_FROM}-{N_FRAMES - 1} "
+        log(f"{name} profile, frames {PROFILE_FROM}-{N_FRAMES - 1} "
             f"(torch.profiler, CUDA activity): {w_wall:.1f} ms of tracker "
             f"wall time; the card busy {window['busy_ms']:.1f} ms "
             f"({window['busy_ms'] / w_wall:.3f} of it, "
@@ -604,13 +701,15 @@ def phase_bench(device, world, cfg, profile: bool = False):
             f"ms in copies, {w_lck:.1f} ms on the map lock, and was "
             f"{w_wall - w_cpu - w_lck:.1f} ms blocked otherwise")
         for who, d in sorted(window["threads"].items()):
-            log(f"A profile, {who}: {d['launches']} launches taking "
+            log(f"{name} profile, {who}: {d['launches']} launches taking "
                 f"{d['launch_ms']:.1f} ms, {d['sync_ms']:.1f} ms in "
                 f"synchronizations, {d['copy_ms']:.1f} ms in copies")
-    log(f"A: kernel launches {json.dumps(launches)}")
-    log(f"A: search launches by rows x columns {json.dumps(shapes)}")
-    log("A: timing report:\n" + system.timing_report())
-    return launches
+    log(f"{name}: kernel launches {json.dumps(launches)}")
+    log(f"{name}: search launches by rows x columns {json.dumps(shapes)}")
+    log(f"{name}: timing report:\n" + system.timing_report())
+    return dict(launches=launches, fps=fps, median_ms=float(
+        np.median(steady)), max_ms=float(np.max(steady)), keyframes=n_kf,
+        tracker_cpu_ms=cpu, tracker_ms=wall)
 
 
 def phase_k4(device, expect):
@@ -765,6 +864,116 @@ def phase_loop(device, cfg, trail: list = None):
     return launches
 
 
+def rotation_deg(Ta, Tb) -> float:
+    """The angle between the rotations of two poses, in degrees."""
+    c = (np.trace(Ta[:3, :3] @ Tb[:3, :3].T) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def centers(poses) -> np.ndarray:
+    """Camera centers (N, 3) of poses Tcw."""
+    return np.stack([-T[:3, :3].T @ T[:3, 3] for T in poses])
+
+
+def phase_estimated(device, world, cfg):
+    """Path D: estimated-pose mode at full width.  Path A's world, a
+    D_FRAMES sweep, ``pose_prior=False``, System(enable_loop_closing=True,
+    async_mapping=False), ``track_monocular(image, t)`` with no pose: the
+    H/F two-view bootstrap (a planar world: H), the motion model,
+    pose-optimizing local BA.  Then an EPnP relocalization: a noise frame
+    goes LOST, and a mapped keyframe's image, shown again with no pose,
+    must relocalize to the pose tracked for it."""
+    import dataclasses
+    import torch
+    from orb_slam2_tpu_torch import kernels
+    from orb_slam2_tpu_torch.pipeline.system import System
+    from orb_slam2_tpu_torch.pipeline.tracking import TrackState
+    from orb_slam2_tpu_torch.utils import synth
+    from orb_slam2_tpu_torch.utils.evaluate import ate_rmse
+    dcfg = dataclasses.replace(cfg, pose_prior=False)
+    poses = synth.aerial_trajectory(D_FRAMES, height=FLIGHT_HEIGHT,
+                                    speed=0.5)
+    frames = [synth.render(world, cfg.cam, T) for T in poses]
+    torch.cuda.synchronize()
+    system = System(dcfg, enable_loop_closing=True, async_mapping=False,
+                    device=device)
+    kernels.reset_launch_counts()
+    states, frame_ms = [], []
+    for i, img in enumerate(frames):
+        t0 = time.perf_counter()
+        system.track_monocular(img, i * 0.1)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        states.append(system.state)
+        log(f"D frame {i:2d}: {system.state.name:15s} "
+            f"inliers={system.tracker.matches_inliers:5d} "
+            f"kfs={system.store.n_valid_keyframes():3d} "
+            f"{frame_ms[-1]:9.1f} ms")
+    launches = dict(kernels.LAUNCHES)
+    ok_idx = [i for i, s in enumerate(states) if s == TrackState.OK]
+    check(bool(ok_idx) and ok_idx[0] < D_INIT_BY,
+          f"D: not initialized within {D_INIT_BY} frames: "
+          f"{[s.name for s in states]}")
+    first = ok_idx[0]
+    ok_share = (len(ok_idx) - 1) / (D_FRAMES - first - 1)
+    check(ok_share >= D_MIN_OK, f"D: only {ok_share:.3f} of the frames "
+          f"after initialization OK")
+    est = centers([system.trajectory[i][2] for i in ok_idx])
+    gt = centers([poses[i] for i in ok_idx])
+    flown = float(np.linalg.norm(np.diff(centers(poses), axis=0),
+                                 axis=1).sum())
+    ate = ate_rmse(est, gt, align="sim3")
+    check(bool(np.isfinite(est).all()), "D: a tracked pose is not finite")
+    check(ate < D_ATE_SHARE * flown, f"D: ATE {ate:.4f} over "
+          f"{D_ATE_SHARE} of the {flown:.2f} units flown")
+    for k in ("fast_score", "masked_top2_mutual", "masked_top2_epi"):
+        check(launches[k] > 0, f"D: kernel {k} never launched")
+    n_kf = system.store.n_valid_keyframes()
+    check(n_kf >= D_MIN_KEYFRAMES, f"D: only {n_kf} keyframes after "
+          f"{D_FRAMES} frames (a loss would reset the map)")
+    steady = frame_ms[first + 1:]
+    log(f"D: initialized at frame {first} (two-view, "
+        f"{len(ok_idx)}/{D_FRAMES} frames OK, {ok_share:.3f} after it), "
+        f"{n_kf} keyframes, {system.store.n_valid_points()} map points; "
+        f"Sim3-aligned ATE of the camera centers {ate:.4f} over "
+        f"{flown:.2f} units flown ({ate / flown:.5f} of it); frame time "
+        f"median {np.median(steady):.1f} ms, max {np.max(steady):.1f} ms "
+        f"(host clock per call)")
+    log(f"D: kernel launches {json.dumps(launches)}")
+
+    # EPnP relocalization: a noise frame, then a mapped keyframe's image
+    rng = np.random.default_rng(0)
+    noise = torch.as_tensor(rng.uniform(0, 255, (cfg.cam.height,
+                                                 cfg.cam.width))
+                            .astype(np.float32), device=device)
+    system.track_monocular(noise, D_FRAMES * 0.1)
+    check(system.state == TrackState.LOST,
+          f"D: the noise frame is {system.state.name}, not LOST")
+    check(system.store.n_valid_keyframes() >= D_MIN_KEYFRAMES,
+          "D: the loss reset the map")
+    j = max(kf.frame.frame_id for kf in system.store.kfs if kf.valid)
+    est_flown = float(np.linalg.norm(np.diff(est, axis=0), axis=1).sum())
+    t0 = time.perf_counter()
+    frame = system.track_monocular(frames[j], (D_FRAMES + 1) * 0.1)
+    reloc_ms = (time.perf_counter() - t0) * 1e3
+    check(system.state == TrackState.OK
+          and system.tracker.last_reloc_frame_id == frame.frame_id,
+          f"D: frame {j}'s image shown again did not relocalize "
+          f"({system.state.name})")
+    T_tracked = system.trajectory[j][2]
+    dc = float(np.linalg.norm(centers([frame.Tcw])[0]
+                              - centers([T_tracked])[0]))
+    deg = rotation_deg(frame.Tcw, T_tracked)
+    log(f"D: relocalized the image of keyframe frame {j} in {reloc_ms:.1f} "
+        f"ms with {system.tracker.matches_inliers} inliers: center "
+        f"{dc:.5f} from the tracked one ({dc / est_flown:.5f} of the "
+        f"{est_flown:.3f} map units flown), rotation {deg:.4f} deg")
+    check(dc < 0.01 * est_flown and deg < D_RELOC_DEG,
+          f"D: relocalized pose {dc:.4f} units / {deg:.3f} deg from the "
+          f"tracked one")
+    system.shutdown()
+    return launches
+
+
 KERNEL_META = {
     "fast_score": ("orb_slam2_tpu_torch/csrc/fast_score.cu",
                    "orb_slam2_tpu/ops/fast.py:81"),
@@ -775,6 +984,22 @@ KERNEL_META = {
     "hamming_top2": ("orb_slam2_tpu_torch/csrc/masked_top2.cu",
                      "orb_slam2_tpu/matching/pallas_hamming.py:47"),
 }
+
+
+def repeat_bench(device, world, cfg) -> int:
+    """--repeat-a: paths A-seq, A, A, A-seq in one process, one summary
+    line each: the spread of fps and frame times between runs of one
+    configuration against the gap between the two."""
+    runs = []
+    for pipelined in (False, True, True, False):
+        r = phase_bench(device, world, cfg, pipelined=pipelined)
+        runs.append(("A" if pipelined else "A-seq", r))
+    for name, r in runs:
+        log(f"repeat {name}: {r['fps']:.2f} fps, median frame "
+            f"{r['median_ms']:.1f} ms, max {r['max_ms']:.1f} ms, "
+            f"{r['keyframes']} keyframes, tracker {r['tracker_cpu_ms']:.1f}"
+            f" ms on a CPU of {r['tracker_ms']:.1f} ms")
+    return 0
 
 
 def repeat_loop(device, cfg) -> int:
@@ -816,6 +1041,9 @@ def main() -> int:
                     help="run only path A, with torch.profiler over "
                          "frames PROFILE_FROM.. (device busy share, "
                          "each thread's waits for the card)")
+    ap.add_argument("--repeat-a", action="store_true",
+                    help="run only paths A-seq, A, A, A-seq (see "
+                         "repeat_bench)")
     ap.add_argument("--repeat-b", action="store_true",
                     help="run only path B, four times (see repeat_loop)")
     ap.add_argument("--kernels-from", metavar="DIR",
@@ -859,6 +1087,12 @@ def main() -> int:
     world, _ = bench_world(device)
     if args.repeat_b:
         return repeat_loop(device, cfg)
+    if args.repeat_a:
+        try:
+            return repeat_bench(device, world, cfg)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
     if args.profile or args.kernels_from:
         try:
             if args.profile:
@@ -872,12 +1106,20 @@ def main() -> int:
         return 0
     try:
         timing = phase_kernels(device, world, cfg)
-        launches = phase_bench(device, world, cfg)
+        path_a = phase_bench(device, world, cfg)
+        path_seq = phase_bench(device, world, cfg, pipelined=False)
+        log(f"A against A-seq on this card: {path_a['fps']:.2f} against "
+            f"{path_seq['fps']:.2f} fps, median frame "
+            f"{path_a['median_ms']:.1f} against {path_seq['median_ms']:.1f}"
+            f" ms, max {path_a['max_ms']:.1f} against "
+            f"{path_seq['max_ms']:.1f} ms")
+        launches = path_a["launches"]
         from orb_slam2_tpu_torch.matching import hamming_top2 as ht
         k4_ref = ht.hamming_top2_plain(*k4_problem(4096, 4096, 0.2, 4,
                                                    device))
         launches["hamming_top2"] = phase_k4(device, k4_ref)["hamming_top2"]
         phase_loop(device, cfg)
+        phase_estimated(device, world, cfg)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

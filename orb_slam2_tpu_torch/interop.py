@@ -5,6 +5,9 @@ does next.  Nothing here imports jax: the JAX package's state arrives as
 numpy arrays and plain Python containers (``np.asarray`` of its device
 arrays; its MapStore is host numpy already).  Descriptors arrive as
 uint32 words and become the port's int32 tensors with the same bits.
+The functions here build on the CPU unless given a device, unlike the
+port's constructors (which default to ``"cuda"``): they exist for the
+CPU parity tests.
 """
 from __future__ import annotations
 

@@ -21,7 +21,7 @@ import torch
 class DevicePoints:
     """The six column tensors (``_arrs``) of the device point store."""
 
-    def __init__(self, min_capacity: int = 65536, device="cpu"):
+    def __init__(self, min_capacity: int = 65536, device="cuda"):
         self.min_capacity = min_capacity
         self.device = torch.device(device)
         self.cap = 0

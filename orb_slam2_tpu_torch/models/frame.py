@@ -132,7 +132,7 @@ class FrameFactory:
     mbInitialComputations, src/Frame.cc:111-188)."""
 
     def __init__(self, cam: camera_mod.Intrinsics, params: ex.OrbParams,
-                 device="cpu"):
+                 device="cuda"):
         self.cam = cam
         self.params = params
         self.device = torch.device(device)
@@ -146,9 +146,15 @@ class FrameFactory:
         self.scale_factors = ex.pyramid.scale_factors(
             params.n_levels, params.scale_factor)[0]
 
-    def extract(self, image, init_mode: bool = False):
-        """(features, undistorted xy) for ``image``: a numpy array
-        (uploaded to the factory's device) or a tensor already there."""
+    def start(self, image, init_mode: bool = False):
+        """Queue the extraction of ``image`` on the factory's device and
+        return ``(features, undistorted xy, init_mode)`` without waiting
+        for it (as far as the extractor never reads a result back on the
+        host).  Pair with :meth:`make` via ``started=``: a pipeline
+        extracts frame t+1 while frame t is processed on the host.
+
+        ``image``: a numpy array (uploaded to the factory's device) or a
+        tensor already there."""
         if isinstance(image, torch.Tensor):
             img = image.to(self.device)
         else:
@@ -159,12 +165,19 @@ class FrameFactory:
         params = self.init_params if init_mode else self.params
         feats = ex.extract(img.float(), params)
         und = camera_mod.undistort_points(self.cam, feats.xy)
-        return feats, und
+        return feats, und, init_mode
 
     def make(self, image, timestamp: float = 0.0,
-             Tcw: np.ndarray | None = None, init_mode: bool = False) -> Frame:
-        """image: (H, W) uint8/float32 grayscale."""
-        feats, und = self.extract(image, init_mode)
+             Tcw: np.ndarray | None = None, init_mode: bool = False,
+             started=None) -> Frame:
+        """image: (H, W) uint8/float32 grayscale.  ``started``: the
+        result of :meth:`start` for this image; it is used when it was
+        extracted for the same ``init_mode`` (feature budget), else the
+        image is extracted again."""
+        if started is not None and started[2] == init_mode:
+            feats, und, _ = started
+        else:
+            feats, und, _ = self.start(image, init_mode)
         fid = self._next_id
         self._next_id += 1
         n = int(feats.xy.shape[0])

@@ -188,7 +188,7 @@ class _ObsMirror:
 
 
 class MapStore:
-    def __init__(self, dev_capacity: int = 65536, device="cpu"):
+    def __init__(self, dev_capacity: int = 65536, device="cuda"):
         # initial row capacity of the device point store (grows by 4x
         # re-allocation past it) and the device it lives on
         self.dev_capacity = int(dev_capacity)

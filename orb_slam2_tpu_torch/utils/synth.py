@@ -45,7 +45,8 @@ class PlanarWorld:
 
 def make_world(seed: int = 0, tex_size: int = 3072, scale: float = 60.0,
                tex_shape: tuple | None = None,
-               origin_px: tuple | None = None, device="cpu") -> PlanarWorld:
+               origin_px: tuple | None = None,
+               device="cuda") -> PlanarWorld:
     """Random smooth texture with structure at several octaves, built on
     ``device``.  ``tex_shape``: optional (height, width); cell density is
     anchored to ``tex_size``.  ``origin_px``: texture pixel of world

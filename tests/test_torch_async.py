@@ -57,7 +57,7 @@ def _run(system, images, poses):
 def runs():
     """Both packages with loop detection on the mapping thread, as
     bench.py runs them, and a flush after every frame."""
-    world = synth.make_world(seed=3)
+    world = synth.make_world(seed=3, device="cpu")
     poses = synth.aerial_trajectory(N_FRAMES, speed=0.3)
     images = [synth.render(world, CAM, T) for T in poses]
     port = System(_config(), async_mapping=True, device="cpu")
@@ -107,7 +107,7 @@ def test_async_without_flush_keeps_the_map_consistent():
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
     try:
-        world = synth.make_world(seed=3)
+        world = synth.make_world(seed=3, device="cpu")
         poses = synth.aerial_trajectory(10, speed=0.3)
         system = System(_config(), async_mapping=True, device="cpu")
         states = []

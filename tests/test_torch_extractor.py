@@ -23,7 +23,7 @@ CAM = tcam.Intrinsics(fx=450.0, fy=450.0, cx=320.0, cy=240.0,
 
 @pytest.fixture(scope="module")
 def image():
-    world = synth.make_world(seed=3)
+    world = synth.make_world(seed=3, device="cpu")
     T = synth.aerial_trajectory(3, speed=0.3)[1]
     return synth.render(world, CAM, T).numpy().astype(np.float32)
 
@@ -134,7 +134,8 @@ def test_undistort_points():
 
 
 def test_frame_factory(image):
-    fac = FrameFactory(CAM, tex.OrbParams(n_features=800, n_levels=4))
+    fac = FrameFactory(CAM, tex.OrbParams(n_features=800, n_levels=4),
+                       device="cpu")
     f = fac.make(image, 0.0, np.eye(4, dtype=np.float32))
     assert f.n == 896 and f.device.type == "cpu"
     assert f.desc.dtype == np.uint32

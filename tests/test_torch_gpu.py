@@ -1,7 +1,10 @@
 """The hand-written CUDA kernels (K1, K2, K3, K4) against their plain
-PyTorch versions on the card, and the solvers' per-target sums
-(``optim.segment.IndexSum``) against ``index_add_`` on the CPU.  Every test here is marked ``gpu`` and
-skips without a CUDA device.  This file imports no jax, so it runs on a
+PyTorch versions on the card; the solvers' per-target sums
+(``optim.segment.IndexSum``) against ``index_add_`` on the CPU; the
+pipelined tracker's pinned result copies and the repeatability of a
+pipelined run; and the estimated-pose solvers (pose optimization, EPnP
+RANSAC, the two-view initializer) against the port's own CPU results.
+Every test here is marked ``gpu`` and skips without a CUDA device.  This file imports no jax, so it runs on a
 machine without the JAX package:
 
     python3 -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
@@ -13,9 +16,17 @@ import torch
 import torch.nn.functional as F
 
 from orb_slam2_tpu_torch import kernels
+from orb_slam2_tpu_torch.geom import se3, twoview
+from orb_slam2_tpu_torch.geom.camera import Intrinsics
 from orb_slam2_tpu_torch.matching import hamming_top2 as ht
 from orb_slam2_tpu_torch.ops import fast as tfast, pyramid as tpyr
+from orb_slam2_tpu_torch.ops.extractor import OrbParams
+from orb_slam2_tpu_torch.optim import pnp, pose_opt
 from orb_slam2_tpu_torch.optim.segment import IndexSum
+from orb_slam2_tpu_torch.pipeline.config import SlamConfig
+from orb_slam2_tpu_torch.pipeline.system import System
+from orb_slam2_tpu_torch.pipeline.tracking import _Readback
+from orb_slam2_tpu_torch.utils import synth
 
 torch.set_num_threads(1)
 
@@ -459,3 +470,166 @@ def test_index_sum_repeats(cuda, n, trail):
         assert torch.equal(a.cpu(), ref)
     else:
         torch.testing.assert_close(a.cpu(), ref, rtol=1e-5, atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# pipelined tracking on the card
+# ----------------------------------------------------------------------
+@pytest.mark.gpu
+def test_pinned_readback_equals_synchronous_copy(cuda):
+    """A step's outputs (indices, masks) copied without blocking into
+    pinned memory behind an event read back as a synchronous copy does,
+    with more work queued behind them on the stream."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    outs = (torch.randint(0, 4096, (4096,), device=cuda, generator=g),
+            torch.rand(4096, device=cuda, generator=g) > 0.5,
+            torch.randint(0, 4096, (16384,), device=cuda, generator=g),
+            torch.rand(16384, device=cuda, generator=g) > 0.3)
+    rb = _Readback(outs)
+    big = torch.rand((4096, 4096), device=cuda, generator=g)
+    for _ in range(4):
+        big = big @ big / 4096.0       # later work on the same stream
+    assert all(t.is_pinned() for t in rb._host)
+    for host, dev in zip(rb.arrays(), outs):
+        np.testing.assert_array_equal(host, dev.cpu().numpy())
+
+
+def _pipelined_run(cuda):
+    cam = Intrinsics(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640,
+                     height=480)
+    cfg = SlamConfig(cam=cam, orb=OrbParams(n_features=800, n_levels=4),
+                     fps=10.0, pose_prior=True, init_min_matches=60,
+                     init_min_triangulated=40, init_min_tracked_after_ba=60,
+                     pipelined_tracking=True, pipeline_depth=3)
+    world = synth.make_world(seed=3, device=cuda)
+    poses = synth.aerial_trajectory(26, speed=0.3)
+    system = System(cfg, enable_loop_closing=False, device=cuda)
+    frames, states = [], []
+    system.prefetch(synth.render(world, cam, poses[0]))
+    for i, P in enumerate(poses):
+        nxt = synth.render(world, cam, poses[i + 1]) \
+            if i + 1 < len(poses) else None
+        frames.append(system.track_monocular_with_pose(
+            synth.render(world, cam, P), i * 0.1, P, next_image=nxt))
+        states.append(system.state.name)
+    system.flush_tracking()
+    system.shutdown()
+    return states, [f.mp_ids.copy() for f in frames]
+
+
+@pytest.mark.gpu
+def test_pipelined_depth3_runs_repeat(cuda):
+    """Two pipelined depth-3 runs of the 640x480 sweep with the
+    extraction prefetch give the same states and the same bindings at
+    every frame."""
+    s1, b1 = _pipelined_run(cuda)
+    s2, b2 = _pipelined_run(cuda)
+    assert s1 == s2
+    assert sum(s == "OK" for s in s1) >= len(s1) - 2
+    for i, (x, y) in enumerate(zip(b1, b2)):
+        np.testing.assert_array_equal(x, y, err_msg=f"frame {i}")
+
+
+# ----------------------------------------------------------------------
+# estimated-pose solvers: the card against the port's CPU results, with
+# tests/test_torch_estimated.py's tolerances
+# ----------------------------------------------------------------------
+FX = FY = 450.0
+CX, CY = 320.0, 240.0
+
+
+def _project(P, X):
+    pc = X @ P[:3, :3].T + P[:3, 3]
+    return np.stack([FX * pc[:, 0] / pc[:, 2] + CX,
+                     FY * pc[:, 1] / pc[:, 2] + CY], -1).astype(np.float32)
+
+
+def _pose(axis, trans):
+    P = np.eye(4, dtype=np.float32)
+    P[:3, :3] = se3.so3_exp(torch.tensor(axis, dtype=torch.float32)).numpy()
+    P[:3, 3] = trans
+    return P
+
+
+def _pnp_scene():
+    rng = np.random.default_rng(2)
+    axis = rng.normal(size=3)
+    P = _pose(0.4 * axis / np.linalg.norm(axis), [0.3, -0.2, 0.5])
+    rng = np.random.default_rng(3)
+    pw = rng.uniform([-3, -3, 4], [3, 3, 12], (100, 3)).astype(np.float32)
+    pw = pw @ P[:3, :3] - (P[:3, 3] @ P[:3, :3])
+    uv = _project(P, pw)
+    uv[-30:] += rng.uniform(30, 120, (30, 2)).astype(np.float32)
+    samples = rng.integers(0, 100, (128, 4)).astype(np.int32)
+    return P, pw, uv, samples
+
+
+@pytest.mark.gpu
+def test_optimize_pose_on_card(cuda):
+    """Bars: pose within 1e-4 of the CPU result, the same inliers."""
+    P, pw, uv, _ = _pnp_scene()
+    P0 = P.copy()
+    P0[:3, 3] += [0.05, -0.03, 0.02]
+    args = [torch.as_tensor(a) for a in (
+        P0, np.pad(pw, ((0, 28), (0, 0))), np.pad(uv, ((0, 28), (0, 0))),
+        np.pad(np.full(100, 0.8, np.float32), (0, 28)),
+        np.pad(np.ones(100, bool), (0, 28)))]
+    c = pose_opt.optimize_pose(*args, FX, FY, CX, CY)
+    g = pose_opt.optimize_pose(*[a.to(cuda) for a in args], FX, FY, CX, CY)
+    np.testing.assert_allclose(g.Tcw.cpu().numpy(), c.Tcw.numpy(),
+                               atol=1e-4)
+    assert torch.equal(g.inliers.cpu(), c.inliers)
+
+
+@pytest.mark.gpu
+def test_pnp_ransac_on_card(cuda):
+    """Bars: the same inliers as on the CPU; the pose within 1e-3 of the
+    CPU's after the pose optimization over those inliers (the raw
+    winners are not held: cuSOLVER and LAPACK choose different bases of
+    a minimal set's null space, tests/test_torch_estimated.py)."""
+    _, pw, uv, samples = _pnp_scene()
+    args = [torch.as_tensor(a) for a in (
+        pw, uv, np.ones(100, np.float32), np.ones(100, bool), samples)]
+    c = pnp.pnp_ransac(*args, FX, FY, CX, CY, min_inliers=10)
+    g = pnp.pnp_ransac(*[a.to(cuda) for a in args], FX, FY, CX, CY,
+                       min_inliers=10)
+    assert bool(g.ok) and bool(c.ok)
+    assert torch.equal(g.inliers.cpu(), c.inliers)
+    refine = [args[0], args[1], args[2]]
+    cr = pose_opt.optimize_pose(c.Tcw, *refine, c.inliers, FX, FY, CX, CY)
+    gr = pose_opt.optimize_pose(g.Tcw, *[a.to(cuda) for a in refine],
+                                g.inliers, FX, FY, CX, CY)
+    np.testing.assert_allclose(gr.Tcw.cpu().numpy(), cr.Tcw.numpy(),
+                               atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("planar", [False, True])
+def test_initialize_two_view_on_card(cuda, planar):
+    """tests/test_twoview.py's general and planar scenes.  Bars: the same
+    ok and model as on the CPU, >= 99% of the inlier flags equal, R and
+    t within 1e-3."""
+    rng = np.random.default_rng(2 if planar else 1)
+    if planar:
+        X = np.stack([rng.uniform(-4, 4, 200), rng.uniform(-3, 3, 200),
+                      np.full(200, 8.0)], -1).astype(np.float32)
+        T2 = _pose([0.05, 0.08, 0.02], [0.6, 0.1, 0.05])
+    else:
+        X = rng.uniform([-3, -3, 4], [3, 3, 12], (200, 3)).astype(np.float32)
+        T2 = _pose([0.02, -0.05, 0.01], [0.8, 0.05, 0.05])
+    rng = np.random.default_rng(0)
+    uv1 = _project(np.eye(4, dtype=np.float32), X)
+    uv2 = _project(T2, X)
+    uv1 += rng.normal(0, 0.3, uv1.shape).astype(np.float32)
+    uv2 += rng.normal(0, 0.3, uv2.shape).astype(np.float32)
+    K = np.array([[FX, 0, CX], [0, FY, CY], [0, 0, 1]], np.float32)
+    args = [torch.as_tensor(a) for a in (
+        uv1, uv2, np.ones(200, bool), np.ones(200, np.float32), K,
+        rng.integers(0, 200, (200, 8)).astype(np.int32))]
+    c = twoview.initialize_two_view(*args)
+    g = twoview.initialize_two_view(*[a.to(cuda) for a in args])
+    assert bool(g.ok) == bool(c.ok) is True
+    assert bool(g.used_homography) == bool(c.used_homography) == planar
+    assert (g.good.cpu() == c.good).float().mean() >= 0.99
+    np.testing.assert_allclose(g.R.cpu().numpy(), c.R.numpy(), atol=1e-3)
+    np.testing.assert_allclose(g.t.cpu().numpy(), c.t.numpy(), atol=1e-3)

@@ -347,7 +347,7 @@ def circuit():
     true, fed = _circuit()
     cfg = SlamConfig(cam=Intrinsics(**CAM_KW),
                      orb=OrbParams(n_features=800, n_levels=4), **CFG_KW)
-    world = synth.make_world(seed=3)
+    world = synth.make_world(seed=3, device="cpu")
     images = [synth.render(world, cfg.cam, T).numpy() for T in true]
 
     jsys = JSystem(JSlamConfig(cam=JIntrinsics(**CAM_KW),

@@ -32,7 +32,7 @@ SIG2 = SF * SF
 def feats():
     """JAX-extracted features of two views 0.6 units apart, as numpy
     dicts (desc uint32)."""
-    world = synth.make_world(seed=3)
+    world = synth.make_world(seed=3, device="cpu")
     poses = synth.aerial_trajectory(3, speed=0.3)
     ext = jex.make_extractor(480, 640, jex.OrbParams(n_features=800,
                                                      n_levels=4))

@@ -34,7 +34,7 @@ GEO = dict(fx=450.0, fy=450.0, cx=320.0, cy=240.0, bounds=BOUNDS,
 def feats():
     """JAX-extracted features of three views of the aerial sweep, as
     numpy dicts (desc uint32), with each feature's point on the plane."""
-    world = synth.make_world(seed=3)
+    world = synth.make_world(seed=3, device="cpu")
     poses = synth.aerial_trajectory(5, speed=0.3)
     ext = jex.make_extractor(480, 640, jex.OrbParams(n_features=800,
                                                      n_levels=4))

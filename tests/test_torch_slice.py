@@ -50,7 +50,7 @@ def _frame_fields(f):
 @pytest.fixture(scope="module")
 def runs():
     cfg = port_config()
-    world = synth.make_world(seed=3)
+    world = synth.make_world(seed=3, device="cpu")
     poses = synth.aerial_trajectory(N_FRAMES, speed=0.3)
     images = [synth.render(world, cfg.cam, T).numpy() for T in poses]
 
@@ -183,7 +183,7 @@ def _tracker_before_step(runs):
     rec, cfg = runs["rec"], runs["cfg"]
     before = rec["step_before"]
     store = interop.mapstore_from_numpy(**before["store"], device="cpu")
-    tracker = Tracker(cfg, store, FrameFactory(cfg.cam, cfg.orb))
+    tracker = Tracker(cfg, store, FrameFactory(cfg.cam, cfg.orb, device="cpu"))
     tracker.state = TrackState.OK
     tracker.ref_kf = before["ref_kf"]
     tracker.last_kf_frame_id = before["last_kf_frame_id"]
@@ -259,27 +259,6 @@ def test_mapping_from_one_state(runs):
     assert d.max() < 1e-2, d.max()
 
 
-@pytest.mark.parametrize("ask", ["config", "prefetch", "next_image"])
-def test_pipelined_tracking_refuses(ask):
-    cfg = port_config()
-    cfg.pipelined_tracking = ask == "config"
-    with pytest.raises(NotImplementedError):
-        system = System(cfg, device="cpu")
-        if ask == "prefetch":
-            system.prefetch(np.zeros((480, 640), np.uint8))
-        else:
-            system.track_monocular_with_pose(
-                np.zeros((480, 640), np.uint8), 0.0, np.eye(4),
-                next_image=np.zeros((480, 640), np.uint8))
-
-
-def test_estimated_mode_refuses():
-    cfg = port_config()
-    cfg.pose_prior = False
-    with pytest.raises(NotImplementedError):
-        System(cfg, enable_loop_closing=False, device="cpu")
-
-
 def test_ply_export(runs, tmp_path):
     path = tmp_path / "map.ply"
     runs["port"].save_map_ply(str(path))
@@ -347,7 +326,7 @@ def test_relocalization_from_one_state(runs, reloc):
     # keyframes were erased, which keeps the others' order)
     for kid in store.valid_kf_ids():
         pr.add_keyframe(kid)
-    tracker = Tracker(cfg, store, FrameFactory(cfg.cam, cfg.orb))
+    tracker = Tracker(cfg, store, FrameFactory(cfg.cam, cfg.orb, device="cpu"))
     tracker.relocalize = Relocalizer(cfg, store, pr)
     tracker.ref_kf = reloc["before"]["ref_kf"]
     frame = interop.frame_from_numpy(**runs["rec"]["frames"][reloc["fid"]])
