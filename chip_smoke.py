@@ -42,7 +42,20 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      camera centers under 1% of the distance flown; then a noise frame
      must go LOST and a mapped frame's image relocalize through EPnP to
      within 1% of the distance flown and 1 degree of the pose tracked
-     for it.
+     for it;
+  8. path E, the command line at full width: a shenzhen-layout dataset
+     (24 frames of path A's world as 8-bit .npy, a UE4 pose list, an
+     OpenCV settings YAML, a binary ORBvoc of the shipped vocabulary's
+     shape k=10 L=6, a launch TOML) run through ``cli.main(["run", ...])``
+     with loop closing on: the printed JSON, every frame after
+     initialization OK, K1 once a frame, map.ply on the ground plane
+     through the revert transform, each tracked PLY's pose (the prior
+     @ inv(revert)) and points (against their uv); then ``save_map``,
+     ``load_map`` into a fresh System, a relocalization on a sequence
+     frame's image, and localization mode adding no keyframe.
+Path A also holds a warm extraction to no host synchronization, and
+path D prints the model (H or F) of its two-view bootstrap, which must
+be H on the planar world.
 The kernel launch counts are read per path, each path driven with the
 counts set to 0 just before it.  The last three lines are a JSON object
 describing the kernels, the card's name and power limit, and
@@ -101,6 +114,13 @@ D_MIN_OK = 0.8          # share of the frames after it tracked OK
 D_ATE_SHARE = 0.01      # ATE bar, share of the distance flown
 D_MIN_KEYFRAMES = 6     # a loss with <= 5 keyframes resets the map
 D_RELOC_DEG = 1.0       # relocalized pose against the tracked one
+# path E: the command line on a shenzhen-layout dataset of path A's
+# world; a sequence frame relocalized on the saved and loaded map, then
+# E_LOC_FRAMES frames in localization mode
+E_FRAMES = 24
+E_VOCAB_LEVELS = 6      # the shipped ORBvoc's depth (k=10: 1M words)
+E_RELOC_FRAME = 12
+E_LOC_FRAMES = 4
 
 # H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor cores and
 # device memory.  A Hamming distance of two 256-bit descriptors is
@@ -570,10 +590,14 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
     system = System(cfg, enable_loop_closing=True, async_mapping=True,
                     device=device)
     if pipelined and not profile:
-        sites = extraction_syncs(system, frames[0])
-        log(f"{name}: one extraction synchronizes with the host "
-            f"{sum(n for _, n in sites)} times "
-            f"(torch.cuda.set_sync_debug_mode): {sites}")
+        cold = extraction_syncs(system, frames[0])
+        sites = extraction_syncs(system, frames[1])
+        n_sync = sum(n for _, n in sites)
+        log(f"{name}: one warm extraction synchronizes with the host "
+            f"{n_sync} times (torch.cuda.set_sync_debug_mode): {sites}; "
+            f"the first one {sum(n for _, n in cold)} times: {cold}")
+        check(n_sync == 0, f"{name}: a warm extraction synchronizes "
+              f"{n_sync} times: {sites}")
     clock = LockWaitClock(system.store.lock)
     system.store.lock = clock
     # a prefetch made for the other feature budget (init_mode) is
@@ -930,6 +954,12 @@ def phase_estimated(device, world, cfg):
     n_kf = system.store.n_valid_keyframes()
     check(n_kf >= D_MIN_KEYFRAMES, f"D: only {n_kf} keyframes after "
           f"{D_FRAMES} frames (a loss would reset the map)")
+    model = {True: "H", False: "F", None: "none"}[
+        system.tracker.init_used_homography]
+    log(f"D: the two-view bootstrap took model {model} (homography on a "
+        f"planar world)")
+    check(model == "H", f"D: the bootstrap took model {model}, not H, on "
+          f"a planar world")
     steady = frame_ms[first + 1:]
     log(f"D: initialized at frame {first} (two-view, "
         f"{len(ok_idx)}/{D_FRAMES} frames OK, {ok_share:.3f} after it), "
@@ -971,6 +1001,244 @@ def phase_estimated(device, world, cfg):
           f"D: relocalized pose {dc:.4f} units / {deg:.3f} deg from the "
           f"tracked one")
     system.shutdown()
+    return launches
+
+
+def read_tracked_ply(path: str):
+    """A tracked-frame PLY (utils/ply.write_tracked_frame): the vertices
+    as a structured array and the frame element (id, Tcw (4, 4), K)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    head, _, body = data.partition(b"end_header\n")
+    lines = head.decode().splitlines()
+    check("element frame 1" in lines, f"{path}: no frame element")
+    n = int(next(ln for ln in lines if ln.startswith("element vertex"))
+            .split()[-1])
+    vdt = np.dtype([("xyz", "<f4", 3), ("rgb", "u1", 3), ("uv", "<f4", 2),
+                    ("octave", "<i4")])
+    check(len(body) == n * vdt.itemsize + 4 + 25 * 4,
+          f"{path}: {len(body)} bytes after the header for {n} vertices")
+    verts = np.frombuffer(body[:n * vdt.itemsize], vdt)
+    fid = int(np.frombuffer(body[n * vdt.itemsize:][:4], "<i4")[0])
+    vals = np.frombuffer(body[n * vdt.itemsize + 4:], "<f4")
+    return verts, fid, vals[:16].reshape(4, 4), vals[16:].reshape(3, 3)
+
+
+def write_shenzhen_dataset(root: str, device, cfg) -> dict:
+    """Path E's dataset in the reference fork's layout (mono_shenzhen):
+    E_FRAMES 8-bit frames of bench.py's world rendered on the card and
+    saved as .npy, their image list, a UE4 pose list, an OpenCV settings
+    YAML with bench's intrinsics and ORB parameters, a binary ORBvoc of
+    the shipped vocabulary's shape (k=10, L=6) and the launch TOML that
+    names them."""
+    import torch
+    from orb_slam2_tpu_torch.io.orbvoc import (save_orbvoc_binary,
+                                               synthetic_orbvoc)
+    from orb_slam2_tpu_torch.io.poses import save_ue4_camera_poses
+    from orb_slam2_tpu_torch.utils import synth
+    world, _ = bench_world(device)
+    poses = synth.aerial_trajectory(E_FRAMES, height=FLIGHT_HEIGHT,
+                                    speed=0.5)
+    os.makedirs(os.path.join(root, "images"))
+    paths = []
+    for i, T in enumerate(poses):
+        img = synth.render(world, cfg.cam, T).round().clamp(0, 255)
+        paths.append(os.path.join(root, "images", f"{i:06d}.npy"))
+        np.save(paths[-1], img.to(torch.uint8).cpu().numpy())
+    with open(os.path.join(root, "images.txt"), "w") as f:
+        f.write("\n".join(paths) + "\n")
+    save_ue4_camera_poses(os.path.join(root, "cameras.txt"), poses)
+    cam, orb = cfg.cam, cfg.orb
+    with open(os.path.join(root, "settings.yaml"), "w") as f:
+        f.write(f"%YAML:1.0\nCamera.fx: {cam.fx}\nCamera.fy: {cam.fy}\n"
+                f"Camera.cx: {cam.cx}\nCamera.cy: {cam.cy}\n"
+                f"Camera.width: {cam.width}\nCamera.height: {cam.height}\n"
+                f"Camera.fps: {cfg.fps}\n"
+                f"ORBextractor.nFeatures: {orb.n_features}\n"
+                f"ORBextractor.scaleFactor: {orb.scale_factor}\n"
+                f"ORBextractor.nLevels: {orb.n_levels}\n")
+    t0 = time.perf_counter()
+    save_orbvoc_binary(synthetic_orbvoc(k=10, L=E_VOCAB_LEVELS, seed=0),
+                       os.path.join(root, "ORBvoc.bin"))
+    gen_s = time.perf_counter() - t0
+    with open(os.path.join(root, "launch.toml"), "w") as f:
+        f.write(f'FBoWVocabularyPath = "{root}/ORBvoc.bin"\n'
+                f'ImagesCollectionPath = "{root}/images.txt"\n'
+                f'CameraPoseCollectionPath = "{root}/cameras.txt"\n'
+                f'ORBSLAMConfigPath = "{root}/settings.yaml"\n')
+    return dict(poses=poses, vocab_gen_s=gen_s, launch=os.path.join(
+        root, "launch.toml"))
+
+
+def phase_cli(device, cfg, smi: str) -> dict:
+    """Path E: ``python -m orb_slam2_tpu_torch.cli run launch.toml`` at
+    full width, called in this process as ``cli.main``, loop closing on,
+    on a shenzhen-layout dataset (write_shenzhen_dataset).  Checks the
+    printed JSON, every frame after initialization OK, the map PLY on
+    the world's ground plane through the revert transform, each tracked
+    PLY's frame element (Tcw = loaded prior @ inv(revert)) and its
+    camera-space points against their uv; then ``save_map`` and
+    ``load_map`` into a fresh System, which must relocalize on a
+    sequence frame's image, and localization mode, which must add no
+    keyframe over E_LOC_FRAMES more frames."""
+    import contextlib
+    import io as io_mod
+    import tempfile
+    import torch
+    from orb_slam2_tpu_torch import cli, kernels
+    from orb_slam2_tpu_torch.io import load_settings_yaml
+    from orb_slam2_tpu_torch.io.poses import load_ue4_camera_poses
+    from orb_slam2_tpu_torch.pipeline.system import System
+    from orb_slam2_tpu_torch.pipeline.tracking import TrackState
+    from orb_slam2_tpu_torch.utils import ply
+    with tempfile.TemporaryDirectory() as root:
+        ds = write_shenzhen_dataset(root, device, cfg)
+        t0 = time.perf_counter()
+        vocab = cli._load_vocabulary(os.path.join(root, "ORBvoc.bin"))
+        load_s = time.perf_counter() - t0
+        log(f"E: ORBvoc k={vocab.k} L={vocab.levels} ({vocab.n_words} "
+            f"words, {os.path.getsize(os.path.join(root, 'ORBvoc.bin'))} "
+            f"bytes) generated and written in {ds['vocab_gen_s']:.2f} s, "
+            f"loaded in {load_s:.2f} s")
+        # the CLI's System, kept when the command shuts it down
+        systems = []
+        shutdown = System.shutdown
+
+        def keep(self):
+            systems.append(self)
+            shutdown(self)
+        out = os.path.join(root, "Out")
+        stdout = io_mod.StringIO()
+        System.shutdown = keep
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        try:
+            with contextlib.redirect_stdout(stdout):
+                rc = cli.main(["run", ds["launch"], "--out", out,
+                               "--device", str(device)])
+        finally:
+            System.shutdown = shutdown
+        launches = dict(kernels.LAUNCHES)
+        text = stdout.getvalue().strip()
+        check(rc == 0, f"E: cli run returned {rc}")
+        res = json.loads(text.splitlines()[-1])
+        log(f"E: cli run printed {json.dumps(res)}")
+        check(res["frames"] == E_FRAMES, f"E: {res['frames']} frames")
+        system = systems[0]
+        states = [st for _, _, _, st in system.trajectory]
+        ok_idx = [i for i, st in enumerate(states) if st == TrackState.OK]
+        check(bool(ok_idx), "E: the map never initialized")
+        first = ok_idx[0]
+        check(ok_idx == list(range(first, E_FRAMES))
+              and res["tracked_ok"] == E_FRAMES - first,
+              f"E: frames after initialization (frame {first}) not all "
+              f"OK: {[st.name for st in states]}")
+        for k in ("fast_score", "masked_top2_mutual", "masked_top2_epi"):
+            check(launches[k] > 0, f"E: kernel {k} never launched")
+        check(launches["fast_score"] == E_FRAMES,
+              f"E: K1 launched {launches['fast_score']} times over "
+              f"{E_FRAMES} frames")
+
+        # the map PLY, through the revert transform: the world's ground
+        pts = ply.read_ply_points(os.path.join(out, "map.ply"))
+        check(len(pts) > 0 and bool(np.isfinite(pts).all()),
+              "E: map.ply points missing or not finite")
+        med_z = float(np.median(np.abs(pts[:, 2])))
+        check(med_z < MEDIAN_Z_BAR, f"E: map.ply off the ground plane: "
+              f"median |z| {med_z:.4f} >= {MEDIAN_Z_BAR}")
+
+        # the tracked PLYs
+        priors, revert = load_ue4_camera_poses(
+            os.path.join(root, "cameras.txt"))
+        inv_rev = np.linalg.inv(revert)
+        K = cfg.cam.K.astype(np.float64)
+        names = sorted(n for n in os.listdir(out) if n.startswith("tracked_"))
+        check(names == [f"tracked_{i:06d}.ply" for i in ok_idx],
+              f"E: tracked PLYs {names[:3]}... for OK frames {ok_idx[:3]}...")
+        pose_err, uv_err = 0.0, []
+        for name in names:
+            verts, fid, Tcw, Kf = read_tracked_ply(os.path.join(out, name))
+            i = int(name[8:14])
+            check(fid == i, f"E: {name} holds frame id {fid}")
+            # Tcw @ inv(revert): the loaded prior's, and the world's pose
+            pose_err = max(pose_err, float(np.abs(
+                Tcw - priors[i] @ inv_rev).max()), float(np.abs(
+                    Tcw - ds["poses"][i]).max()))
+            check(np.allclose(Kf, K), f"E: {name} K {Kf.tolist()}")
+            proj = verts["xyz"].astype(np.float64) @ K.T
+            uv_err.append(np.linalg.norm(proj[:, :2] / proj[:, 2:]
+                                         - verts["uv"], axis=1))
+        uv_med = float(np.median(np.concatenate(uv_err)))
+        check(pose_err < 1e-4, f"E: a tracked PLY's Tcw is {pose_err:.2e} "
+              f"from the prior @ inv(revert) or the world's pose")
+        check(uv_med < 1.0, f"E: tracked points project {uv_med:.3f} px "
+              f"from their uv at the median")
+        n_kf = system.store.n_valid_keyframes()
+        n_mp = system.store.n_valid_points()
+        flown = float(np.linalg.norm(np.diff(centers(ds["poses"]), axis=0),
+                                     axis=1).sum())
+        log(f"E: {len(ok_idx)}/{E_FRAMES} frames OK (initialized at frame "
+            f"{first}), {n_kf} keyframes, {n_mp} map points, "
+            f"{system.loop_closer.n_loops_closed} loops closed; cli fps "
+            f"{res['fps']:.2f} (its own clock: frames over the time in "
+            f"track_monocular_with_pose); map.ply {len(pts)} points, median"
+            f" |z| {med_z:.4f}; {len(names)} tracked PLYs, Tcw within "
+            f"{pose_err:.2e} of the prior @ inv(revert), points "
+            f"{uv_med:.3f} px from their uv at the median")
+        log(f"E: kernel launches {json.dumps(launches)} (K1 once a frame) "
+            f"on {smi}")
+
+        # save, load into a fresh System, relocalize, localization mode
+        path = os.path.join(root, "map.npz")
+        t0 = time.perf_counter()
+        system.save_map(path)
+        save_s = time.perf_counter() - t0
+        scfg = load_settings_yaml(os.path.join(root, "settings.yaml"),
+                                  pose_prior=True)
+        fresh = System(scfg, enable_loop_closing=True, vocab=vocab,
+                       device=device)
+        fresh.set_real_transform(revert)
+        t0 = time.perf_counter()
+        fresh.load_map(path)
+        load_map_s = time.perf_counter() - t0
+        check(fresh.state == TrackState.LOST
+              and fresh.store.n_valid_keyframes() == n_kf,
+              f"E: the loaded map has {fresh.store.n_valid_keyframes()} "
+              f"keyframes, state {fresh.state.name}")
+        j = E_RELOC_FRAME
+        img = np.load(os.path.join(root, "images", f"{j:06d}.npy"))
+        t0 = time.perf_counter()
+        frame = fresh.track_monocular_with_pose(img, 100.0, priors[j])
+        reloc_ms = (time.perf_counter() - t0) * 1e3
+        check(fresh.state == TrackState.OK
+              and fresh.tracker.last_reloc_frame_id == frame.frame_id,
+              f"E: frame {j}'s image did not relocalize on the loaded map "
+              f"({fresh.state.name})")
+        dc = float(np.linalg.norm(centers([frame.Tcw @ inv_rev])[0]
+                                  - centers([ds["poses"][j]])[0]))
+        check(dc < 0.01 * flown, f"E: relocalized center {dc:.4f} from the "
+              f"true one, over 0.01 of the {flown:.2f} units flown")
+        log(f"E: save_map {save_s:.2f} s, load_map {load_map_s:.2f} s; "
+            f"frame {j}'s image relocalized on the loaded map in "
+            f"{reloc_ms:.1f} ms with {fresh.tracker.matches_inliers} "
+            f"inliers, center {dc:.2e} from the true one "
+            f"({flown:.2f} units flown)")
+        fresh.activate_localization_mode()
+        n_pts = fresh.store.n_points()
+        for k in range(1, E_LOC_FRAMES + 1):
+            img = np.load(os.path.join(root, "images", f"{j + k:06d}.npy"))
+            fresh.track_monocular_with_pose(img, 100.0 + 0.1 * k,
+                                            priors[j + k])
+            check(fresh.state == TrackState.OK,
+                  f"E: localization mode lost frame {j + k}")
+        check(fresh.store.n_valid_keyframes() == n_kf
+              and fresh.store.n_points() == n_pts,
+              f"E: localization mode added keyframes or points "
+              f"({fresh.store.n_valid_keyframes()} keyframes, "
+              f"{fresh.store.n_points()} points)")
+        log(f"E: localization mode tracked frames {j + 1}-"
+            f"{j + E_LOC_FRAMES} OK with no keyframe or point added")
+        fresh.shutdown()
     return launches
 
 
@@ -1120,6 +1388,7 @@ def main() -> int:
         launches["hamming_top2"] = phase_k4(device, k4_ref)["hamming_top2"]
         phase_loop(device, cfg)
         phase_estimated(device, world, cfg)
+        phase_cli(device, cfg, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -2,11 +2,13 @@
 
 A second package beside the JAX reference ``orb_slam2_tpu``, with the
 same subpackage layout and module names (``ops``, ``matching``,
-``geom``, ``optim``, ``models``, ``pipeline``, ``utils``) so each port
-module sits where its counterpart does.  It imports torch and never
-jax.  The pose-prior path is ported: tracking, local mapping (inline
-or on a mapping thread), place recognition, loop closing and
-relocalization.  Every kernel the JAX package wrote in Pallas is
+``geom``, ``optim``, ``models``, ``pipeline``, ``utils``, ``io``) so
+each port module sits where its counterpart does.  It imports torch and
+never jax.  Ported: both tracking modes (pose prior, pipelined or not,
+and estimated), local mapping (inline or on a mapping thread), place
+recognition, loop closing, relocalization, map save/load and
+localization mode, and the command line (``python -m
+orb_slam2_tpu_torch.cli``) with its dataset and vocabulary I/O.  Every kernel the JAX package wrote in Pallas is
 hand-written CUDA for Hopper (``csrc/``, built and loaded by
 ``kernels``):
 

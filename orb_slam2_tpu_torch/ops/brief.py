@@ -1,10 +1,14 @@
 """Steered-BRIEF 256-bit descriptors packed to 8 words, batched, in torch.
 
-Port of ``orb_slam2_tpu/ops/brief.py`` in its ``binned`` mode, the
-code default (``compute_descriptors(mode="binned")``): the steering
-angle is quantized to ``N_BINS`` bins, every bit of bin b is the sign of
-I[B_b] - I[A_b] on a 39x39 patch, and the final comparison value is the
-linear interpolation between the two adjacent bins.
+Port of ``orb_slam2_tpu/ops/brief.py``, both modes:
+
+- ``binned``, the code default (``compute_descriptors(mode="binned")``):
+  the steering angle is quantized to ``N_BINS`` bins, every bit of bin b
+  is the sign of I[B_b] - I[A_b] on a 39x39 patch, and the final
+  comparison value is the linear interpolation between the two adjacent
+  bins;
+- ``exact``: per-keypoint rotated offsets (cvRound(x cos - y sin), the
+  reference's computeOrbDescriptor) resolved inside the patch.
 
 The sampling pattern (:func:`make_pattern`) and the per-bin +-1 weight
 matrix (:func:`_bin_weights_np`) are built by the same numpy code as in
@@ -14,11 +18,17 @@ every column has at most one +1 and one -1, so the port gathers the two
 patch pixels of each column and subtracts them: the same integers,
 without the dense product.
 
+The constant index tables live on the device once per (pattern,
+device) (:func:`_bin_gather`): uploading them per call made every
+extraction wait for the stream.
+
 Descriptors are carried as int32 tensors holding the bit patterns of
 the uint32 words (torch's uint32 support is thin).
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import functools
 
 import numpy as np
@@ -50,12 +60,19 @@ _PATTERN = make_pattern()
 
 
 def get_pattern(kind: str = "random") -> np.ndarray:
-    """(256, 2, 2) sampling pattern by name.  The port has the seeded
-    ``"random"`` pattern; the JAX package's ``"orb_learned"`` (OpenCV's
-    table, for ORBvoc vocabularies) comes with the vocabulary slice."""
+    """(256, 2, 2) sampling pattern by name.
+
+    - ``"random"`` (default): the seeded Gaussian pattern above.
+    - ``"orb_learned"``: OpenCV's learned ``bit_pattern_31_`` table
+      (ops/orb_pattern.py; src/ORBextractor.cc:209-470), bit-compatible
+      with OpenCV ORB descriptors and ORBvoc vocabularies.
+    """
     if kind == "random":
         return _PATTERN
-    raise ValueError(f"BRIEF pattern {kind!r} is not ported")
+    if kind == "orb_learned":
+        from .orb_pattern import BIT_PATTERN_31
+        return BIT_PATTERN_31.reshape(256, 2, 2)
+    raise ValueError(f"unknown BRIEF pattern {kind!r}")
 
 
 @functools.lru_cache(maxsize=4)
@@ -94,10 +111,21 @@ def _bin_gather_np(kind: str):
     return plus.astype(np.int64), minus.astype(np.int64)
 
 
-def _bin_gather(kind: str, device) -> tuple:
+@functools.lru_cache(maxsize=8)
+def _bin_gather(kind: str, device: torch.device) -> tuple:
+    """:func:`_bin_gather_np` on ``device``, uploaded once per (pattern,
+    device), as the JAX package keeps its weights (``_bin_weights_dev``):
+    a pageable upload per call waits for the stream."""
     plus, minus = _bin_gather_np(kind)
     return (torch.as_tensor(plus, device=device),
             torch.as_tensor(minus, device=device))
+
+
+@functools.lru_cache(maxsize=8)
+def _pattern_dev(kind: str, device: torch.device) -> torch.Tensor:
+    """(256, 2, 2) float32 pattern on ``device``, uploaded once."""
+    return torch.as_tensor(get_pattern(kind), dtype=torch.float32,
+                           device=device)
 
 
 def _gather_patches(image_blurred: torch.Tensor, ys: torch.Tensor,
@@ -125,6 +153,58 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     words = (bits << shifts).sum(dim=-1)
     # uint32 -> the int32 with the same bits
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+# ----------------------------------------------------------------------
+# exact steering: per-keypoint rotated offsets inside the patch
+# ----------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1)
+def _libm():
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    for name in ("sinf", "cosf"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_float]
+        fn.restype = ctypes.c_float
+    return lib
+
+
+def _sin_cos(angles: torch.Tensor):
+    """float32 sin and cos of ``angles``.  On the CPU they are the C
+    library's ``sinf`` / ``cosf``, which XLA's CPU backend calls, so the
+    rounded offsets below equal the JAX package's bit for bit (torch's
+    vectorized CPU sin/cos differ from them in the last bit for ~5% of
+    angles).  On a card, the card's own."""
+    if angles.device.type != "cpu":
+        return torch.sin(angles), torch.cos(angles)
+    lib = _libm()
+    a = angles.numpy()
+    s = np.fromiter((lib.sinf(float(x)) for x in a), np.float32, len(a))
+    c = np.fromiter((lib.cosf(float(x)) for x in a), np.float32, len(a))
+    return torch.from_numpy(s), torch.from_numpy(c)
+
+
+def _descriptors_exact(patches: torch.Tensor, angles: torch.Tensor,
+                       pattern: str) -> torch.Tensor:
+    """Per-keypoint steering, as the JAX package's ``_descriptors_exact``
+    runs inside its jitted extractor: XLA contracts the rotation into
+    fused multiply-adds, x = fma(px, cos, -(py sin)) and y = fma(px, sin,
+    py cos).  Both are formed here in float64 (px cos is exact there, so
+    one rounding to float32 gives the fused result), then rounded half
+    to even (jnp.round, the reference's cvRound)."""
+    n = angles.shape[0]
+    pat = _pattern_dev(pattern, patches.device)
+    px = pat[..., 0][None]                       # (1, 256, 2)
+    py = pat[..., 1][None]
+    sa, ca = _sin_cos(angles.float())
+    sa, ca = sa[:, None, None], ca[:, None, None]
+    x = (px.double() * ca.double() - (py * sa).double()).float()
+    y = (px.double() * sa.double() + (py * ca).double()).float()
+    rx = torch.round(x).long()
+    ry = torch.round(y).long()
+    flat = ((ry + PATCH_R) * PATCH + (rx + PATCH_R)).reshape(n, -1)
+    vals = torch.gather(patches, 1, flat).reshape(n, -1, 2)
+    return pack_bits(vals[..., 0] < vals[..., 1])
 
 
 def _descriptors_binned(patches: torch.Tensor, angles: torch.Tensor,
@@ -155,9 +235,13 @@ def compute_descriptors(
     xs: torch.Tensor,
     angles: torch.Tensor,
     pattern: str = "random",
+    mode: str = "binned",
 ) -> torch.Tensor:
     """(N,) keypoints -> (N, 8) int32 packed descriptors.
     ``image_blurred`` is the 7x7 sigma=2 Gaussian-blurred level image
-    (ORBextractor.cc:1300-1315 blurs before describing)."""
+    (ORBextractor.cc:1300-1315 blurs before describing).  ``mode``:
+    "binned" (the default) or "exact" (per-keypoint steering)."""
     patches = _gather_patches(image_blurred, ys, xs)
+    if mode == "exact":
+        return _descriptors_exact(patches, angles, pattern)
     return _descriptors_binned(patches, angles, pattern)

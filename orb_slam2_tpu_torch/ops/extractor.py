@@ -22,8 +22,9 @@ class OrbParams(NamedTuple):
     scale_factor: float = 1.2
     th_fast_hi: float = 20.0
     th_fast_lo: float = 7.0
-    # BRIEF sampling pattern; the port has "random" (the seeded Gaussian
-    # default) only
+    # BRIEF sampling pattern: "random" (default, seeded Gaussian) or
+    # "orb_learned" (OpenCV bit_pattern_31_, descriptor-compatible with
+    # OpenCV ORB / ORBvoc vocabularies; see ops/orb_pattern.py)
     pattern: str = "random"
 
 

@@ -316,6 +316,12 @@ class Tracker:
         self.last_kf_frame_id: int = 0
         self.last_reloc_frame_id: int = -(10 ** 9)
         self.matches_inliers: int = 0
+        # localization-only mode (System.activate_localization_mode):
+        # no keyframe is inserted while False
+        self.mapping_enabled: bool = True
+        # the model the two-view initializer took (True: homography,
+        # False: fundamental), set when it builds the initial map
+        self.init_used_homography: Optional[bool] = None
 
         # wired by System
         self.on_new_keyframe: Optional[Callable[[int], None]] = None
@@ -449,7 +455,8 @@ class Tracker:
                 self.state = TrackState.OK
                 self._update_velocity(frame)
                 with self.timer.time("track/need_kf"):
-                    need = self._need_new_keyframe(frame)
+                    need = (self.mapping_enabled
+                            and self._need_new_keyframe(frame))
                 if need:
                     with self.timer.time("track/create_kf"):
                         self._create_new_keyframe(frame)
@@ -515,7 +522,8 @@ class Tracker:
         if ok:
             with self.store.lock:
                 with self.timer.time("track/need_kf"):
-                    need = self._need_new_keyframe(frame)
+                    need = (self.mapping_enabled
+                            and self._need_new_keyframe(frame))
                 if need:
                     with self.timer.time("track/create_kf"):
                         self._create_new_keyframe(frame)
@@ -698,10 +706,12 @@ class Tracker:
                            (0, padn), constant_values=1.0)),
             self._t(self.cfg.cam.K), self._t(samples),
             min_triangulated=self.cfg.init_min_triangulated)
-        ok, R, t, X, good = (a.cpu().numpy() for a in (
-            res.ok, res.R, res.t, res.points, res.good))
+        ok, R, t, X, good, use_h = (a.cpu().numpy() for a in (
+            res.ok, res.R, res.t, res.points, res.good,
+            res.used_homography))
         if not ok:
             return  # keep the initial frame, try with the next image
+        self.init_used_homography = bool(use_h)
         good = good[:len(rows)]
         X = X[:len(rows)]
         f1.Tcw = np.eye(4, dtype=np.float32)

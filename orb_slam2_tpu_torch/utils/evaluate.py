@@ -1,9 +1,11 @@
-"""Trajectory evaluation: ATE with Sim3 or SE3 alignment — port of
-``orb_slam2_tpu/utils/evaluate.py`` (the TUM benchmark conventions:
+"""Trajectory evaluation: ATE / RPE with Sim3 or SE3 alignment — port
+of ``orb_slam2_tpu/utils/evaluate.py`` (the TUM benchmark conventions:
 align estimated camera centers to ground truth by Umeyama, Sim3 for
 monocular, and report the RMSE of the aligned residuals).
 """
 from __future__ import annotations
+
+from typing import List, Tuple
 
 import numpy as np
 
@@ -31,6 +33,10 @@ def umeyama_alignment(src: np.ndarray, dst: np.ndarray,
     return s, R, t
 
 
+def camera_centers(Tcw_list) -> np.ndarray:
+    return np.stack([-T[:3, :3].T @ T[:3, 3] for T in Tcw_list])
+
+
 def ate_rmse(est_centers: np.ndarray, gt_centers: np.ndarray,
              align: str = "sim3") -> float:
     """Absolute trajectory error RMSE after alignment
@@ -43,3 +49,33 @@ def ate_rmse(est_centers: np.ndarray, gt_centers: np.ndarray,
                                     with_scale=(align == "sim3"))
         aligned = (s * (R @ est_centers.T)).T + t
     return float(np.sqrt(((aligned - gt_centers) ** 2).sum(-1).mean()))
+
+
+def rpe(Tcw_est: List[np.ndarray], Tcw_gt: List[np.ndarray],
+        delta: int = 1) -> Tuple[float, float]:
+    """Relative pose error over frame pairs (i, i+delta): returns
+    (trans RMSE, rot RMSE in radians)."""
+    dt, dr = [], []
+    for i in range(len(Tcw_est) - delta):
+        Ee = Tcw_est[i + delta] @ np.linalg.inv(Tcw_est[i])
+        Eg = Tcw_gt[i + delta] @ np.linalg.inv(Tcw_gt[i])
+        E = np.linalg.inv(Eg) @ Ee
+        dt.append(np.linalg.norm(E[:3, 3]))
+        c = np.clip((np.trace(E[:3, :3]) - 1) / 2, -1, 1)
+        dr.append(np.arccos(c))
+    return (float(np.sqrt(np.mean(np.square(dt)))),
+            float(np.sqrt(np.mean(np.square(dr)))))
+
+
+def associate(ts_a: np.ndarray, ts_b: np.ndarray,
+              max_dt: float = 0.02) -> List[Tuple[int, int]]:
+    """Greedy nearest-timestamp association (the TUM associate.py
+    scheme) for pairing estimated and ground-truth trajectories."""
+    pairs = []
+    used_b = set()
+    for i, t in enumerate(ts_a):
+        j = int(np.argmin(np.abs(ts_b - t)))
+        if j not in used_b and abs(ts_b[j] - t) <= max_dt:
+            pairs.append((i, j))
+            used_b.add(j)
+    return pairs

@@ -1,10 +1,15 @@
 """Binary PLY export — replaces the happly usage of src/System.cc.
 
-The whole-map writer (SaveMap, src/System.cc:212-234) and the reader of
-``orb_slam2_tpu/utils/ply.py``, host numpy only; the per-frame tracked
-writer comes with the tracked-map export.
+Port of ``orb_slam2_tpu/utils/ply.py``, host numpy only.  Two writers
+mirroring the reference's outputs:
+- ``write_ply_points``     : whole-map export (SaveMap, src/System.cc:212-234).
+- ``write_tracked_frame``  : per-frame tracked points with RGB, pixel
+  coords, octave, and an embedded frame element carrying the flattened
+  pose and K (SaveTrackedMap, src/System.cc:260-322).
 """
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 
@@ -28,6 +33,41 @@ def write_ply_points(path: str, pts: np.ndarray, colors: np.ndarray | None = Non
                 f.write(p.tobytes() + c.tobytes())
         else:
             f.write(pts.tobytes())
+
+
+def write_tracked_frame(path: str, frame_id: int, Tcw: np.ndarray,
+                        K: np.ndarray, pts_cam: np.ndarray,
+                        colors: np.ndarray, uv: np.ndarray,
+                        octave: np.ndarray):
+    """Per-frame export: camera-space points + appearance + the frame
+    element (id, flattened Tcw, flattened K) — same schema as
+    src/System.cc:260-322."""
+    n = len(pts_cam)
+    with open(path, "wb") as f:
+        hdr = [
+            "ply", "format binary_little_endian 1.0",
+            f"element vertex {n}",
+            "property float x", "property float y", "property float z",
+            "property uchar red", "property uchar green", "property uchar blue",
+            "property float u", "property float v",
+            "property int octave",
+            "element frame 1",
+            "property int id",
+        ]
+        hdr += [f"property float tcw{i}" for i in range(16)]
+        hdr += [f"property float k{i}" for i in range(9)]
+        hdr += ["end_header"]
+        f.write(("\n".join(hdr) + "\n").encode())
+        pts_cam = np.asarray(pts_cam, "<f4")
+        uv = np.asarray(uv, "<f4")
+        colors = np.asarray(colors, np.uint8)
+        octave = np.asarray(octave, "<i4")
+        for i in range(n):
+            f.write(pts_cam[i].tobytes() + colors[i].tobytes()
+                    + uv[i].tobytes() + octave[i:i+1].tobytes())
+        f.write(struct.pack("<i", frame_id))
+        f.write(np.asarray(Tcw, "<f4").reshape(-1).tobytes())
+        f.write(np.asarray(K, "<f4").reshape(-1).tobytes())
 
 
 def read_ply_points(path: str) -> np.ndarray:

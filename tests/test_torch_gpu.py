@@ -633,3 +633,120 @@ def test_initialize_two_view_on_card(cuda, planar):
     assert (g.good.cpu() == c.good).float().mean() >= 0.99
     np.testing.assert_allclose(g.R.cpu().numpy(), c.R.numpy(), atol=1e-3)
     np.testing.assert_allclose(g.t.cpu().numpy(), c.t.numpy(), atol=1e-3)
+
+
+# ----------------------------------------------------------------------
+# the extraction's host synchronizations, the command line and map
+# loading on the card
+# ----------------------------------------------------------------------
+@pytest.mark.gpu
+def test_warm_extraction_makes_no_host_sync(cuda):
+    """At bench shape (1920x1440, 4000 features, 8 levels) a warm
+    extraction queues its work and returns without waiting for the card
+    (torch.cuda.set_sync_debug_mode("error") raises on a sync)."""
+    from orb_slam2_tpu_torch.models.frame import FrameFactory
+    cam = Intrinsics(fx=960.0, fy=960.0, cx=960.0, cy=720.0, width=1920,
+                     height=1440)
+    factory = FrameFactory(cam, OrbParams(n_features=4000, n_levels=8),
+                           device=cuda)
+    world = synth.make_world(seed=7, tex_size=4096, scale=120.0,
+                             tex_shape=(3072, 10240),
+                             origin_px=(1560.0, 1536.0), device=cuda)
+    images = [synth.render(world, cam, T) for T in
+              synth.aerial_trajectory(2, height=12.0, speed=0.5)]
+    factory.start(images[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        feats, _, _ = factory.start(images[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(feats.valid.sum()) > 3000
+
+
+def _cpu_saved_map(tmp_path):
+    """A 640x480 pose-prior map built on the CPU and saved."""
+    cam = Intrinsics(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640,
+                     height=480)
+    cfg = SlamConfig(cam=cam, orb=OrbParams(n_features=800, n_levels=4),
+                     fps=10.0, pose_prior=True, init_min_matches=60,
+                     init_min_triangulated=40, init_min_tracked_after_ba=60)
+    world = synth.make_world(seed=3, device="cpu")
+    poses = synth.aerial_trajectory(14, speed=0.3)
+    images = [synth.render(world, cam, T).numpy() for T in poses]
+    system = System(cfg, enable_loop_closing=False, device="cpu")
+    for i, T in enumerate(poses):
+        system.track_monocular_with_pose(images[i], i * 0.1, T)
+    path = str(tmp_path / "map.npz")
+    system.save_map(path)
+    return cfg, system, path, poses, images
+
+
+@pytest.mark.gpu
+def test_load_cpu_saved_map_on_card(cuda, tmp_path):
+    """A map saved on the CPU loads onto the card (host arrays equal,
+    the device point store on the card) and relocalizes a mapped frame
+    there."""
+    from orb_slam2_tpu_torch.pipeline.tracking import TrackState
+    cfg, cpu_sys, path, poses, images = _cpu_saved_map(tmp_path)
+    card = System(cfg, enable_loop_closing=False, device=cuda)
+    card.load_map(path)
+    assert card.store.dev_points.snapshot()[0].device.type == "cuda"
+    n = card.store.n_points()
+    assert n == cpu_sys.store.n_points()
+    np.testing.assert_array_equal(np.asarray(card.store.mp_pos),
+                                  np.asarray(cpu_sys.store.mp_pos))
+    np.testing.assert_array_equal(
+        card.store.dev_points.snapshot()[0][:n].cpu().numpy(),
+        np.asarray(card.store.mp_pos))
+    assert card.state == TrackState.LOST
+    card.track_monocular_with_pose(images[8], 50.0, poses[8])
+    assert card.state == TrackState.OK
+    card.shutdown()
+
+
+@pytest.mark.gpu
+def test_cli_run_on_card(cuda, tmp_path, capsys):
+    """``cli run --device cuda`` on a 640x480 shenzhen-layout dataset
+    against the same command on the CPU: the same frames tracked OK and
+    tracked-PLY frames, map point counts within 10%, the map on the
+    world's ground plane (median |z| < 0.08)."""
+    import json
+    from orb_slam2_tpu_torch import cli
+    from orb_slam2_tpu_torch.io.poses import save_ue4_camera_poses
+    from orb_slam2_tpu_torch.utils import ply
+    cam = Intrinsics(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640,
+                     height=480)
+    world = synth.make_world(seed=3, device="cpu")
+    poses = synth.aerial_trajectory(10, speed=0.4)
+    paths = []
+    for i, T in enumerate(poses):
+        paths.append(str(tmp_path / f"{i:03d}.npy"))
+        np.save(paths[-1], synth.render(world, cam, T).numpy())
+    (tmp_path / "imgs.txt").write_text("\n".join(paths) + "\n")
+    save_ue4_camera_poses(str(tmp_path / "cams.txt"), poses)
+    (tmp_path / "settings.yaml").write_text(
+        "%YAML:1.0\nCamera.fx: 450.0\nCamera.fy: 450.0\nCamera.cx: 320.0\n"
+        "Camera.cy: 240.0\nCamera.fps: 10.0\nORBextractor.nFeatures: 800\n"
+        "ORBextractor.scaleFactor: 1.2\nORBextractor.nLevels: 4\n")
+    (tmp_path / "launch.toml").write_text(
+        f'FBoWVocabularyPath = ""\n'
+        f'ImagesCollectionPath = "{tmp_path}/imgs.txt"\n'
+        f'CameraPoseCollectionPath = "{tmp_path}/cams.txt"\n'
+        f'ORBSLAMConfigPath = "{tmp_path}/settings.yaml"\n')
+    res, pts, tracked = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        out = tmp_path / f"out_{dev}"
+        capsys.readouterr()
+        assert cli.main(["run", str(tmp_path / "launch.toml"), "--out",
+                         str(out), "--device", dev]) == 0
+        res[dev] = json.loads(capsys.readouterr().out.strip()
+                              .splitlines()[-1])
+        pts[dev] = ply.read_ply_points(str(out / "map.ply"))
+        tracked[dev] = sorted(p.name for p in out.glob("tracked_*.ply"))
+    assert res["cuda"]["frames"] == 10
+    assert res["cuda"]["tracked_ok"] == res["cpu"]["tracked_ok"] >= 9
+    assert tracked["cuda"] == tracked["cpu"]
+    assert abs(len(pts["cuda"]) - len(pts["cpu"])) <= 0.1 * len(pts["cpu"])
+    assert np.isfinite(pts["cuda"]).all()
+    assert np.median(np.abs(pts["cuda"][:, 2])) < 0.08

@@ -435,6 +435,9 @@ def test_import_pulls_in_no_jax():
         "    importlib.import_module(m.name)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'orb_slam2_tpu' not in sys.modules\n"
+        "for m in ('cli', 'io.config', 'io.poses', 'io.orbvoc',\n"
+        "          'models.serialize', 'ops.orb_pattern'):\n"
+        "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
