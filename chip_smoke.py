@@ -52,7 +52,23 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      through the revert transform, each tracked PLY's pose (the prior
      @ inv(revert)) and points (against their uv); then ``save_map``,
      ``load_map`` into a fresh System, a relocalization on a sequence
-     frame's image, and localization mode adding no keyframe.
+     frame's image, and localization mode adding no keyframe; then the
+     same command with ``--viz 0 --viz-dir DIR``: /status.json,
+     /frame.png and /map.png fetched over 127.0.0.1 while it tracks and
+     at the viewer's close (every frame seen, both PNGs decode, green
+     crosses on the frame), DIR/frame.png written, and the CLI's fps
+     with and without the viewer;
+  9. path F, the distributed solvers at full width, after path B: the
+     global BA problem and essential graph of B's first loop correction
+     and the map as its global BA found it, solved on two shards of the
+     one card (``distributed_bundle_adjust``, ``..._sharded_points``,
+     ``distributed_pose_graph``, ``LoopCloser.run_global_ba``'s sharded
+     branch) against the single-device solve (poses 2e-4, points 2e-3,
+     inliers equal, cost rtol 1e-3, the shards' cameras bitwise equal),
+     and by two processes on the card joined by gloo
+     (``init_multihost`` + ``make_global_mesh``): the same cost on both
+     ranks, within 1e-3 of the single device's; each solve's time
+     beside the single-device time.
 Path A also holds a warm extraction to no host synchronization, and
 path D prints the model (H or F) of its two-view bootstrap, which must
 be H on the planar world.
@@ -66,7 +82,8 @@ Four diagnostics print no such lines: ``--profile`` runs path A alone
 runs paths A-seq, A, A, A-seq one after another for the spread of their
 fps and frame times, ``--repeat-b`` runs path B four times and says
 where the runs part, and ``--kernels-from DIR``
-runs phases 1 and 2 alone with the port imported from DIR.  To compare
+runs phases 1 and 2 alone with the port imported from DIR
+(``--gloo-worker`` is path F's own subprocess).  To compare
 two commits on one card, unpack the other one (``git archive``) into a
 git-ignored directory and run, one after another on the same card,
 ``--kernels-from`` that directory, this checkout, this checkout and that
@@ -800,13 +817,17 @@ def record_trail(system, trail: list, frame: list) -> None:
         timer.time = contextlib.contextmanager(timed)
 
 
-def phase_loop(device, cfg, trail: list = None):
+def phase_loop(device, cfg, trail: list = None, record: dict = None):
     """Path B: a drifted circuit at bench width, sequential mapping, so
     that whether the loop fires does not depend on thread timing.
-    ``trail`` collects record_trail's stage digests."""
+    ``trail`` collects record_trail's stage digests; ``record`` receives
+    path F's problems from the first loop correction: the global BA's
+    inputs (``ba``), the essential graph's (``pose_graph``) and the map
+    as run_global_ba found it (``store``, an ``interop`` snapshot)."""
     import dataclasses
     import torch
-    from orb_slam2_tpu_torch import kernels
+    from orb_slam2_tpu_torch import interop, kernels
+    from orb_slam2_tpu_torch.optim import ba, pose_graph
     from orb_slam2_tpu_torch.pipeline.system import System
     from orb_slam2_tpu_torch.pipeline.tracking import TrackState
     from orb_slam2_tpu_torch.utils import synth
@@ -837,6 +858,36 @@ def phase_loop(device, cfg, trail: list = None):
         lc._optimize_essential_graph, "group correction + loop fuse",
         "essential graph")
     lc.run_global_ba = staged(lc.run_global_ba, None, "global BA")
+    solvers = (ba.bundle_adjust, pose_graph.optimize_pose_graph)
+    if record is not None:
+        in_gba = [False]
+
+        def host(args):
+            return [a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+                    for a in args]
+
+        def rec_ba(*args, **kwargs):
+            if in_gba[0] and "ba" not in record:
+                record["ba"] = (host(args), dict(kwargs))
+            return solvers[0](*args, **kwargs)
+
+        def rec_pg(*args, **kwargs):
+            record.setdefault("pose_graph", (host(args), dict(kwargs)))
+            return solvers[1](*args, **kwargs)
+
+        gba = lc.run_global_ba
+
+        def rec_gba(*args, **kwargs):
+            if "store" not in record:
+                record["store"] = interop.mapstore_state(system.store)
+                record["cfg"] = lcfg
+            in_gba[0] = True
+            try:
+                return gba(*args, **kwargs)
+            finally:
+                in_gba[0] = False
+        lc.run_global_ba = rec_gba
+        ba.bundle_adjust, pose_graph.optimize_pose_graph = rec_ba, rec_pg
     frame_no = [0]
     if trail is not None:
         record_trail(system, trail, frame_no)
@@ -854,6 +905,7 @@ def phase_loop(device, cfg, trail: list = None):
             f"loops={system.loop_closer.n_loops_closed} "
             f"{frame_ms[-1]:9.1f} ms")
     system.shutdown()
+    ba.bundle_adjust, pose_graph.optimize_pose_graph = solvers
     launches = dict(kernels.LAUNCHES)
     n_ok = sum(s == TrackState.OK for s in states)
     last = {k: v for k, v in (lc.last_loop or {}).items()
@@ -886,6 +938,276 @@ def phase_loop(device, cfg, trail: list = None):
     log(f"B: median frame {np.median(frame_ms):.1f} ms, max "
         f"{np.max(frame_ms):.1f} ms")
     return launches
+
+
+# path F: the distributed solvers on path B's problems, two shards on
+# the one card, held to the single-device solve with tests/test_parallel.py's
+# bars; two gloo processes share the card for the process-group mesh
+F_SHARDS = 2
+F_POSE_TOL = 2e-4
+F_POINT_TOL = 2e-3
+F_COST_RTOL = 1e-3
+# at full width a sharded solve must be as close to the single-device
+# solve as those bars, or within this factor of the gap between the
+# card's and the CPU's single-device solves of the same problem (sums
+# in another order only), measured in the same call
+F_SUM_ORDER_FACTOR = 4.0
+F_GLOO_TIMEOUT_S = 300
+
+
+def _timed(fn):
+    import torch
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else \
+        (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _gaps(res, ref) -> dict:
+    """Largest differences of two BA (or pose-graph) results, with the
+    share of points past F_POINT_TOL."""
+    def h(a):
+        return a.detach().cpu().double().numpy()
+    if hasattr(res, "sims"):
+        return dict(
+            sims=float(np.abs(h(res.sims) - h(ref.sims)).max()),
+            cost_rel=float(abs(h(res.final_cost) - h(ref.final_cost))
+                           / max(abs(h(ref.final_cost)), 1e-12)))
+    dp = np.abs(h(res.points) - h(ref.points)).max(-1)
+    return dict(
+        poses=float(np.abs(h(res.cam_Tcw) - h(ref.cam_Tcw)).max()),
+        points=float(dp.max()),
+        points_past_tol=float((dp >= F_POINT_TOL).mean()),
+        inliers_differ=int((h(res.obs_inlier) != h(ref.obs_inlier)).sum()),
+        cost_rel=float(abs(h(res.final_cost) - h(ref.final_cost))
+                       / max(abs(h(ref.final_cost)), 1e-12)))
+
+
+def _bars(sum_order: dict) -> dict:
+    """Path F's bars: test_parallel.py's, or F_SUM_ORDER_FACTOR times the
+    sum-order gap where that is larger."""
+    base = dict(poses=F_POSE_TOL, sims=F_POSE_TOL, points=F_POINT_TOL,
+                inliers_differ=0, cost_rel=F_COST_RTOL)
+    return {k: max(v, F_SUM_ORDER_FACTOR * sum_order.get(k, 0.0))
+            for k, v in base.items()}
+
+
+def _within(g: dict, bars: dict) -> bool:
+    return all(g[k] <= bars[k] if k == "inliers_differ" else g[k] < bars[k]
+               for k in bars if k in g)
+
+
+def gloo_worker(addr: str, rank: int, problem: str) -> int:
+    """``--gloo-worker``: one rank of path F's process group (gloo, the
+    ranks share the card): init_multihost + make_global_mesh +
+    distributed_bundle_adjust on the saved problem; prints its cost."""
+    import torch
+    from orb_slam2_tpu_torch import parallel
+    parallel.init_multihost(coordinator=addr, num_processes=F_SHARDS,
+                            process_id=rank)
+    import torch.distributed as dist
+    mesh = parallel.make_global_mesh()
+    p = np.load(problem)
+    args = [p[f"a{i}"] for i in range(8)]
+    res, ms = _timed(lambda: parallel.distributed_bundle_adjust(
+        mesh, *args, *p["cam"].tolist(), iters=int(p["iters"]),
+        cg_iters=int(p["cg_iters"]), use_huber=bool(p["use_huber"])))
+    np.save(f"{problem}.rank{rank}.npy", res.cam_Tcw.cpu().numpy())
+    print(f"GLOO rank={rank} backend={dist.get_backend()} "
+          f"device={mesh.device} cost={float(res.final_cost)!r} "
+          f"ms={ms:.1f}", flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dist(device, record: dict) -> dict:
+    """Path F: the distributed solvers at full width on path B's first
+    loop correction.  On a local mesh of F_SHARDS shards on the one card:
+    distributed_bundle_adjust and distributed_bundle_adjust_sharded_points
+    on the global BA's problem, distributed_pose_graph on the essential
+    graph, and LoopCloser.run_global_ba's sharded branch on a copy of
+    the map; each against the single-device solve on the same inputs
+    (poses and Sim3 within F_POSE_TOL, points F_POINT_TOL, inliers equal,
+    cost within F_COST_RTOL), the cameras bitwise equal on every shard.
+    Then F_SHARDS processes joined by gloo on the card (init_multihost,
+    make_global_mesh) run distributed_bundle_adjust on the same problem:
+    the same cost on both ranks, within F_COST_RTOL of the
+    single-device cost.  Each solve's time beside the single-device
+    time; the gap between the card's and the CPU's single-device solve
+    (sums in another order) for scale."""
+    import tempfile
+    import torch
+    from orb_slam2_tpu_torch import interop, parallel
+    from orb_slam2_tpu_torch.optim import ba, pose_graph
+    from orb_slam2_tpu_torch.pipeline.loop_closing import LoopCloser
+    check(all(k in record for k in ("ba", "pose_graph", "store")),
+          f"F: path B recorded only {sorted(record)}")
+
+    class Mesh(parallel.LocalMesh):
+        def run(self, body):
+            self.results = super().run(body)
+            return self.results
+
+    def replicated(mesh, field):
+        vals = [getattr(r, field).cpu().numpy()
+                for r in mesh.results.values()]
+        return all(np.array_equal(v, vals[0]) for v in vals)
+
+    devs = [device] * F_SHARDS
+    out = {}
+    bargs, bkw = record["ba"]
+    cams, pts, oc, op, ouv, isig, valid, fixed = bargs[:8]
+    fx, fy, cx, cy = bargs[8:12]
+    # the problem without run_global_ba's padding (observations past the
+    # valid ones, points no observation reaches): the JAX package's
+    # sharded branch takes it so, and padding would leave one shard with
+    # filler only
+    n_obs = int(valid.sum())
+    check(bool(valid[:n_obs].all()), "F: padding inside the observations")
+    n_pts = int(op[:n_obs].max()) + 1
+    bargs = [cams, pts[:n_pts]] + [a[:n_obs] for a in
+                                   (oc, op, ouv, isig, valid)] + [fixed]
+    bargs += [fx, fy, cx, cy]
+    log(f"F: global BA problem: {len(cams)} cameras ({int(fixed.sum())} "
+        f"fixed), {n_pts} points and {n_obs} observations (padded to "
+        f"{len(pts)} and {len(oc)} by run_global_ba), {bkw}")
+    dev_args = [torch.as_tensor(a, device=device) for a in bargs[:8]]
+    single, single_ms = _timed(lambda: ba.bundle_adjust(
+        *dev_args, fx, fy, cx, cy, **bkw))
+    cpu = ba.bundle_adjust(*[torch.as_tensor(a) for a in bargs[:8]],
+                           fx, fy, cx, cy, **bkw)
+    sum_order = _gaps(cpu, single)
+    bars = _bars(sum_order)
+    log(f"F: single-device BA {single_ms:.1f} ms; the CPU's solve against "
+        f"the card's (another sum order): {json.dumps(sum_order)}; bars "
+        f"{json.dumps(bars)}")
+    for name, fn in (("distributed_bundle_adjust",
+                      parallel.distributed_bundle_adjust),
+                     ("distributed_bundle_adjust_sharded_points",
+                      parallel.distributed_bundle_adjust_sharded_points)):
+        mesh = Mesh(devs)
+        res, ms = _timed(lambda: fn(mesh, *bargs[:8], fx, fy, cx, cy,
+                                    **bkw))
+        g = _gaps(res, single)
+        rep = replicated(mesh, "cam_Tcw") and replicated(mesh, "final_cost")
+        log(f"F: {name} on {F_SHARDS} shards of {device}: {ms:.1f} ms "
+            f"(single device {single_ms:.1f} ms); against the single "
+            f"device {json.dumps(g)}; cameras bitwise equal on every "
+            f"shard: {rep}")
+        check(rep, f"F: {name}: the shards' cameras differ")
+        check(_within(g, bars), f"F: {name} misses the bars "
+              f"{json.dumps(bars)}: {json.dumps(g)}")
+        out[name] = dict(ms=ms, single_ms=single_ms, **g)
+
+    pargs, pkw = record["pose_graph"]
+    # without the zero-weight filler edges at the end
+    n_edges = int((pargs[4] > 0).sum())
+    check(bool((pargs[4][:n_edges] > 0).all()), "F: filler inside the edges")
+    pargs = [pargs[0]] + [a[:n_edges] for a in pargs[1:5]] + [pargs[5]]
+    log(f"F: essential graph: {len(pargs[0])} Sim3 vertices "
+        f"({int(pargs[5].sum())} fixed), {len(pargs[1])} edges, {pkw}")
+    pg_dev = [torch.as_tensor(a, device=device) for a in pargs]
+    psingle, p_ms = _timed(lambda: pose_graph.optimize_pose_graph(
+        *pg_dev, **pkw))
+    pcpu = pose_graph.optimize_pose_graph(
+        *[torch.as_tensor(a) for a in pargs], **pkw)
+    psum_order = _gaps(pcpu, psingle)
+    pbars = _bars(psum_order)
+    mesh = Mesh(devs)
+    pres, pd_ms = _timed(lambda: parallel.distributed_pose_graph(
+        mesh, *pargs, **pkw))
+    g = _gaps(pres, psingle)
+    rep = replicated(mesh, "sims")
+    log(f"F: distributed_pose_graph on {F_SHARDS} shards: {pd_ms:.1f} ms "
+        f"(single device {p_ms:.1f} ms); against the single device "
+        f"{json.dumps(g)}; the CPU's single solve against the card's "
+        f"{json.dumps(psum_order)}; bars {json.dumps(pbars)}; Sim3 bitwise "
+        f"equal on every shard: {rep}")
+    check(rep, "F: distributed_pose_graph: the shards' vertices differ")
+    check(_within(g, pbars), f"F: distributed_pose_graph misses the bars "
+          f"{json.dumps(pbars)}: {json.dumps(g)}")
+    out["distributed_pose_graph"] = dict(ms=pd_ms, single_ms=p_ms, **g)
+
+    # LoopCloser.run_global_ba on two copies of the map: one device, and
+    # the sharded branch (local_devices says there are F_SHARDS)
+    def gba(devices):
+        store = interop.mapstore_from_numpy(**record["store"],
+                                            device=device)
+        lc = LoopCloser(record["cfg"], store)
+        real = parallel.local_devices
+        parallel.local_devices = (lambda d: devices) if devices else real
+        try:
+            _, ms = _timed(lc.run_global_ba)
+        finally:
+            parallel.local_devices = real
+        kids = store.valid_kf_ids()
+        return (np.stack([store.kfs[k].Tcw for k in kids]),
+                np.asarray(store.mp_pos)[np.asarray(store.mp_valid, bool)],
+                ms)
+    t1, p1, ms1 = gba(None)
+    t2, p2, ms2 = gba(devs)
+    g = dict(poses=float(np.abs(t1 - t2).max()),
+             points=float(np.abs(p1 - p2).max()), cost_rel=0.0)
+    log(f"F: LoopCloser.run_global_ba sharded over {F_SHARDS} shards: "
+        f"{ms2:.1f} ms against {ms1:.1f} ms on one device; keyframe "
+        f"poses within {g['poses']:.2e}, points within {g['points']:.2e}")
+    check(_within(g, bars), f"F: run_global_ba's sharded branch misses "
+          f"the bars {json.dumps(bars)}: {g}")
+    out["run_global_ba"] = dict(ms=ms2, single_ms=ms1, **g)
+
+    # the process-group mesh: F_SHARDS processes on the card, gloo
+    with tempfile.TemporaryDirectory() as root:
+        problem = os.path.join(root, "problem.npz")
+        np.savez(problem, cam=np.array([fx, fy, cx, cy]),
+                 iters=bkw.get("iters", 10), cg_iters=bkw.get("cg_iters", 20),
+                 use_huber=bkw.get("use_huber", True),
+                 **{f"a{i}": a for i, a in enumerate(bargs[:8])})
+        import socket
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sock.getsockname()[1]}"
+        sock.close()
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--gloo-worker",
+             addr, str(r), problem], cwd=here, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(F_SHARDS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=F_GLOO_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0 and "GLOO rank=" in o,
+                  f"F: gloo rank {r} failed ({p.returncode}):\n{o[-2000:]}")
+        lines = [next(ln for ln in o.splitlines() if ln.startswith("GLOO"))
+                 for o in outs]
+        costs = [float(ln.split("cost=")[1].split()[0]) for ln in lines]
+        cams_r = [np.load(f"{problem}.rank{r}.npy") for r in range(F_SHARDS)]
+    ref_cost = float(single.final_cost)
+    rel = abs(costs[0] - ref_cost) / max(abs(ref_cost), 1e-12)
+    log("F: process group: " + "; ".join(lines) + f"; {wall:.1f} s with "
+        f"the processes' start; single-device cost {ref_cost!r}, "
+        f"relative gap {rel:.2e}")
+    check(costs[0] == costs[1], f"F: the gloo ranks' costs differ: {costs}")
+    check(all(np.array_equal(c, cams_r[0]) for c in cams_r),
+          "F: the gloo ranks' cameras differ")
+    check(rel < bars["cost_rel"], f"F: the gloo cost is {rel:.2e} from the "
+          f"single device's (bar {bars['cost_rel']:.2e})")
+    check("backend=gloo" in lines[0], f"F: {lines[0]}")
+    out["process_group"] = dict(
+        cost_rel=rel, rank_ms=[float(ln.split("ms=")[1].split()[0])
+                               for ln in lines], wall_s=wall)
+    return out
 
 
 def rotation_deg(Ta, Tb) -> float:
@@ -1239,7 +1561,120 @@ def phase_cli(device, cfg, smi: str) -> dict:
         log(f"E: localization mode tracked frames {j + 1}-"
             f"{j + E_LOC_FRAMES} OK with no keyframe or point added")
         fresh.shutdown()
+        viewer_run(root, ds, device, res["fps"], smi)
     return launches
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """An 8-bit RGB PNG whose rows are all filter 0 (as the port's
+    viz.encode_png writes them) -> (H, W, 3) uint8; fails otherwise."""
+    import struct
+    import zlib
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "E: not a PNG signature")
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        check(struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0]
+              == zlib.crc32(kind + body) & 0xFFFFFFFF,
+              f"E: PNG chunk {kind} fails its CRC")
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, ctype = hdr[:4]
+    check(depth == 8 and ctype == 2, f"E: PNG header {hdr}")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h,
+                                                                 1 + 3 * w)
+    check(bool((raw[:, 0] == 0).all()), "E: a PNG row is filtered")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def viewer_run(root: str, ds: dict, device, fps_plain: float,
+               smi: str) -> None:
+    """Path E with the viewer: ``cli run launch.toml --viz 0 --viz-dir
+    DIR`` on the same dataset.  A thread fetches /status.json,
+    /frame.png and /map.png over 127.0.0.1 while the CLI tracks, and the
+    viewer's close fetches them once more after the render thread has
+    drawn the last frame.  Bars: the final status has seen every frame,
+    both PNGs decode (1440x1920x3 and the map's size), the frame holds
+    green crosses, DIR/frame.png exists.  Prints the CLI's fps with and
+    without the viewer."""
+    import contextlib
+    import io as io_mod
+    import urllib.request
+    from orb_slam2_tpu_torch import cli
+    from orb_slam2_tpu_torch.utils import viz
+    from orb_slam2_tpu_torch.utils.viewer import LiveViewer
+
+    def get(url):
+        return urllib.request.urlopen(url, timeout=10).read()
+
+    urls, fetched, final = [], [], []
+    init, close = LiveViewer.__init__, LiveViewer.close
+
+    def init_hook(self, *a, **kw):
+        init(self, *a, **kw)
+        urls.append(f"http://127.0.0.1:{self.port}")
+
+    def close_hook(self):
+        time.sleep(1.5)     # the render thread draws the last frame
+        final.append((json.loads(get(urls[0] + "/status.json")),
+                      get(urls[0] + "/frame.png"), get(urls[0] + "/map.png"),
+                      get(urls[0] + "/")))
+        close(self)
+
+    stop = threading.Event()
+
+    def poll():
+        while not stop.wait(0.25):
+            if urls:
+                try:
+                    st = json.loads(get(urls[0] + "/status.json"))
+                    png = get(urls[0] + "/frame.png")
+                    fetched.append((st["frames_seen"], len(png)))
+                except OSError:
+                    pass
+
+    vdir = os.path.join(root, "viz")
+    stdout = io_mod.StringIO()
+    poller = threading.Thread(target=poll, daemon=True)
+    LiveViewer.__init__, LiveViewer.close = init_hook, close_hook
+    poller.start()
+    try:
+        with contextlib.redirect_stdout(stdout):
+            rc = cli.main(["run", ds["launch"], "--out",
+                           os.path.join(root, "OutViz"), "--device",
+                           str(device), "--viz", "0", "--viz-dir", vdir])
+    finally:
+        LiveViewer.__init__, LiveViewer.close = init, close
+        stop.set()
+        poller.join(10)
+    check(rc == 0, f"E: cli run --viz returned {rc}")
+    res = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    check(len(final) == 1, "E: the viewer was not closed once")
+    st, frame_png, map_png, html = final[0]
+    check(st["frames_seen"] == res["frames"] == E_FRAMES,
+          f"E: viewer saw {st['frames_seen']} of {res['frames']} frames")
+    frame = decode_png(frame_png)
+    check(frame.shape == (1440, 1920, 3), f"E: frame.png {frame.shape}")
+    n_green = int((frame == [0, 255, 0]).all(-1).sum())
+    check(n_green > 0, "E: frame.png holds no green cross")
+    mp = decode_png(map_png)
+    check(mp.shape == viz.MAP_SIZE + (3,), f"E: map.png {mp.shape}")
+    check(b"live viewer" in html, "E: the viewer's page")
+    check(os.path.exists(os.path.join(vdir, "frame.png")),
+          "E: --viz-dir holds no frame.png")
+    check(len(fetched) > 0, "E: nothing was fetched while the CLI tracked")
+    log(f"E: viewer: {len(fetched)} fetches of /status.json + /frame.png "
+        f"while the CLI tracked (frames seen {fetched[0][0]}..."
+        f"{fetched[-1][0]}); at close {st['frames_seen']} frames seen, "
+        f"{st['keyframes']} keyframes, frame.png {len(frame_png)} bytes "
+        f"with {n_green} green pixels, map.png {len(map_png)} bytes "
+        f"{mp.shape}; DIR holds {sorted(os.listdir(vdir))}")
+    log(f"E: cli fps {res['fps']:.2f} with the viewer against "
+        f"{fps_plain:.2f} without (the same dataset, this call, {smi})")
 
 
 KERNEL_META = {
@@ -1314,6 +1749,9 @@ def main() -> int:
                          "repeat_bench)")
     ap.add_argument("--repeat-b", action="store_true",
                     help="run only path B, four times (see repeat_loop)")
+    ap.add_argument("--gloo-worker", nargs=3,
+                    metavar=("HOST:PORT", "RANK", "PROBLEM"),
+                    help="path F's process-group rank (started by path F)")
     ap.add_argument("--kernels-from", metavar="DIR",
                     help="run only phases 1 and 2 (build, each kernel "
                          "against its plain version, timed) with "
@@ -1336,8 +1774,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, root)
+    if args.gloo_worker:
+        addr, rank, problem = args.gloo_worker
+        return gloo_worker(addr, int(rank), problem)
     from orb_slam2_tpu_torch import kernels
 
+    t_start = time.perf_counter()
     device = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -1386,7 +1828,12 @@ def main() -> int:
         k4_ref = ht.hamming_top2_plain(*k4_problem(4096, 4096, 0.2, 4,
                                                    device))
         launches["hamming_top2"] = phase_k4(device, k4_ref)["hamming_top2"]
-        phase_loop(device, cfg)
+        record = {}
+        phase_loop(device, cfg, record=record)
+        kernels.reset_launch_counts()
+        phase_dist(device, record)
+        check(sum(kernels.LAUNCHES.values()) == 0,
+              f"F: kernels launched: {dict(kernels.LAUNCHES)}")
         phase_estimated(device, world, cfg)
         phase_cli(device, cfg, smi)
     except SmokeFailure as e:
@@ -1403,6 +1850,9 @@ def main() -> int:
                          bound_by=t["bound_by"], library_ms=None,
                          shape=t["shape"], loop_ms=t["loop_ms"],
                          share=t["bound_ms"] / t["ms"]))
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s, the kernels' build "
+        f"included")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,14 +2,19 @@
 
 A second package beside the JAX reference ``orb_slam2_tpu``, with the
 same subpackage layout and module names (``ops``, ``matching``,
-``geom``, ``optim``, ``models``, ``pipeline``, ``utils``, ``io``) so
-each port module sits where its counterpart does.  It imports torch and
-never jax.  Ported: both tracking modes (pose prior, pipelined or not,
-and estimated), local mapping (inline or on a mapping thread), place
-recognition, loop closing, relocalization, map save/load and
-localization mode, and the command line (``python -m
-orb_slam2_tpu_torch.cli``) with its dataset and vocabulary I/O.  Every kernel the JAX package wrote in Pallas is
-hand-written CUDA for Hopper (``csrc/``, built and loaded by
+``geom``, ``optim``, ``models``, ``pipeline``, ``parallel``, ``utils``,
+``io``) so each port module sits where its counterpart does.  It
+imports torch and never jax.  Ported: everything the JAX package has:
+both tracking modes (pose prior, pipelined or not, and estimated), local
+mapping (inline or on a mapping thread), place recognition, loop
+closing, relocalization, map save/load and localization mode, the
+distributed solvers (``parallel``: observation-, point- and
+edge-sharded BA and pose graph on a mesh of local devices or of
+``torch.distributed`` ranks; global BA shards over several local
+cards), the live viewer (``utils.viewer``, ``utils.viz``) and the
+command line (``python -m orb_slam2_tpu_torch.cli``, ``--viz``) with
+its dataset and vocabulary I/O.  Every kernel the JAX package wrote in
+Pallas is hand-written CUDA for Hopper (``csrc/``, built and loaded by
 ``kernels``):
 
 - K1 ``ops.fast.score_maps``        (FAST score maps, a frame's levels

@@ -15,9 +15,9 @@ evaluation; ``kitti`` and ``euroc`` do the same on those datasets'
 layouts.
 
 Every command runs on ``--device`` (default ``cuda``; ``cpu`` runs the
-plain versions of the kernels).  The live viewer (``--viz``,
-``--viz-dir``) is not ported yet (ROADMAP Queue 1, item 20): asking for
-it exits with status 2.
+plain versions of the kernels).  ``--viz [PORT]`` serves the live viewer
+(``utils/viewer.py``) on 127.0.0.1 during the run; ``--viz-dir DIR``
+also refreshes its PNGs in DIR.
 """
 from __future__ import annotations
 
@@ -49,15 +49,19 @@ def _load_image(path: str) -> np.ndarray:
     return img.astype(np.float32)
 
 
-def _refuse_viewer(args) -> bool:
-    """--viz / --viz-dir: the live viewer is not ported (ROADMAP Queue 1,
-    item 20).  Says so and returns True when either was given."""
-    if args.viz is None and not args.viz_dir:
-        return False
-    print("--viz / --viz-dir: the live viewer is not ported to "
-          "orb_slam2_tpu_torch yet (ROADMAP Queue 1, item 20)",
-          file=sys.stderr)
-    return True
+def _maybe_viewer(args, system):
+    """--viz [PORT]: start the live HTTP viewer (utils/viewer) attached
+    to this run; --viz-dir DIR additionally refreshes PNGs on disk."""
+    port = getattr(args, "viz", None)
+    viz_dir = getattr(args, "viz_dir", "") or None
+    if port is None and viz_dir is None:
+        return None
+    from .utils.viewer import LiveViewer
+    v = LiveViewer(system.store, port=port, out_dir=viz_dir)
+    v.attach(system)
+    if v.port is not None:
+        print(f"live viewer: http://127.0.0.1:{v.port}/", file=sys.stderr)
+    return v
 
 
 def _add_common_args(p):
@@ -102,6 +106,7 @@ def cmd_run(args) -> int:
     system = System(cfg, enable_loop_closing=not args.no_loop, vocab=vocab,
                     device=args.device)
     system.set_real_transform(revert)
+    viewer = _maybe_viewer(args, system)
 
     out_dir = args.out
     os.makedirs(out_dir, exist_ok=True)
@@ -120,6 +125,8 @@ def cmd_run(args) -> int:
               f"kfs={system.store.n_valid_keyframes()} "
               f"mps={system.store.n_valid_points()}", file=sys.stderr)
     system.save_map_ply(os.path.join(out_dir, "map.ply"))
+    if viewer is not None:
+        viewer.close()
     system.shutdown()
     print(json.dumps({"frames": len(images), "tracked_ok": n_ok,
                       "fps": len(images) / max(t_total, 1e-9)}))
@@ -162,6 +169,7 @@ def cmd_tum(args) -> int:
     vocab = _load_vocabulary(args.vocab) if args.vocab else None
     system = System(cfg, enable_loop_closing=not args.no_loop, vocab=vocab,
                     device=args.device)
+    viewer = _maybe_viewer(args, system)
 
     limit = args.limit or len(files)
     for i, (t, fp) in enumerate(zip(ts_list[:limit], files[:limit])):
@@ -171,6 +179,8 @@ def cmd_tum(args) -> int:
                 if st == TrackState.OK]
     ts_ok = [t for _, t, _, st in system.trajectory if st == TrackState.OK]
     save_tum_trajectory(args.traj_out, ts_ok, Tcw_list)
+    if viewer is not None:
+        viewer.close()
     system.shutdown()
     print(json.dumps({"frames": limit, "tracked_ok": len(Tcw_list)}))
     return 0
@@ -203,6 +213,7 @@ def cmd_kitti(args) -> int:
     vocab = _load_vocabulary(args.vocab) if args.vocab else None
     system = System(cfg, enable_loop_closing=not args.no_loop, vocab=vocab,
                     device=args.device)
+    viewer = _maybe_viewer(args, system)
 
     limit = args.limit or len(files)
     for i, fp in enumerate(files[:limit]):
@@ -213,6 +224,8 @@ def cmd_kitti(args) -> int:
     Tcw_list = [T for _, _, T, st in system.trajectory
                 if st == TrackState.OK]
     save_kitti_trajectory(args.traj_out, Tcw_list)
+    if viewer is not None:
+        viewer.close()
     system.shutdown()
     print(json.dumps({"frames": limit, "tracked_ok": len(Tcw_list),
                       "loops_closed": getattr(system.loop_closer,
@@ -257,6 +270,7 @@ def cmd_euroc(args) -> int:
     vocab = _load_vocabulary(args.vocab) if args.vocab else None
     system = System(cfg, enable_loop_closing=not args.no_loop, vocab=vocab,
                     device=args.device)
+    viewer = _maybe_viewer(args, system)
 
     limit = args.limit or len(files)
     for i, (t, fp) in enumerate(zip(ts_list[:limit], files[:limit])):
@@ -266,6 +280,8 @@ def cmd_euroc(args) -> int:
                 if st == TrackState.OK]
     ts_ok = [t for _, t, _, st in system.trajectory if st == TrackState.OK]
     save_tum_trajectory(args.traj_out, ts_ok, Tcw_list)
+    if viewer is not None:
+        viewer.close()
     system.shutdown()
     print(json.dumps({"frames": limit, "tracked_ok": len(Tcw_list)}))
     return 0
@@ -313,8 +329,6 @@ def main(argv=None) -> int:
     e.set_defaults(fn=cmd_euroc)
 
     args = ap.parse_args(argv)
-    if _refuse_viewer(args):
-        return 2
     return args.fn(args)
 
 

@@ -37,6 +37,25 @@ class Intrinsics(NamedTuple):
         return any(abs(d) > 0 for d in self.dist)
 
 
+def project(cam: Intrinsics, pts_cam: torch.Tensor) -> torch.Tensor:
+    """Project camera-frame points (..., 3) -> pixel coords (..., 2), with
+    no distortion: the pipeline matches undistorted keypoints, as the
+    reference does (src/Frame.cc:502)."""
+    z = pts_cam[..., 2]
+    inv_z = 1.0 / torch.where(z.abs() < 1e-12, torch.full_like(z, 1e-12), z)
+    u = cam.fx * pts_cam[..., 0] * inv_z + cam.cx
+    v = cam.fy * pts_cam[..., 1] * inv_z + cam.cy
+    return torch.stack([u, v], dim=-1)
+
+
+def unproject(cam: Intrinsics, uv: torch.Tensor,
+              depth: torch.Tensor) -> torch.Tensor:
+    """Back-project undistorted pixels (..., 2) at depth (...) -> (..., 3)."""
+    x = (uv[..., 0] - cam.cx) / cam.fx * depth
+    y = (uv[..., 1] - cam.cy) / cam.fy * depth
+    return torch.stack([x, y, depth], dim=-1)
+
+
 def distort_normalized(cam: Intrinsics, xy: torch.Tensor) -> torch.Tensor:
     """Apply radtan distortion to normalized coords (..., 2)."""
     k1, k2, p1, p2, k3 = [float(np.float32(d)) for d in cam.dist]

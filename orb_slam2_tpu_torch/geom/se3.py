@@ -104,12 +104,33 @@ def _left_jacobian(omega: torch.Tensor) -> torch.Tensor:
         + c[..., None, None] * KK
 
 
+def _left_jacobian_inv(omega: torch.Tensor) -> torch.Tensor:
+    theta2 = (omega * omega).sum(-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    half = 0.5 * theta
+    # coef = 1/theta^2 - cot(theta/2) / (2 theta)
+    cot_term = half * torch.cos(half) / (torch.sin(half) + _EPS)
+    coef = (1.0 - cot_term) / (theta2 + _EPS * _EPS)
+    coef = torch.where(theta2 < 1e-8, 1.0 / 12.0 + theta2 / 720.0, coef)
+    K = hat(omega)
+    KK = K @ K
+    return _eye(3, omega, K.shape) - 0.5 * K + coef[..., None, None] * KK
+
+
 def exp(xi: torch.Tensor) -> torch.Tensor:
     """SE(3) exponential: (..., 6) tangent (upsilon, omega) -> (..., 4, 4)."""
     ups, omega = xi[..., :3], xi[..., 3:]
     R = so3_exp(omega)
     t = (_left_jacobian(omega) @ ups[..., None])[..., 0]
     return from_rt(R, t)
+
+
+def log(T: torch.Tensor) -> torch.Tensor:
+    """SE(3) logarithm: (..., 4, 4) -> (..., 6) tangent (upsilon, omega)."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    omega = so3_log(R)
+    ups = (_left_jacobian_inv(omega) @ t[..., None])[..., 0]
+    return torch.cat([ups, omega], dim=-1)
 
 
 def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -121,6 +142,29 @@ def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
     bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def inv(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of a rigid transform (R orthogonal)."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    Rt = R.transpose(-1, -2)
+    return from_rt(Rt, -(Rt @ t[..., None])[..., 0])
+
+
+def compose(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
+    return Ta @ Tb
+
+
+def transform(T: torch.Tensor, pt: torch.Tensor) -> torch.Tensor:
+    """Apply pose(s) (..., 4, 4) to single point(s) (..., 3)."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    return (R @ pt[..., None])[..., 0] + t
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply pose(s) to a point array: T (..., 4, 4), pts (..., N, 3)."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    return pts @ R.transpose(-1, -2) + t[..., None, :]
 
 
 def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
@@ -168,3 +212,8 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     idx = best[..., None, None].expand(best.shape + (1, 4))
     q = torch.gather(qs, -2, idx)[..., 0, :]
     return q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
+
+
+def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Project a near-rotation matrix back onto SO(3) via quaternions."""
+    return quat_to_rot(rot_to_quat(R))

@@ -41,6 +41,26 @@ def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     return ((256.0 - dot) * 0.5).to(torch.int32)
 
 
+def hamming_popcount(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    """Reference-semantics popcount path (an oracle for tests and tiny
+    problems): (N, 8) x (M, 8) -> (N, M) int32."""
+    acc = torch.zeros((d1.shape[0], d2.shape[0]), dtype=torch.int32,
+                      device=d1.device)
+    for k in range(8):
+        x = d1[:, None, k] ^ d2[None, :, k]
+        acc = acc + _popcount32(x)
+    return acc
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Bits set in each int32 word (SWAR, on the word's uint32 bits)."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF).bitwise_right_shift(24).to(torch.int32)
+
+
 class MatchResult(NamedTuple):
     idx: torch.Tensor    # (N,) int64 — best column per row (0 if none)
     dist: torch.Tensor   # (N,) int32 — best distance (BIG if none)

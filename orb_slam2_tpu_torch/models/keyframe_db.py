@@ -35,6 +35,10 @@ class KeyFrameDatabase:
         if self.bow.pop(kid, None) is not None:
             self._db.erase(kid)
 
+    def clear(self):
+        self.bow.clear()
+        self._db = native.NativeKfDatabase()
+
     # ------------------------------------------------------------------
     def _accumulate_groups(self, store: MapStore, scored: Dict[int, float],
                            floor: float) -> List[int]:

@@ -82,6 +82,10 @@ def _load_locked() -> Optional[ctypes.CDLL]:
                                ctypes.c_int64, c_i32p, c_i32p, c_f32p,
                                ctypes.c_int64]
     lib.kfdb_query.restype = ctypes.c_int64
+    lib.covis_count.argtypes = [c_i32p, c_i64p, ctypes.c_int64,
+                                ctypes.c_int32, ctypes.c_int64, c_i32p,
+                                c_i32p, ctypes.c_int64]
+    lib.covis_count.restype = ctypes.c_int64
     _lib = lib
     return lib
 
@@ -224,3 +228,40 @@ class NativeKfDatabase:
         return (np.asarray(kids, np.int32),
                 np.asarray([counts[k] for k in kids], np.int32),
                 np.asarray([0.5 * scores[k] for k in kids], np.float32))
+
+
+# ----------------------------------------------------------------------
+# Covisibility
+# ----------------------------------------------------------------------
+def covis_count(obs_kids: np.ndarray, obs_offsets: np.ndarray,
+                self_kid: int, threshold: int = 15, max_out: int = 8192):
+    """Shared-observation counting (KeyFrame::UpdateConnections).
+
+    obs_kids/obs_offsets: CSR over this KF's map points listing every
+    observing keyframe.  Returns (neighbor_kids, weights) with weight >=
+    threshold (or the single best when none reach it)."""
+    obs_kids = np.ascontiguousarray(obs_kids, np.int32)
+    obs_offsets = np.ascontiguousarray(obs_offsets, np.int64)
+    n_pts = len(obs_offsets) - 1
+    lib = _load()
+    if lib is None:
+        counter = {}
+        for p in range(n_pts):
+            for k in obs_kids[obs_offsets[p]:obs_offsets[p + 1]]:
+                if k != self_kid:
+                    counter[int(k)] = counter.get(int(k), 0) + 1
+        if not counter:
+            return np.zeros(0, np.int32), np.zeros(0, np.int32)
+        kids = [k for k, w in counter.items() if w >= threshold]
+        if not kids:
+            best = max(counter, key=counter.get)
+            kids = [best]
+        return (np.asarray(kids, np.int32),
+                np.asarray([counter[k] for k in kids], np.int32))
+    out_k = np.empty(max_out, np.int32)
+    out_w = np.empty(max_out, np.int32)
+    m = lib.covis_count(_ptr(obs_kids, ctypes.c_int32),
+                        _ptr(obs_offsets, ctypes.c_int64), n_pts,
+                        self_kid, threshold, _ptr(out_k, ctypes.c_int32),
+                        _ptr(out_w, ctypes.c_int32), max_out)
+    return out_k[:m].copy(), out_w[:m].copy()

@@ -7,6 +7,7 @@ constructor, src/ORBextractor.cc:511-529).
 """
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple
 
 import numpy as np
@@ -117,6 +118,13 @@ def extract(image: torch.Tensor, params: OrbParams) -> Features:
                          torch.cat([a, a.new_zeros(pad)])
                          for a in out])
     return out
+
+
+@functools.lru_cache(maxsize=8)
+def make_extractor(height: int, width: int, params: OrbParams):
+    """The extractor for a fixed image size and params: ``extract`` with
+    ``params`` bound (the JAX package jits one per size)."""
+    return functools.partial(extract, params=params)
 
 
 def level_sigma2(params: OrbParams) -> np.ndarray:

@@ -29,6 +29,8 @@ CIRCLE = (
     (3, 0), (3, -1), (2, -2), (1, -3), (0, -3), (-1, -3), (-2, -2), (-3, -1),
 )
 
+ARC = 9  # contiguous run length for FAST-9/16
+
 # images per K1 launch (csrc/fast_score.cu: kMaxLevels)
 MAX_LEVELS = 8
 

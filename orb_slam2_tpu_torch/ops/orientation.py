@@ -24,6 +24,15 @@ _HW = np.floor(np.sqrt(np.maximum(HALF_PATCH ** 2 - _DY ** 2, 0))
                ).astype(np.int32)
 
 
+def gather_patches(image: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                   dy: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
+    """Gather (N, *offsets.shape) pixel patches with clamped indices."""
+    h, w = image.shape
+    yy = (ys[:, None, None] + dy[None]).clamp(0, h - 1)
+    xx = (xs[:, None, None] + dx[None]).clamp(0, w - 1)
+    return image[yy.long(), xx.long()]
+
+
 def ic_angle(image: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor
              ) -> torch.Tensor:
     """Angles in radians, (N,).  Keypoints are >= 16 px from the border

@@ -17,10 +17,16 @@ because the TPU pads the two minor dims of every array to (8, 128); the
 card has no such padding, so the port keeps them as (O, 6, 3) / (O, 2, 6)
 matrices.  The arithmetic is the same; sums run in another order.
 Gauge: a boolean ``fixed_cam`` mask.
+
+:func:`bundle_adjust_core` takes the JAX package's collective hooks:
+``psum`` closes every camera-indexed sum and the cost over the shards of
+an observation-sharded problem, ``psum_pt`` every point-indexed one
+(``parallel/dist_ba.py``).  A hook takes a tensor or a tuple of tensors
+and returns the same structure summed over the shards.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -40,6 +46,10 @@ class BAResult(NamedTuple):
     points: torch.Tensor      # (P, 3)
     obs_inlier: torch.Tensor  # (O,) bool
     final_cost: torch.Tensor
+
+
+def _identity_psum(x):
+    return x
 
 
 class _Linearized(NamedTuple):
@@ -62,9 +72,9 @@ def _rho(c2, z, obs_wf, use_huber):
 
 
 def _linearize(cam, pts, per_cam, per_pt, obs_uv, obs_isig2, obs_wf,
-               fx, fy, cx, cy, use_huber):
+               fx, fy, cx, cy, use_huber, psum, psum_pt):
     """``per_cam``, ``per_pt``: IndexSum over the observations' camera
-    and point rows."""
+    and point rows; ``psum`` / ``psum_pt`` close them over the shards."""
     obs_cam, obs_pt = per_cam.idx, per_pt.idx
     res = reproj.project_jacobians(cam[obs_cam], pts[obs_pt], obs_uv,
                                    fx, fy, cx, cy)
@@ -76,13 +86,16 @@ def _linearize(cam, pts, per_cam, per_pt, obs_uv, obs_isig2, obs_wf,
     Jc, Jp = res.J_pose, res.J_point
     JcT_w = Jc.transpose(1, 2) * w[:, None, None]          # (O, 6, 2)
     JpT_w = Jp.transpose(1, 2) * w[:, None, None]          # (O, 3, 2)
-    return _Linearized(
-        hcc=per_cam(JcT_w @ Jc),
-        gc=per_cam((JcT_w @ r[..., None])[..., 0]),
-        hpp=per_pt(JpT_w @ Jp),
-        gp=per_pt((JpT_w @ r[..., None])[..., 0]),
-        W=JcT_w @ Jp,
-        cost=_rho(c2, z, obs_wf, use_huber).sum())
+    # the cost is closed with the camera blocks, before any accept test
+    # reads it: a shard deciding on its own cost would let the
+    # replicated cameras diverge
+    hcc, gc, cost = psum((per_cam(JcT_w @ Jc),
+                          per_cam((JcT_w @ r[..., None])[..., 0]),
+                          _rho(c2, z, obs_wf, use_huber).sum()))
+    hpp, gp = psum_pt((per_pt(JpT_w @ Jp),
+                       per_pt((JpT_w @ r[..., None])[..., 0])))
+    return _Linearized(hcc=hcc, gc=gc, hpp=hpp, gp=gp, W=JcT_w @ Jp,
+                       cost=cost)
 
 
 def _inv3_sym(h):
@@ -105,7 +118,7 @@ def _inv3_sym(h):
 
 
 def _solve_step(lin: _Linearized, per_cam, per_pt, lam, fixed_cam,
-                cg_iters):
+                cg_iters, psum, psum_pt):
     """One damped Schur + PCG solve -> (delta_c (K, 6), delta_p (P, 3))."""
     K = lin.hcc.shape[0]
     free = ~fixed_cam
@@ -125,10 +138,11 @@ def _solve_step(lin: _Linearized, per_cam, per_pt, lam, fixed_cam,
     obs_cam, obs_pt = per_cam.idx, per_pt.idx
 
     def W_x(x):        # per obs W^T x(cam) -> scatter to points
-        return per_pt((W.transpose(1, 2) @ x[obs_cam][..., None])[..., 0])
+        return psum_pt(per_pt(
+            (W.transpose(1, 2) @ x[obs_cam][..., None])[..., 0]))
 
     def Wt_z(z):       # per obs W z(point) -> scatter to cameras
-        return per_cam((W @ z[obs_pt][..., None])[..., 0])
+        return psum(per_cam((W @ z[obs_pt][..., None])[..., 0]))
 
     def hinv(v):
         return (hpp_inv @ v[..., None])[..., 0]
@@ -140,7 +154,7 @@ def _solve_step(lin: _Linearized, per_cam, per_pt, lam, fixed_cam,
         return torch.where(free[:, None], out, x)
 
     # block-Jacobi preconditioner: the exact Schur diagonal blocks
-    whw = per_cam(W @ hpp_inv[obs_pt] @ W.transpose(1, 2))
+    whw = psum(per_cam(W @ hpp_inv[obs_pt] @ W.transpose(1, 2)))
     S_diag = torch.where(free[:, None, None], hcc_d - whw,
                          eye6.expand(K, 6, 6))
     M_inv = torch.linalg.inv(S_diag + 1e-8 * eye6)
@@ -166,13 +180,21 @@ def _solve_step(lin: _Linearized, per_cam, per_pt, lam, fixed_cam,
     return delta_c, delta_p
 
 
-def bundle_adjust(cam_Tcw, points, obs_cam, obs_pt, obs_uv, obs_isig2,
-                  obs_valid, fixed_cam, fx: float, fy: float, cx: float,
-                  cy: float, iters: int = 10, cg_iters: int = 20,
-                  use_huber: bool = True) -> BAResult:
-    """Single-device full BA.  cam_Tcw (K, 4, 4), points (P, 3), obs_*
-    (O,) per observation (camera row, point row, uv, 1/sigma^2, valid),
-    fixed_cam (K,) bool."""
+def bundle_adjust_core(cam_Tcw, points, obs_cam, obs_pt, obs_uv,
+                       obs_isig2, obs_valid, fixed_cam, fx: float,
+                       fy: float, cx: float, cy: float, iters: int = 10,
+                       cg_iters: int = 20, use_huber: bool = True,
+                       psum: Callable = _identity_psum,
+                       psum_pt: Callable | None = None) -> BAResult:
+    """LM iteration loop shared by the single-device and the sharded BA.
+
+    ``psum`` closes the camera-indexed sums and the cost over the shards
+    of an observation-sharded problem; ``psum_pt`` the point-indexed
+    ones: the identity when each shard holds its points' whole state
+    (``distributed_bundle_adjust_sharded_points``); defaults to
+    ``psum``."""
+    if psum_pt is None:
+        psum_pt = psum
     obs_wf = obs_valid.to(points.dtype)
     obs_cam, obs_pt = obs_cam.long(), obs_pt.long()
     per_cam = IndexSum(obs_cam, cam_Tcw.shape[0])
@@ -180,13 +202,14 @@ def bundle_adjust(cam_Tcw, points, obs_cam, obs_pt, obs_uv, obs_isig2,
 
     def lin_at(cam, pts):
         return _linearize(cam, pts, per_cam, per_pt, obs_uv, obs_isig2,
-                          obs_wf, fx, fy, cx, cy, use_huber)
+                          obs_wf, fx, fy, cx, cy, use_huber, psum, psum_pt)
 
     cam, pts = cam_Tcw, points
     lin = lin_at(cam, pts)
     lam = torch.tensor(1e-4, dtype=points.dtype, device=points.device)
     for _ in range(iters):
-        dc, dp = _solve_step(lin, per_cam, per_pt, lam, fixed_cam, cg_iters)
+        dc, dp = _solve_step(lin, per_cam, per_pt, lam, fixed_cam, cg_iters,
+                             psum, psum_pt)
         cam_new = se3.exp(dc) @ cam
         pts_new = pts + dp
         lin_new = lin_at(cam_new, pts_new)
@@ -202,4 +225,18 @@ def bundle_adjust(cam_Tcw, points, obs_cam, obs_pt, obs_uv, obs_isig2,
     c2 = reproj.chi2(res.r, obs_isig2)
     inlier = obs_valid & (c2 <= CHI2_MONO) & (res.depth > 0)
     return BAResult(cam_Tcw=cam, points=pts, obs_inlier=inlier,
-                    final_cost=_rho(c2, res.depth, obs_wf, use_huber).sum())
+                    final_cost=psum(_rho(c2, res.depth, obs_wf,
+                                         use_huber).sum()))
+
+
+def bundle_adjust(cam_Tcw, points, obs_cam, obs_pt, obs_uv, obs_isig2,
+                  obs_valid, fixed_cam, fx: float, fy: float, cx: float,
+                  cy: float, iters: int = 10, cg_iters: int = 20,
+                  use_huber: bool = True) -> BAResult:
+    """Single-device full BA.  cam_Tcw (K, 4, 4), points (P, 3), obs_*
+    (O,) per observation (camera row, point row, uv, 1/sigma^2, valid),
+    fixed_cam (K,) bool."""
+    return bundle_adjust_core(
+        cam_Tcw, points, obs_cam, obs_pt, obs_uv, obs_isig2, obs_valid,
+        fixed_cam, fx, fy, cx, cy, iters=iters, cg_iters=cg_iters,
+        use_huber=use_huber)

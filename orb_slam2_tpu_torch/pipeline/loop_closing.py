@@ -19,8 +19,9 @@ mapper's locked section, with the reference's thresholds:
 The searches and solvers run on the map store's device; the few
 single-Sim3 compositions run on the host.  RANSAC samples come from a
 seeded ``numpy.random.Generator`` (seed 0, as the JAX package's).
-Global BA is the single-device solve (the JAX package shards it over a
-device mesh when it has several devices; that branch is not ported).
+Global BA shards its point state over the runtime's local devices when
+there are several (``parallel.local_devices``), as the JAX package
+does over ``jax.devices()``.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from .. import parallel
 from ..geom import sim3 as sim3_mod
 from ..matching import search
 from ..models.mapstore import MapStore
@@ -97,6 +99,11 @@ class LoopCloser:
             cfg.orb.n_levels, cfg.orb.scale_factor)[0].astype(np.float32)
         self.log_scale = float(np.log(cfg.orb.scale_factor))
         self._rng = np.random.default_rng(0)
+
+    def reset(self):
+        self.last_loop_kf_id = 0
+        self.consistent_groups = []
+        self.pr = PlaceRecognition(self.store, vocab=self.pr.vocab)
 
     def _t(self, a, dtype=None) -> torch.Tensor:
         """Host array -> tensor on the map store's device."""
@@ -663,16 +670,29 @@ class LoopCloser:
         fx, fy, cx, cy = self._cam_tuple
         eye = np.broadcast_to(np.eye(4, dtype=np.float32),
                               (Kp - len(kids), 4, 4))
-        res = ba.bundle_adjust(
-            self._t(np.concatenate([poses, eye]).astype(np.float32)),
-            self._t(np.pad(points0, ((0, P - len(pids)), (0, 0)))),
-            self._t(np.pad(obs_kf, (0, O - no))),
-            self._t(np.pad(obs_pt, (0, O - no))),
-            self._t(np.pad(obs_uv, ((0, O - no), (0, 0)))),
-            self._t(np.pad(obs_sig, (0, O - no))),
-            self._t(np.pad(np.ones(no, bool), (0, O - no))),
-            self._t(np.pad(fixed, (0, Kp - len(kids)), constant_values=True)),
-            fx, fy, cx, cy, iters=iters, cg_iters=30, use_huber=True)
+        devices = parallel.local_devices(store.device)
+        if len(devices) > 1:
+            # memory-scaling variant: the POINT state (and Hpp, gp, the
+            # deltas) sharded over the devices with the observations
+            # colocated, so the map can outgrow one device
+            res = parallel.distributed_bundle_adjust_sharded_points(
+                parallel.make_mesh(devices),
+                np.concatenate([poses, eye]).astype(np.float32),
+                points0, obs_kf, obs_pt, obs_uv, obs_sig,
+                np.ones(no, bool),
+                np.pad(fixed, (0, Kp - len(kids)), constant_values=True),
+                fx, fy, cx, cy, iters=iters, cg_iters=30, use_huber=True)
+        else:
+            res = ba.bundle_adjust(
+                self._t(np.concatenate([poses, eye]).astype(np.float32)),
+                self._t(np.pad(points0, ((0, P - len(pids)), (0, 0)))),
+                self._t(np.pad(obs_kf, (0, O - no))),
+                self._t(np.pad(obs_pt, (0, O - no))),
+                self._t(np.pad(obs_uv, ((0, O - no), (0, 0)))),
+                self._t(np.pad(obs_sig, (0, O - no))),
+                self._t(np.pad(np.ones(no, bool), (0, O - no))),
+                self._t(np.pad(fixed, (0, Kp - len(kids)), constant_values=True)),
+                fx, fy, cx, cy, iters=iters, cg_iters=30, use_huber=True)
         new_poses = res.cam_Tcw.cpu().numpy()
         new_pts = res.points.cpu().numpy()
         for i, k in enumerate(kids):

@@ -119,6 +119,13 @@ class PlaceRecognition:
             self.db.erase(kid)
         self.bow.pop(kid, None)
 
+    def frame_bow(self, desc: np.ndarray, valid: np.ndarray) -> Optional[dict]:
+        """A frame's BoW vector from its host descriptors ((N, 8) uint32
+        words, (N,) bool) by the host descent."""
+        if self.vocab is None:
+            return None
+        return self.vocab.bow_vector(desc, valid)
+
     def frame_bow_f(self, frame) -> Optional[dict]:
         """A frame's BoW vector by the device descent (also caches the
         frame's node ids for the SearchByBoW that follows)."""

@@ -1,19 +1,22 @@
-"""Synthetic planar world for tests and benchmarks, in torch.
+"""Synthetic worlds for tests and benchmarks, in torch.
 
-Port of the planar parts of ``orb_slam2_tpu/utils/synth.py``: a large
-textured ground plane (z = 0) observed by a downward-looking camera
-sweep (the aerial geometry of the reference's shenzhen workload,
-Examples/Monocular/mono_shenzhen.cc) or a closed circuit for loop
-closing.  Views are exact plane-induced
+Port of ``orb_slam2_tpu/utils/synth.py``: a large textured ground plane
+(z = 0) observed by a downward-looking camera sweep (the aerial geometry
+of the reference's shenzhen workload, Examples/Monocular/mono_shenzhen.cc)
+or a closed circuit for loop closing.  Views are exact plane-induced
 homography warps of the texture, so ground-truth poses and structure
-are exact.
+are exact.  ``HeightWorld`` puts a smooth height field under the same
+texture, for true parallax.
 
-The JAX package builds the texture and renders with OpenCV; the port
-needs none: the texture layers are numpy-seeded grids upsampled with
-bicubic ``torch.nn.functional.interpolate``, and the renderer is the
-bilinear, border-clamped homography warp of the JAX package's
-``_render_plane_jit``, on any torch device.  The same seed gives a
-texture close to, but not identical with, the JAX package's.
+The JAX package builds the textures and height maps with OpenCV's cubic
+resize and renders with ``cv2.warpPerspective`` / ``cv2.remap``; the
+port needs none: the layers are numpy-seeded grids upsampled with
+bicubic ``torch.nn.functional.interpolate`` (the same a = -0.75 kernel
+and half-pixel centres), and the renderers are bilinear, border-clamped
+gathers (the JAX package's ``_render_plane_jit``; OpenCV's remap weighs
+with 5-bit fixed-point weights instead), on any torch device.  The same
+seed gives a texture close to, but not identical with, the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -106,6 +109,17 @@ def render(world: PlanarWorld, cam: Intrinsics, Tcw: np.ndarray) -> torch.Tensor
     return out.clamp(0.0, 255.0).to(torch.uint8)
 
 
+def render_sequence_device(world: PlanarWorld, cam: Intrinsics,
+                           poses: List[np.ndarray]) -> List[torch.Tensor]:
+    """Render a pose sequence on the texture's device as uint8 frames:
+    the texture is quantized to uint8 once (as the JAX package uploads
+    it), then each frame is one warp (:func:`render`) on the device."""
+    tex_q = world.texture.clamp(0.0, 255.0).to(torch.uint8).float()
+    quantized = PlanarWorld(texture=tex_q, scale=world.scale,
+                            origin=world.origin)
+    return [render(quantized, cam, T) for T in poses]
+
+
 def aerial_trajectory(
     n_frames: int,
     height: float = 10.0,
@@ -159,3 +173,111 @@ def loop_trajectory(n_frames: int, radius: float = 8.0,
         T[:3, 3] = -Rcw @ c
         poses.append(T.astype(np.float32))
     return poses
+
+
+@dataclass
+class HeightWorld:
+    """Non-planar world: the textured ground carries a smooth height
+    field z = h(X, Y) (amplitude a real fraction of the flight height),
+    so triangulation, scale gates and BA face true parallax instead of a
+    degenerate plane."""
+    texture: torch.Tensor    # (Ht, Wt) float32 appearance
+    heights: torch.Tensor    # (Hh, Wh) float32 z of the ground at (X, Y)
+    scale: float             # texture pixels per world unit
+    h_scale: float           # height-map pixels per world unit
+    origin: np.ndarray       # (2,) texture pixel of world (0, 0)
+    h_origin: np.ndarray     # (2,) height pixel of world (0, 0)
+
+    def height_at(self, X, Y):
+        """Bilinear height lookup at world (X, Y), vectorized, on the
+        height map's device; numpy in, numpy out."""
+        as_np = not isinstance(X, torch.Tensor)
+        h = self.heights
+        X = torch.as_tensor(X, device=h.device)
+        Y = torch.as_tensor(Y, device=h.device)
+        u = (X * self.h_scale + float(self.h_origin[0])).clamp(
+            0, h.shape[1] - 1.001)
+        v = (Y * self.h_scale + float(self.h_origin[1])).clamp(
+            0, h.shape[0] - 1.001)
+        u0, v0 = u.long(), v.long()
+        fu, fv = u - u0, v - v0
+        out = ((h[v0, u0] * (1 - fu) + h[v0, u0 + 1] * fu) * (1 - fv)
+               + (h[v0 + 1, u0] * (1 - fu) + h[v0 + 1, u0 + 1] * fu) * fv)
+        return out.cpu().numpy() if as_np else out
+
+
+def make_height_world(seed: int = 0, tex_size: int = 3072,
+                      scale: float = 60.0, height_amp: float = 1.5,
+                      h_size: int = 768, h_cells: int = 28,
+                      device="cuda") -> HeightWorld:
+    """Textured ground with a smooth random height field (amplitude
+    ``height_amp`` world units, ~15% of the default flight height), on
+    ``device``."""
+    base = make_world(seed=seed, tex_size=tex_size, scale=scale,
+                      device=device)
+    rng = np.random.default_rng(seed + 12345)
+    h = torch.as_tensor(rng.uniform(-1, 1, (h_cells, h_cells))
+                        .astype(np.float32), device=device)
+    h = F.interpolate(h[None, None], size=(h_size, h_size), mode="bicubic",
+                      align_corners=False)[0, 0]
+    h = height_amp * h / torch.clamp(h.abs().max(), min=1e-9)
+    h_scale = h_size / (tex_size / scale)   # cover the same world extent
+    return HeightWorld(
+        texture=base.texture, heights=h, scale=scale, h_scale=h_scale,
+        origin=base.origin,
+        h_origin=np.array([h_size / 2, h_size / 2], np.float32))
+
+
+def _bilinear_clamped(img: torch.Tensor, x: torch.Tensor,
+                      y: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of ``img`` at (x, y), indices clamped to the
+    border (OpenCV's INTER_LINEAR with BORDER_REPLICATE, in float)."""
+    h, w = img.shape
+    x0f, y0f = x.floor(), y.floor()
+    fx, fy = x - x0f, y - y0f
+    x0 = x0f.long().clamp(0, w - 1)
+    y0 = y0f.long().clamp(0, h - 1)
+    x1 = (x0f.long() + 1).clamp(0, w - 1)
+    y1 = (y0f.long() + 1).clamp(0, h - 1)
+    return ((1 - fy) * ((1 - fx) * img[y0, x0] + fx * img[y0, x1])
+            + fy * ((1 - fx) * img[y1, x0] + fx * img[y1, x1]))
+
+
+def render_height(world: HeightWorld, cam: Intrinsics, Tcw: np.ndarray,
+                  iters: int = 6) -> torch.Tensor:
+    """Render the height-field ground from pose Tcw as an (H, W) float32
+    tensor on the texture's device, by a per-pixel ray against the
+    height field (fixed-point iteration: t_{k+1} solves the ray against
+    the height sampled at t_k's footprint; it converges in a few steps
+    for |grad h| << 1, which make_height_world guarantees).  Exact
+    parallax, approximate silhouettes.  Rays that do not look toward
+    the ground are grey (127)."""
+    dev = world.texture.device
+    K = np.asarray(cam.K, np.float32)
+    Tcw = np.asarray(Tcw, np.float32)
+    Rwc = torch.as_tensor(Tcw[:3, :3].T.copy(), device=dev)
+    c = (-Tcw[:3, :3].T @ Tcw[:3, 3]).astype(np.float32).tolist()
+    v, u = torch.meshgrid(
+        torch.arange(cam.height, dtype=torch.float32, device=dev),
+        torch.arange(cam.width, dtype=torch.float32, device=dev),
+        indexing="ij")
+    rays = torch.stack([(u - float(K[0, 2])) / float(K[0, 0]),
+                        (v - float(K[1, 2])) / float(K[1, 1]),
+                        torch.ones_like(u)], dim=-1).reshape(-1, 3)
+    d = rays @ Rwc.T                          # world ray directions
+    dz = d[:, 2]
+    safe = dz > 1e-6                          # looking toward the ground
+    dz = torch.where(safe, dz, torch.ones_like(dz))
+    tt = (0.0 - c[2]) / dz                    # init: the z = 0 plane
+    for _ in range(iters):
+        X = c[0] + tt * d[:, 0]
+        Y = c[1] + tt * d[:, 1]
+        tt = (world.height_at(X, Y) - c[2]) / dz
+    X = c[0] + tt * d[:, 0]
+    Y = c[1] + tt * d[:, 1]
+    th, tw = world.texture.shape
+    tx = (X * world.scale + float(world.origin[0])).clamp(0, tw - 1)
+    ty = (Y * world.scale + float(world.origin[1])).clamp(0, th - 1)
+    img = _bilinear_clamped(world.texture, tx, ty)
+    img = torch.where(safe, img, torch.full_like(img, 127.0))
+    return img.reshape(cam.height, cam.width)

@@ -750,3 +750,172 @@ def test_cli_run_on_card(cuda, tmp_path, capsys):
     assert abs(len(pts["cuda"]) - len(pts["cpu"])) <= 0.1 * len(pts["cpu"])
     assert np.isfinite(pts["cuda"]).all()
     assert np.median(np.abs(pts["cuda"][:, 2])) < 0.08
+
+
+def _ba_scene(seed=8, n_cams=6, n_pts=300):
+    """test_optim.make_scene's BA problem in numpy (no jax here): noisy
+    observations, cameras 2.. and every point perturbed, two fixed."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-3, -3, 6], [3, 3, 14], (n_pts, 3)).astype(np.float32)
+    cams, oc, op, ouv = [], [], [], []
+    for i in range(n_cams):
+        T = se3.exp(torch.tensor([-0.4 * i, 0.02 * i, 0.01 * i]
+                                 + rng.normal(0, 0.03, 3).tolist())).numpy()
+        cams.append(T.astype(np.float32))
+        pc = pts @ T[:3, :3].T + T[:3, 3]
+        uv = pc[:, :2] / pc[:, 2:] * 500.0 + [320.0, 240.0]
+        vis = np.where((pc[:, 2] > 0) & (uv[:, 0] > 0) & (uv[:, 0] < 640)
+                       & (uv[:, 1] > 0) & (uv[:, 1] < 480))[0]
+        oc += [i] * len(vis)
+        op += vis.tolist()
+        ouv += (uv[vis] + rng.normal(0, 0.2, (len(vis), 2))).tolist()
+    cams = np.stack(cams)
+    for c in range(2, n_cams):
+        cams[c] = se3.exp(torch.tensor(rng.normal(0, 0.02, 6),
+                                       dtype=torch.float32)).numpy() @ cams[c]
+    pts = pts + rng.normal(0, 0.1, pts.shape).astype(np.float32)
+    fixed = np.zeros(n_cams, bool)
+    fixed[:2] = True
+    n = len(oc)
+    return (cams, pts, np.array(oc, np.int32), np.array(op, np.int32),
+            np.array(ouv, np.float32), np.ones(n, np.float32),
+            np.ones(n, bool), fixed)
+
+
+@pytest.mark.gpu
+def test_distributed_solvers_two_shards_on_card(cuda):
+    """The observation- and point-sharded BA and the edge-sharded pose
+    graph on two shards of one card against the single-device solves
+    on the card.  Bars: tests/test_parallel.py's (poses 2e-4, points
+    2e-3, cost rtol 1e-3, inliers equal), or 4x the gap between the
+    card's and the CPU's single-device BA (sums in another order only)
+    where that is larger, as chip_smoke.py's path F: on the card this
+    scene's poses move 1.9e-4 with the sum order alone.  The pose
+    graph's sharded solve is no further from the float64 solve than
+    twice the single device's distance plus 2e-4: on the card the two
+    float32 solves part by 6.7e-4 (an LM accept flips with the sum
+    order) and the float32 solve lies ~1e-3 from the float64 one.  The
+    replicated cameras and vertices are bitwise equal on both
+    shards."""
+    from orb_slam2_tpu_torch import parallel
+    from orb_slam2_tpu_torch.geom import sim3
+    from orb_slam2_tpu_torch.optim import ba, pose_graph
+
+    class Mesh(parallel.LocalMesh):
+        def run(self, body):
+            self.results = super().run(body)
+            return self.results
+
+    args = _ba_scene()
+    single = ba.bundle_adjust(*[torch.as_tensor(a, device=cuda)
+                                for a in args], 500.0, 500.0, 320.0, 240.0,
+                              iters=10, cg_iters=30)
+    cpu = ba.bundle_adjust(*[torch.as_tensor(a) for a in args], 500.0,
+                           500.0, 320.0, 240.0, iters=10, cg_iters=30)
+
+    def gap(a, b):
+        return float((a.cpu() - b.cpu()).abs().max())
+    # the card's single solve against the CPU's: sums in another order
+    order = dict(poses=gap(single.cam_Tcw, cpu.cam_Tcw),
+                 points=gap(single.points, cpu.points))
+    for fn in (parallel.distributed_bundle_adjust,
+               parallel.distributed_bundle_adjust_sharded_points):
+        mesh = Mesh([cuda, cuda])
+        res = fn(mesh, *args, 500.0, 500.0, 320.0, 240.0, iters=10,
+                 cg_iters=30)
+        assert res.cam_Tcw.is_cuda
+        cams = [r.cam_Tcw for r in mesh.results.values()]
+        assert torch.equal(cams[0], cams[1])
+        got = dict(poses=gap(res.cam_Tcw, single.cam_Tcw),
+                   points=gap(res.points, single.points))
+        assert got["poses"] < max(2e-4, 4 * order["poses"]) \
+            and got["points"] < max(2e-3, 4 * order["points"]), (
+                fn.__name__, got, "card against CPU:", order)
+        assert torch.equal(res.obs_inlier.cpu(), single.obs_inlier.cpu())
+        np.testing.assert_allclose(float(res.final_cost),
+                                   float(single.final_cost), rtol=1e-3)
+
+    # a drifted ring of 30 Sim3 vertices closed by one loop edge
+    rng = np.random.default_rng(2)
+    K = 30
+    gt = []
+    for i in range(K):
+        th = 2 * np.pi * i / K
+        T = se3.from_rt(
+            se3.so3_exp(torch.tensor([0.0, 0.0, -th])),
+            torch.tensor([-5.0, 0.0, 0.0])).float()
+        gt.append(sim3.from_se3(T))
+    ei, ej, meas, noisy = [], [], [], [gt[0]]
+    for i in range(K - 1):
+        xi = torch.tensor(rng.normal(0, 0.005, 6).tolist() + [np.log(1.025)],
+                          dtype=torch.float32)
+        Sji = sim3.compose(sim3.exp(xi),
+                           sim3.compose(gt[i + 1], sim3.inv(gt[i])))
+        ei.append(i)
+        ej.append(i + 1)
+        meas.append(Sji)
+        noisy.append(sim3.compose(Sji, noisy[-1]))
+    ei.append(K - 1)
+    ej.append(0)
+    meas.append(sim3.compose(gt[0], sim3.inv(gt[K - 1])))
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    pargs = (torch.stack(noisy).numpy(), np.array(ei, np.int32),
+             np.array(ej, np.int32), torch.stack(meas).numpy(),
+             np.ones(K, np.float32), fixed)
+    psingle = pose_graph.optimize_pose_graph(
+        *[torch.as_tensor(a, device=cuda) for a in pargs], iters=30,
+        cg_iters=40)
+    # the same solve in float64 on the CPU: the float32 solves' common
+    # reference (this ring's LM accepts flip with the sum order, and its
+    # float32 and float64 solutions lie ~1e-3 apart)
+    p64 = pose_graph.optimize_pose_graph(
+        *[torch.as_tensor(a).double() if a.dtype == np.float32
+          else torch.as_tensor(a) for a in pargs], iters=30, cg_iters=40)
+    mesh = Mesh([cuda, cuda])
+    pres = parallel.distributed_pose_graph(mesh, *pargs, iters=30,
+                                           cg_iters=40)
+    sims = [r.sims for r in mesh.results.values()]
+    assert torch.equal(sims[0], sims[1])
+    err_single, err_sharded = gap(psingle.sims, p64.sims), gap(pres.sims,
+                                                               p64.sims)
+    assert err_sharded < 2 * err_single + 2e-4, (
+        err_sharded, "single device:", err_single,
+        "sharded against single:", gap(pres.sims, psingle.sims))
+    np.testing.assert_allclose(float(pres.final_cost),
+                               float(psingle.final_cost), rtol=1e-3,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_viewer_png_of_a_card_frame(cuda):
+    """draw_frame on a card image and frame (device tensors read back on
+    the drawing thread) equals the drawing of their host copies, and the
+    PNG bytes decode to it."""
+    import struct
+    import zlib
+    from orb_slam2_tpu_torch.utils import viz
+    cfg = SlamConfig(cam=Intrinsics(fx=450.0, fy=450.0, cx=320.0, cy=240.0,
+                                    width=640, height=480),
+                     orb=OrbParams(n_features=800, n_levels=4), fps=10.0,
+                     pose_prior=True, init_min_matches=60,
+                     init_min_triangulated=40, init_min_tracked_after_ba=60)
+    system = System(cfg, enable_loop_closing=False, device=cuda)
+    world = synth.make_world(seed=3, device=cuda)
+    frame = None
+    for i, T in enumerate(synth.aerial_trajectory(4, speed=0.3)):
+        img = synth.render(world, cfg.cam, T)
+        frame = system.track_monocular_with_pose(img, i * 0.1, T)
+    assert img.is_cuda
+    rgb = viz.draw_frame(img, frame, store=system.store)
+    host = viz.draw_frame(img.cpu().numpy(), frame, store=system.store)
+    np.testing.assert_array_equal(rgb, host)
+    assert (rgb == [0, 255, 0]).all(-1).sum() > 0
+    data = viz.encode_png(rgb, text="t")
+    w, h = struct.unpack(">II", data[16:24])
+    idat = data.index(b"IDAT")
+    n, = struct.unpack(">I", data[idat - 4:idat])
+    raw = np.frombuffer(zlib.decompress(data[idat + 4:idat + 4 + n]),
+                        np.uint8).reshape(h, 1 + 3 * w)
+    np.testing.assert_array_equal(raw[:, 1:].reshape(h, w, 3), rgb)
+    system.shutdown()

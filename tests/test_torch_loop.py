@@ -19,7 +19,7 @@ from orb_slam2_tpu.optim import (ba as jba, pose_graph as jpg,
                                  reproj as jreproj, sim3_opt as jso,
                                  sim3_ransac as jsr)
 from orb_slam2_tpu.pipeline import SlamConfig as JSlamConfig, System as JSystem
-from orb_slam2_tpu_torch import interop
+from orb_slam2_tpu_torch import interop, parallel
 from orb_slam2_tpu_torch.geom import horn as thorn, se3 as tse3, sim3 as tsim3
 from orb_slam2_tpu_torch.geom.camera import Intrinsics
 from orb_slam2_tpu_torch.ops.extractor import OrbParams
@@ -412,15 +412,19 @@ def _rotation(T):
     return U @ Vt
 
 
-def test_correct_loop_from_one_state(circuit):
+def test_correct_loop_from_one_state(circuit, monkeypatch):
     """The port's _correct_loop (group correction, loop fuse, essential
     graph, global BA) on the JAX store and vocabulary as they stood at
     the JAX run's first loop, with its arguments.  The JAX test process
-    has 8 CPU devices, so its global BA took the sharded branch, which
-    sums in another order than the single-device solve.  Bars: KF
-    translations within 1e-2, rotations within 1e-3 rad, >= 95% of the
-    points valid in both within 1e-2."""
+    has 8 CPU devices, so its global BA took the sharded branch; the
+    port's takes its own sharded branch here, over 8 CPU shards
+    (``parallel.local_devices`` patched).  Bars: KF translations within
+    2e-3 (measured 6.4e-4), rotations within 1e-3 rad, >= 99% of the
+    points valid in both within 2e-3 (measured 5.2e-4 at the 99th
+    percentile)."""
     rec = circuit["rec"]
+    monkeypatch.setattr(parallel, "local_devices",
+                        lambda device: [torch.device("cpu")] * 8)
     store = interop.mapstore_from_numpy(**rec["before"], device="cpu")
     pr = PlaceRecognition(store, vocab=interop.vocabulary_from_numpy(
         **rec["vocab"]))
@@ -437,7 +441,7 @@ def test_correct_loop_from_one_state(circuit):
         dt = np.abs(kf.Tcw[:3, 3] - ref["Tcw"][:3, 3]).max()
         dR = _rotation(kf.Tcw) @ _rotation(ref["Tcw"]).T
         ang = np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))
-        assert dt < 1e-2 and ang < 1e-3, (kf.kid, dt, ang)
+        assert dt < 2e-3 and ang < 1e-3, (kf.kid, dt, ang)
         assert np.abs(kf.Tcw[:3, :3] - ref["Tcw"][:3, :3]).max() < 1e-3
         assert kf.loop_edges == ref["loop_edges"]
     assert n_valid > 10
@@ -448,4 +452,4 @@ def test_correct_loop_from_one_state(circuit):
     assert both.sum() >= 0.95 * jv.sum()
     d = np.abs(np.asarray(store.mp_pos)[:n][both]
                - after["points"]["mp_pos"][:n][both]).max(1)
-    assert (d < 1e-2).mean() >= 0.95, np.quantile(d, [0.5, 0.95])
+    assert (d < 2e-3).mean() >= 0.99, np.quantile(d, [0.5, 0.99])
