@@ -14,18 +14,35 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      also with no valid column and past 4096 columns), bit-exact, with
      CUDA-event times of both and the least time the card could take
      (``bound_ms``);
+  G. the CUDA graphs (``graphs.py``, the counterpart of the JAX
+     package's ``jax.jit``) at bench shape on path A's world:
+     ``FrameFactory.start`` replayed from a graph against the eager
+     extraction and undistortion, bit for bit in every field over 3
+     frames, each frame's device arrays unchanged after the next is
+     extracted; ``make_extractor`` against ``extract``; then, on a warm
+     tracker (12 frames pipelined at depth 3), both forms of the fused
+     pose-prior step (the device chain and the host-prepared step)
+     replayed against their eager calls, bit for bit; prints captures
+     and replays per function;
   3. path A, bench.py's configuration: ``System(cfg,
      enable_loop_closing=True, async_mapping=True)`` with
      ``pipelined_tracking`` at depth 3 tracks a 40-frame 1920x1440 aerial
      sweep with 4000 ORB features on 8 levels through
-     ``track_monocular_with_pose(..., next_image=)`` after a
-     ``prefetch`` of the first frame, and ends with ``flush_tracking``,
-     while local mapping and loop detection run on the mapping thread;
-     no synchronization per frame.  Checks tracking, that nothing is left
-     in flight, map quality, the vocabulary and BoW database, that K1-K3
-     launched and K1 once a frame plus once per prefetch that was
-     discarded; prints fps as bench.py measures it, the searches'
-     launches by shape and the synchronizations of one extraction;
+     ``track_monocular_with_pose(..., next_image=)``: bench.py's 16
+     warm-up frames, each followed by ``flush_mapping``, then 24
+     measured frames after a ``prefetch`` of the first, ending with
+     ``flush_tracking``, while local mapping and loop detection run on
+     the mapping thread; no synchronization per measured frame (the
+     graphed tracker outruns the mapper: unpaced from the first frame
+     on an H100, the map got 3 keyframes in 40 frames).  Checks
+     tracking, that nothing is left in flight, map quality, the
+     vocabulary and BoW database, that K1-K3 launched and K1 once a
+     frame plus once per prefetch that was discarded; prints fps as
+     bench.py measures it,
+     the searches' launches by shape, the synchronizations of one
+     extraction, the graphs' captures and replays, and the host
+     synchronizations of the extractions and fused dispatches of each
+     frame (bar: none on a steady frame, one without a capture);
   4. path A-seq: path A with ``pipelined_tracking=False``, for its fps
      and frame times beside path A's on the same card;
   5. path C: K4 through its entry point ``hamming_top2`` at 4096x4096
@@ -78,10 +95,14 @@ describing the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 
 Four diagnostics print no such lines: ``--profile`` runs path A alone
-(pipelined) with torch.profiler over a window of frames, ``--repeat-a``
+(pipelined) with torch.profiler over a window of frames (the card's
+busy share; each thread's kernel and graph launches, copies and waits
+for the card, and per frame), ``--repeat-a``
 runs paths A-seq, A, A, A-seq one after another for the spread of their
 fps and frame times, ``--repeat-b`` runs path B four times and says
-where the runs part, and ``--kernels-from DIR``
+where the runs part (``--tree DIR`` runs either of the first two with
+the port imported from the checkout DIR: a parent and its change under
+one script), and ``--kernels-from DIR``
 runs phases 1 and 2 alone with the port imported from DIR
 (``--gloo-worker`` is path F's own subprocess).  To compare
 two commits on one card, unpack the other one (``git archive``) into a
@@ -120,8 +141,15 @@ LOOP_REVISIT = 14       # frames of the lap flown again
 LOOP_RADIUS = 20.0      # world units
 LOOP_DRIFT = 0.02       # prior drift per frame, world units
 LOOP_MIN_OK = 0.7       # share of frames tracked OK
+# paths A and A-seq: bench.py's warm-up (BENCH_WARM), each frame
+# followed by flush_mapping; the frames after it are measured
+WARM_FRAMES = 16
 # path A with --profile: the frames recorded by torch.profiler
 PROFILE_FROM = 20
+# phase G: frames extracted through the graph and against eager, and the
+# frames tracked before the fused steps are compared on a warm state
+G_EXTRACT = 3
+G_TRACK = 12
 # path D: estimated-pose mode over path A's world.  50 frames leave at
 # least 6 keyframes (a loss then does not reset the map), which 40 may
 # not; the bars are tests/test_pipeline.py's TestEstimatedMode scaled
@@ -527,6 +555,17 @@ def device_window(trace_path: str, threads: dict) -> dict:
     for who, t in threads.items():
         for key in (t.native_id, t.ident, t.ident & 0xFFFFFFFF):
             names[key] = who
+    # the tracker launched torch.cuda._sleep (spin_kernel) when the
+    # window opened: its runtime call's thread is the tracker's, however
+    # the profiler numbered it
+    spin = {e.get("args", {}).get("correlation") for e in events
+            if e.get("cat") == "kernel" and "spin_kernel" in e.get("name", "")}
+    spin_tids = {e.get("tid") for e in events
+                 if e.get("cat") == "cuda_runtime"
+                 and e.get("args", {}).get("correlation") in spin}
+    if spin_tids:
+        names = {k: v for k, v in names.items() if v != "tracker"}
+        names.update({tid: "tracker" for tid in spin_tids})
     per = {}
     for e in events:
         if e.get("ph") != "X" or e.get("cat") != "cuda_runtime":
@@ -534,14 +573,19 @@ def device_window(trace_path: str, threads: dict) -> dict:
         tid = e.get("tid")
         who = names.get(tid, f"thread {tid}")
         d = per.setdefault(who, dict(sync_ms=0.0, copy_ms=0.0,
-                                     launch_ms=0.0, launches=0))
+                                     launch_ms=0.0, launches=0,
+                                     graph_launches=0, copies=0))
         n = e["name"]
         if "Synchronize" in n:
             d["sync_ms"] += e["dur"] / 1e3
-        elif "Memcpy" in n:
+        elif "Memcpy" in n or "Memset" in n:
             d["copy_ms"] += e["dur"] / 1e3
+            d["copies"] += 1
         elif "LaunchKernel" in n:
             d["launches"] += 1
+            d["launch_ms"] += e["dur"] / 1e3
+        elif "GraphLaunch" in n:
+            d["graph_launches"] += 1
             d["launch_ms"] += e["dur"] / 1e3
     return dict(busy_ms=busy_us / 1e3, n_device_spans=len(spans),
                 threads=per)
@@ -571,31 +615,158 @@ def extraction_syncs(system, image) -> list:
     return sites.most_common()
 
 
+class SyncCounter:
+    """The host synchronizations the main (tracking) thread makes inside
+    the calls it wraps, counted as :func:`extraction_syncs` counts them
+    (torch.cuda.set_sync_debug_mode("warn") while a wrapped call runs);
+    a warning raised on another thread (the mapper's) is not counted.
+    ``sites`` holds (file:line) -> count."""
+
+    def __init__(self):
+        import collections
+        self.count = 0
+        self.sites = collections.Counter()
+        self._inside = False
+
+    def _show(self, message, category, filename, lineno, *rest):
+        if (threading.current_thread() is threading.main_thread()
+                and "synchroniz" in str(message)):
+            self.count += 1
+            self.sites[f"{os.path.relpath(filename)}:{lineno}"] += 1
+
+    def wrap(self, fn):
+        import warnings
+        import torch
+
+        def counted(*args, **kwargs):
+            if self._inside:        # a wrapped call inside another
+                return fn(*args, **kwargs)
+            self._inside = True
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = self._show
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                    self._inside = False
+        return counted
+
+
+def phase_graphs(device, world, cfg) -> dict:
+    """Phase G, the CUDA graphs (``graphs.py``) at bench shape on path
+    A's world: ``FrameFactory.start`` (extraction and undistortion
+    replayed from a graph) against the eager extraction and
+    undistortion, bit for bit in every field, over G_EXTRACT frames,
+    each frame's arrays unchanged after the next one is extracted;
+    ``make_extractor`` against ``extract``; then path A's tracker
+    (pipelined at depth 3, sequential mapping) over G_TRACK frames, and
+    on that warm state both forms of the fused step (the device chain
+    and the host-prepared step) replayed twice against their eager
+    calls, bit for bit."""
+    import dataclasses
+    import torch
+    from orb_slam2_tpu_torch import graphs
+    from orb_slam2_tpu_torch.models.frame import FrameFactory
+    from orb_slam2_tpu_torch.ops import extractor as ex
+    from orb_slam2_tpu_torch.pipeline import tracking
+    from orb_slam2_tpu_torch.pipeline.system import System
+    from orb_slam2_tpu_torch.utils import synth
+    _, poses = bench_world(device)
+    frames = [synth.render(world, cfg.cam, T) for T in poses[:G_TRACK + 1]]
+    graphs.reset_stats()
+    factory = FrameFactory(cfg.cam, cfg.orb, device=device)
+    fields = (*ex.Features._fields, "undistorted xy")
+    kept = []
+    for i in range(G_EXTRACT):
+        feats, und, _ = factory.start(frames[i])
+        want = (*factory._extract(frames[i], False),)
+        torch.cuda.synchronize()
+        for name, a, b in zip(fields, (*feats, und), (*want[0], want[1])):
+            check(torch.equal(a, b), f"G: the graphed extraction of frame "
+                  f"{i} differs from the eager one in {name}")
+        for j, (arrays, copies) in enumerate(kept):
+            for name, a, b in zip(fields, arrays, copies):
+                check(torch.equal(a, b), f"G: frame {j}'s {name} changed "
+                      f"when frame {i} was extracted")
+        kept.append(((*feats, und), [t.clone() for t in (*feats, und)]))
+    h, w = frames[0].shape
+    run = ex.make_extractor(h, w, cfg.orb)
+    for i in range(2):
+        img = frames[i].float()
+        for name, a, b in zip(fields, run(img), ex.extract(img, cfg.orb)):
+            check(torch.equal(a, b), f"G: make_extractor differs from "
+                  f"extract on frame {i} in {name}")
+    log(f"G: FrameFactory.start bit-exact against the eager extraction "
+        f"over {G_EXTRACT} frames ({factory._pipeline.n_captures()} "
+        f"capture), earlier frames unchanged; make_extractor bit-exact")
+
+    cfg = dataclasses.replace(cfg, pipelined_tracking=True,
+                              pipeline_depth=PIPELINE_DEPTH)
+    system = System(cfg, enable_loop_closing=True, async_mapping=False,
+                    device=device)
+    system.prefetch(frames[0])
+    for i in range(G_TRACK):
+        system.track_monocular_with_pose(frames[i], i * 0.1, poses[i],
+                                         next_image=frames[i + 1])
+    tr = system.tracker
+    check(tr._chain is not None and tr._prep is not None,
+          "G: no live device chain after the warm-up frames")
+    frame = tr.factory.make(frames[G_TRACK], G_TRACK * 0.1,
+                            Tcw=poses[G_TRACK])
+    for chained, eager, graph in (
+            (True, tracking._track_prior_chain, tr._chain_step),
+            (False, tracking._prior_step_core, tr._prior_step)):
+        args = tr._fused_inputs(frame, chained=chained)
+        want = eager(*args)
+        for k in range(2):
+            got = graph(*args)
+            torch.cuda.synchronize()
+            for j, (a, b) in enumerate(zip(got, want)):
+                check(torch.equal(a, b), f"G: the graphed "
+                      f"{graph.name} differs from its eager call in output "
+                      f"{j} (call {k})")
+        log(f"G: {graph.name} (L={args[7].shape[0]}, candidates "
+            f"{args[13 if chained else 9].shape[0]}) bit-exact against "
+            f"its eager call, twice")
+    system.flush_tracking()
+    system.shutdown()
+    stats = {k: dict(v) for k, v in graphs.STATS.items()}
+    log(f"G: captures and replays per function {json.dumps(stats)}")
+    return stats
+
+
 def phase_bench(device, world, cfg, pipelined: bool = True,
                 profile: bool = False) -> dict:
     """Path A (``pipelined``): bench.py's configuration,
     System(enable_loop_closing=True, async_mapping=True) with
     ``pipelined_tracking`` at depth PIPELINE_DEPTH, driven as bench.py
-    drives it: ``prefetch`` of the first frame, ``next_image`` with each
+    drives it (bench.py:118-186): WARM_FRAMES warm-up frames, each call
+    with ``next_image`` and followed by ``flush_mapping``, then the
+    measured frames: ``prefetch`` of the first, ``next_image`` with each
     call, ``flush_tracking`` at the end; no synchronization per frame.
     Path A-seq: the same calls with ``pipelined_tracking=False``.  fps
-    as bench.py measures it: the frames from the first after
-    initialization over the time from the start of its call to the
-    return of ``flush_tracking``.  Frame times are each call's on the
-    host clock.  The tracker's time per frame is split by the main
-    thread's CPU clock: what it did not run on a CPU it spent blocked,
-    on the map lock (measured) or on the interpreter lock (the rest;
-    CUDA spins while it synchronizes when the process holds fewer
-    contexts than the host has cores, so synchronizations count as run
-    time).  ``profile`` records the card over frames PROFILE_FROM..
-    with torch.profiler and reads the device's busy share and each
-    thread's waits for the card."""
+    as bench.py measures it: the measured frames over the time from the
+    window's ``prefetch`` to the return of ``flush_tracking``.  Frame
+    times are each call's on the host clock.  The tracker's time per
+    frame is split by the main thread's CPU clock: what it did not run
+    on a CPU it spent blocked, on the map lock (measured) or on the
+    interpreter lock (the rest; CUDA spins while it synchronizes when
+    the process holds fewer contexts than the host has cores, so
+    synchronizations count as run time).  ``profile`` records the card
+    over frames PROFILE_FROM.. with torch.profiler and reads the
+    device's busy share and each thread's waits for the card."""
     import dataclasses
     import torch
     from orb_slam2_tpu_torch import kernels
     from orb_slam2_tpu_torch.pipeline.system import System
     from orb_slam2_tpu_torch.pipeline.tracking import TrackState
     from orb_slam2_tpu_torch.utils import synth
+    try:
+        from orb_slam2_tpu_torch import graphs
+    except ImportError:         # --tree: a checkout without graphs.py
+        graphs = None
     name = "A" if pipelined else "A-seq"
     cfg = dataclasses.replace(cfg, pipelined_tracking=pipelined,
                               pipeline_depth=PIPELINE_DEPTH)
@@ -631,20 +802,40 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
         return make(image, timestamp, Tcw=Tcw, init_mode=init_mode,
                     started=started)
     system.factory.make = make_counted
+    # the syncs of every extraction and fused dispatch, per frame
+    syncs = SyncCounter()
+    system.factory.start = syncs.wrap(system.factory.start)
+    system.tracker._fused_dispatch = syncs.wrap(
+        system.tracker._fused_dispatch)
+    frame_syncs, frame_captures = [], []
+
+    def captures():
+        return sum(v["captures"] for v in graphs.STATS.values()) \
+            if graphs else 0
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    if graphs:
+        graphs.reset_stats()
     states, starts, frame_ms, cpu_ms, lock_ms = [], [], [], [], []
     prof = None
-    system.prefetch(frames[0])
     for i, T in enumerate(poses):
         if profile and i == PROFILE_FROM:
             prof = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA])
             prof.start()
+            torch.cuda._sleep(1000)     # names the tracker's thread
+        if i == WARM_FRAMES:
+            t_window = time.perf_counter()
+            system.prefetch(frames[i])
         nxt = frames[i + 1] if i + 1 < len(frames) else None
+        if i + 1 == WARM_FRAMES:
+            nxt = None
+        n_sync, n_cap = syncs.count, captures()
         t0, c0, w0 = time.perf_counter(), time.thread_time(), clock.wait_s
         system.track_monocular_with_pose(frames[i], i * 0.1, T,
                                          next_image=nxt)
+        frame_syncs.append(syncs.count - n_sync)
+        frame_captures.append(captures() - n_cap)
         starts.append(t0)
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         cpu_ms.append((time.thread_time() - c0) * 1e3)
@@ -655,6 +846,8 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
             f"kfs={system.store.n_valid_keyframes():3d} "
             f"points={system.store.n_valid_points():6d} "
             f"{frame_ms[-1]:9.1f} ms")
+        if i < WARM_FRAMES:
+            system.flush_mapping()  # bench.py's deterministic warm-up
     system.flush_tracking()
     t_end = time.perf_counter()
     check(not system.tracker._pending,
@@ -687,6 +880,8 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
     check(all(s == TrackState.OK for s in states[first:]),
           f"{name}: a frame after initialization (frame {first}) is not "
           f"OK: {[s.name for s in states]}")
+    check(first < WARM_FRAMES, f"{name}: initialized at frame {first}, "
+          f"after the {WARM_FRAMES} warm-up frames")
     n_kf = system.store.n_valid_keyframes()
     check(n_kf >= MIN_KEYFRAMES, f"{name}: only {n_kf} keyframes")
     pts = system.map_points()
@@ -707,23 +902,42 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
           f"{N_FRAMES} frames and {len(discarded)} discarded prefetches")
     shapes = {f"{k[0]} {k[1]}x{k[2]}": v
               for k, v in sorted(kernels.SHAPES.items())}
-    steady = frame_ms[first + 1:]
-    fps = (N_FRAMES - first - 1) / (t_end - starts[first + 1])
+    # steady: after the first frame after initialization, no capture
+    steady_sync = [(i, n) for i, (n, c) in enumerate(
+        zip(frame_syncs, frame_captures)) if i > first and c == 0]
+    if graphs:
+        stats = {k: dict(v) for k, v in graphs.STATS.items()}
+        log(f"{name}: graphs {json.dumps(stats)}; frames with a capture "
+            f"{[i for i, c in enumerate(frame_captures) if c]}")
+    log(f"{name}: host syncs in extraction and fused dispatch per frame "
+        f"{frame_syncs}; {sum(n for _, n in steady_sync)} over the "
+        f"{len(steady_sync)} steady frames (no capture), "
+        f"{sum(n for _, n in steady_sync) / max(len(steady_sync), 1):.2f}"
+        f" a frame; sites {dict(syncs.sites.most_common(8))}")
+    # a checkout from before the graphs (--tree) still has the syncs
+    check(sum(n for _, n in steady_sync) == 0 or graphs is None,
+          f"{name}: steady frames synchronize with the host in extraction "
+          f"or fused dispatch: {[x for x in steady_sync if x[1]]}, sites "
+          f"{dict(syncs.sites)}")
+    steady = frame_ms[WARM_FRAMES:]
+    fps = (N_FRAMES - WARM_FRAMES) / (t_end - t_window)
     log(f"{name}: {len(ok_idx)}/{N_FRAMES} frames OK (initialized at "
         f"frame {first}), {n_kf} keyframes, {len(pts)} map points, median "
         f"|z| {med_z:.4f}, {len(pr.db.bow)} keyframes in the BoW database, "
         f"{len(discarded)} prefetched extractions discarded")
-    log(f"{name}: {fps:.2f} fps over frames {first + 1}-{N_FRAMES - 1} "
-        f"(to the return of flush_tracking); frame time with the mapping "
+    log(f"{name}: {fps:.2f} fps over frames {WARM_FRAMES}-{N_FRAMES - 1} "
+        f"(from the window's prefetch to the return of flush_tracking; "
+        f"frames 0-{WARM_FRAMES - 1} each followed by flush_mapping, as "
+        f"bench.py warms up); frame time with the mapping "
         f"thread live: median {np.median(steady):.1f} ms, mean "
         f"{np.mean(steady):.1f} ms, max {np.max(steady):.1f} ms (host "
         f"clock per call, no synchronization); the tracker waited "
         f"{clock.wait_s * 1e3:.1f} ms of its {track_s * 1e3:.1f} ms on the "
         f"map lock; final mapping flush {flush_s * 1e3:.1f} ms; peak device "
         f"memory {peak / 2 ** 20:.0f} MiB")
-    wall, cpu, lck = (sum(x[first + 1:]) for x in (frame_ms, cpu_ms,
-                                                     lock_ms))
-    log(f"{name}: the tracker's {wall:.1f} ms over frames {first + 1}-"
+    wall, cpu, lck = (sum(x[WARM_FRAMES:]) for x in (frame_ms, cpu_ms,
+                                                       lock_ms))
+    log(f"{name}: the tracker's {wall:.1f} ms over frames {WARM_FRAMES}-"
         f"{N_FRAMES - 1}: {cpu:.1f} ms running on a CPU, {lck:.1f} ms on "
         f"the map lock, {wall - cpu - lck:.1f} ms blocked otherwise (the "
         f"interpreter lock) (main thread's CPU clock)")
@@ -741,10 +955,15 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
             f" ms in CUDA synchronizations and {tr.get('copy_ms', 0):.1f} "
             f"ms in copies, {w_lck:.1f} ms on the map lock, and was "
             f"{w_wall - w_cpu - w_lck:.1f} ms blocked otherwise")
+        n_win = N_FRAMES - PROFILE_FROM
         for who, d in sorted(window["threads"].items()):
-            log(f"{name} profile, {who}: {d['launches']} launches taking "
-                f"{d['launch_ms']:.1f} ms, {d['sync_ms']:.1f} ms in "
-                f"synchronizations, {d['copy_ms']:.1f} ms in copies")
+            per_frame = (d["launches"] + d["graph_launches"]) / n_win
+            log(f"{name} profile, {who}: {d['launches']} kernel launches "
+                f"and {d['graph_launches']} graph launches taking "
+                f"{d['launch_ms']:.1f} ms ({per_frame:.1f} a frame), "
+                f"{d['copies']} copies and fills taking {d['copy_ms']:.1f} "
+                f"ms ({d['copies'] / n_win:.1f} a frame), "
+                f"{d['sync_ms']:.1f} ms in synchronizations")
     log(f"{name}: kernel launches {json.dumps(launches)}")
     log(f"{name}: search launches by rows x columns {json.dumps(shapes)}")
     log(f"{name}: timing report:\n" + system.timing_report())
@@ -1633,7 +1852,9 @@ def viewer_run(root: str, ds: dict, device, fps_plain: float,
                 try:
                     st = json.loads(get(urls[0] + "/status.json"))
                     png = get(urls[0] + "/frame.png")
-                    fetched.append((st["frames_seen"], len(png)))
+                    # before the first frame the status has no count
+                    if "frames_seen" in st:
+                        fetched.append((st["frames_seen"], len(png)))
                 except OSError:
                     pass
 
@@ -1757,7 +1978,14 @@ def main() -> int:
                          "against its plain version, timed) with "
                          "orb_slam2_tpu_torch imported from the checkout "
                          "DIR, and print the results as one JSON line")
+    ap.add_argument("--tree", metavar="DIR",
+                    help="with --repeat-a or --profile: import "
+                         "orb_slam2_tpu_torch from the checkout DIR (the "
+                         "parent of a change, unpacked by git archive), "
+                         "so both run under this script")
     args = ap.parse_args()
+    if args.tree and not (args.repeat_a or args.profile):
+        ap.error("--tree goes with --repeat-a or --profile")
     try:
         import torch
     except ImportError:
@@ -1768,7 +1996,7 @@ def main() -> int:
               "card", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    root = os.path.abspath(args.kernels_from or here)
+    root = os.path.abspath(args.kernels_from or args.tree or here)
     if not os.path.isdir(os.path.join(root, "orb_slam2_tpu_torch")):
         print(f"chip_smoke: orb_slam2_tpu_torch/ is not in {root}",
               file=sys.stderr)
@@ -1797,6 +2025,8 @@ def main() -> int:
     world, _ = bench_world(device)
     if args.repeat_b:
         return repeat_loop(device, cfg)
+    if args.tree:
+        log(f"the port imported from {root}")
     if args.repeat_a:
         try:
             return repeat_bench(device, world, cfg)
@@ -1816,6 +2046,7 @@ def main() -> int:
         return 0
     try:
         timing = phase_kernels(device, world, cfg)
+        phase_graphs(device, world, cfg)
         path_a = phase_bench(device, world, cfg)
         path_seq = phase_bench(device, world, cfg, pipelined=False)
         log(f"A against A-seq on this card: {path_a['fps']:.2f} against "

@@ -14,10 +14,14 @@ current stream, raises if the launch failed, and adds one to the
 kernel's entry in :data:`LAUNCHES` (and, for a search, to its
 (rows, columns) entry in :data:`SHAPES`).  The tracking thread and the
 mapping thread both launch, so the lazy build and the counts are
-guarded by one lock.
+guarded by one lock.  Inside :func:`recording` a thread's launches go
+to a record of their own instead: ``graphs.py`` records what a CUDA
+graph's capture launched and adds it again (:func:`add_launches`) at
+every replay, which launches no wrapper.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -62,6 +66,8 @@ SHAPES = {}
 
 _lib = None
 _lock = threading.Lock()
+# this thread's open record (see recording()), if any
+_local = threading.local()
 
 
 def reset_launch_counts() -> None:
@@ -69,6 +75,37 @@ def reset_launch_counts() -> None:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
         SHAPES.clear()
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's launches into a fresh dict (kernel name ->
+    launches, (kernel, rows, columns) -> search launches) instead of
+    LAUNCHES and SHAPES, until the block ends."""
+    outer = getattr(_local, "record", None)
+    _local.record = record = {}
+    try:
+        yield record
+    finally:
+        _local.record = outer
+
+
+def add_launches(record: dict) -> None:
+    """Add a record of :func:`recording` to LAUNCHES and SHAPES (or to
+    this thread's open record)."""
+    with _lock:
+        _add(record)
+
+
+def _add(record: dict) -> None:
+    into = getattr(_local, "record", None)
+    for key, n in record.items():
+        if into is not None:
+            into[key] = into.get(key, 0) + n
+        elif isinstance(key, str):
+            LAUNCHES[key] += n
+        else:
+            SHAPES[key] = SHAPES.get(key, 0) + n
 
 
 def _nvcc() -> str:
@@ -145,10 +182,7 @@ def call(name: str, *args, shape=None) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
     with _lock:
-        LAUNCHES[name] += 1
-        if shape is not None:
-            key = (name, *shape)
-            SHAPES[key] = SHAPES.get(key, 0) + 1
+        _add({name: 1} if shape is None else {name: 1, (name, *shape): 1})
 
 
 def masked_top2_splits(device: int, n: int, m: int) -> int:

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..graphs import upload
+
 
 class DevicePoints:
     """The six column tensors (``_arrs``) of the device point store."""
@@ -33,16 +35,17 @@ class DevicePoints:
         return self._arrs
 
     def _columns(self, store, rows):
-        """Host rows of the six columns, as device tensors."""
+        """Host rows of the six columns, as device tensors (uploaded
+        without waiting for the card, ``graphs.upload``)."""
         dev = self.device
         return (
-            torch.as_tensor(np.asarray(store.mp_pos[rows], np.float32), device=dev),
-            torch.as_tensor(np.asarray(store.mp_desc[rows], np.uint32)
-                            .view(np.int32), device=dev),
-            torch.as_tensor(np.asarray(store.mp_normal[rows], np.float32), device=dev),
-            torch.as_tensor(np.asarray(store.mp_min_dist[rows], np.float32), device=dev),
-            torch.as_tensor(np.asarray(store.mp_max_dist[rows], np.float32), device=dev),
-            torch.as_tensor(np.asarray(store.mp_valid[rows], bool), device=dev),
+            upload(np.asarray(store.mp_pos[rows], np.float32), dev),
+            upload(np.asarray(store.mp_desc[rows], np.uint32)
+                   .view(np.int32), dev),
+            upload(np.asarray(store.mp_normal[rows], np.float32), dev),
+            upload(np.asarray(store.mp_min_dist[rows], np.float32), dev),
+            upload(np.asarray(store.mp_max_dist[rows], np.float32), dev),
+            upload(np.asarray(store.mp_valid[rows], bool), dev),
         )
 
     def _full_upload(self, store, cap: int):
@@ -74,6 +77,6 @@ class DevicePoints:
         store.dirty_points.clear()
         if len(rows) == 0:
             return
-        ridx = torch.as_tensor(rows, device=self.device)
+        ridx = upload(rows, self.device)
         self._arrs = tuple(a.index_copy(0, ridx, u) for a, u in
                            zip(self._arrs, self._columns(store, rows)))

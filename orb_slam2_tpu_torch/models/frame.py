@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import graphs
 from ..geom import camera as camera_mod
 from ..ops import extractor as ex
 
@@ -145,26 +146,33 @@ class FrameFactory:
         self.inv_sigma2 = (1.0 / self.sigma2).astype(np.float32)
         self.scale_factors = ex.pyramid.scale_factors(
             params.n_levels, params.scale_factor)[0]
+        self._pipeline = graphs.graphed(self._extract, "extract")
+
+    def _extract(self, image, init_mode):
+        """Extraction and undistortion of one image (the JAX package's
+        ``FrameFactory._pipeline``): uint8 frames cast on the device."""
+        params = self.init_params if init_mode else self.params
+        feats = ex.extract(image.float(), params)
+        return feats, camera_mod.undistort_points(self.cam, feats.xy)
 
     def start(self, image, init_mode: bool = False):
         """Queue the extraction of ``image`` on the factory's device and
         return ``(features, undistorted xy, init_mode)`` without waiting
-        for it (as far as the extractor never reads a result back on the
-        host).  Pair with :meth:`make` via ``started=``: a pipeline
-        extracts frame t+1 while frame t is processed on the host.
+        for it.  Pair with :meth:`make` via ``started=``: a pipeline
+        extracts frame t+1 while frame t is processed on the host.  On
+        the card the extraction replays a CUDA graph captured once per
+        (height, width, image dtype, init_mode) (``graphs.graphed``).
 
-        ``image``: a numpy array (uploaded to the factory's device) or a
-        tensor already there."""
+        ``image``: a numpy array (uploaded to the factory's device from
+        pinned memory, uint8 staying uint8) or a tensor already there."""
         if isinstance(image, torch.Tensor):
             img = image.to(self.device)
         else:
             img_np = np.asarray(image)
             if img_np.dtype != np.uint8:
                 img_np = np.asarray(img_np, np.float32)
-            img = torch.as_tensor(img_np, device=self.device)
-        params = self.init_params if init_mode else self.params
-        feats = ex.extract(img.float(), params)
-        und = camera_mod.undistort_points(self.cam, feats.xy)
+            img = graphs.upload(img_np, self.device)
+        feats, und = self._pipeline(img, bool(init_mode))
         return feats, und, init_mode
 
     def make(self, image, timestamp: float = 0.0,

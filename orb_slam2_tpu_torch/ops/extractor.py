@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import graphs
 from . import pyramid, fast, distribute, orientation, brief
 
 
@@ -122,9 +123,12 @@ def extract(image: torch.Tensor, params: OrbParams) -> Features:
 
 @functools.lru_cache(maxsize=8)
 def make_extractor(height: int, width: int, params: OrbParams):
-    """The extractor for a fixed image size and params: ``extract`` with
-    ``params`` bound (the JAX package jits one per size)."""
-    return functools.partial(extract, params=params)
+    """The extractor for a fixed image size and params, as the JAX
+    package jits one: ``extract`` with ``params`` bound, replayed from a
+    CUDA graph on the card (``graphs.graphed``; on the CPU it runs
+    ``extract``)."""
+    return graphs.graphed(functools.partial(extract, params=params),
+                          "make_extractor")
 
 
 def level_sigma2(params: OrbParams) -> np.ndarray:

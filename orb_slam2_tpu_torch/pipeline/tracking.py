@@ -40,6 +40,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import graphs
 from ..matching import search, frustum
 from ..models.frame import Frame, FrameFactory
 from ..models.mapstore import MapStore
@@ -138,6 +139,18 @@ def _frustum_search(pos, normal, min_d, max_d, pvalid, desc,
             gate(old_pos, old_idx.long(), old_valid))
 
 
+def _bound_features(idx, gate, n: int) -> torch.Tensor:
+    """(n,) bool: True at feature ``idx[i]`` for every gated row i (the
+    JAX package's ``zeros(n).at[idx].max(gate) > 0``).  Gated rows
+    write True at their feature and ungated rows False at a spare slot
+    n, dropped after: no host read sizes the index (a boolean-mask
+    index would wait for the card), and no slot receives both values,
+    so the order of repeated writes does not matter."""
+    has = torch.zeros(n + 1, dtype=torch.bool, device=idx.device)
+    has.index_put_((torch.where(gate, idx, n),), gate)
+    return has[:n]
+
+
 def _prior_step_core(Tcw,
                      pt_pos, pt_desc, pt_normal, pt_min, pt_max,
                      pt_alive,
@@ -184,9 +197,7 @@ def _prior_step_core(Tcw,
         scale_factors, inv_sigma2, fx, fy, cx, cy, bounds, th_last, chi2)
 
     # per-feature "already bound" mask (mutual best => unique targets)
-    has_mp = torch.zeros(kp_xy.shape[0], dtype=torch.bool,
-                         device=kp_xy.device)
-    has_mp[res.idx[gate]] = True
+    has_mp = _bound_features(res.idx, gate, kp_xy.shape[0])
 
     # candidate rows whose point is gate-bound this frame drop out; -1
     # pads on both sides only ever meet rows whose gate is False
@@ -344,6 +355,13 @@ class Tracker:
         # host-prepared step
         self._chain = None
         self._last_meta = None  # meta of the most recent dispatch
+        # the fused step's two forms as CUDA graphs (the JAX package's
+        # jitted _track_prior_step and _track_prior_chain); the module
+        # functions are looked up at each call
+        self._prior_step = graphs.graphed(
+            lambda *a: _prior_step_core(*a), "prior_step")
+        self._chain_step = graphs.graphed(
+            lambda *a: _track_prior_chain(*a), "prior_chain")
 
         cam = config.cam
         self._cam_tuple = (float(cam.fx), float(cam.fy), float(cam.cx),
@@ -358,8 +376,9 @@ class Tracker:
         self.log_scale = float(np.log(config.orb.scale_factor))
 
     def _t(self, a, dtype=None) -> torch.Tensor:
-        """Host array -> tensor on the tracker's device."""
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+        """Host array -> tensor on the tracker's device, without waiting
+        for the card (``graphs.upload``)."""
+        return graphs.upload(a, self.device, dtype)
 
     # ------------------------------------------------------------------
     def track(self, image, timestamp: float = 0.0,
@@ -986,13 +1005,12 @@ class Tracker:
                                      constant_values=-1)),
         )
 
-    def _fused_dispatch(self, frame: Frame, pre_read_hook=None) -> _Readback:
-        """Queue the fused step for ``frame`` and the copies of its
-        host-facing outputs (no read).  With pipelined tracking and a
-        live chain the step is the device recurrence
-        (:func:`_track_prior_chain`), else the host-prepared step."""
+    def _fused_inputs(self, frame: Frame, chained: bool):
+        """The arguments of the fused step for ``frame``: of
+        :func:`_track_prior_chain` (``chained``: this step's bound set
+        from the last dispatched step's device outputs) or of
+        :func:`_prior_step_core` (the host prep of the last frame)."""
         p = self._prep
-        last = self.last_frame
         fx, fy, cx, cy = self._cam_tuple
         th_local = 3.0 if (frame.frame_id - self.last_reloc_frame_id
                            < self.cfg.max_frames_between_kf) else 1.0
@@ -1002,11 +1020,34 @@ class Tracker:
                   7.0, th_local, self.cfg.chi2_mono)
         cur = (frame.dev("xy"), frame.dev("octave"), frame.dev("desc"),
                frame.dev("valid"), frame.dev("angle"))
+        # one snapshot: the mapper's sync() swaps the column tensors
+        # (async mapping) and the step must not see a half-update
+        dp = self.store.dev_points.snapshot()
+        Tcw = self._t(frame.Tcw)
+        if chained:
+            ch = self._chain
+            return (Tcw, *dp,
+                    ch["bound_rows"], ch["cand_rows"],
+                    ch["ridx"], ch["r2idx"], ch["gate"], ch["keep"],
+                    p["cand_rows"],
+                    ch["frame"].dev("octave"), ch["frame"].dev("desc"),
+                    ch["frame"].dev("angle"), *cur, *common)
+        last = self.last_frame
+        return (Tcw, *dp,
+                p["bound_pid_rows"], p["last_rows"], p["cand_rows"],
+                last.dev("octave"), last.dev("desc"), last.dev("angle"),
+                *cur, *common)
+
+    def _fused_dispatch(self, frame: Frame, pre_read_hook=None) -> _Readback:
+        """Queue the fused step for ``frame`` and the copies of its
+        host-facing outputs (no read, no wait for the card).  With
+        pipelined tracking and a live chain the step is the device
+        recurrence (:func:`_track_prior_chain`), else the host-prepared
+        step; each replays a CUDA graph on the card (``graphs.py``)."""
+        p = self._prep
         with self.timer.time("fused/dispatch"):
-            # one snapshot: the mapper's sync() swaps the column tensors
-            # (async mapping) and the chain must not see a half-update
-            dp = self.store.dev_points.snapshot()
             ch = self._chain if self.cfg.pipelined_tracking else None
+            args = self._fused_inputs(frame, chained=ch is not None)
             if ch is not None:
                 # the consumer derives this step's bound pids from its
                 # parent's consumed masks, as the device did
@@ -1014,20 +1055,10 @@ class Tracker:
                     lazy=True, parent=self._last_meta,
                     cand_pids=p["cand_pids"], frame=frame,
                     n_bound=int(ch["bound_rows"].shape[0]))
-                out = _track_prior_chain(
-                    self._t(frame.Tcw), *dp,
-                    ch["bound_rows"], ch["cand_rows"],
-                    ch["ridx"], ch["r2idx"], ch["gate"], ch["keep"],
-                    p["cand_rows"],
-                    ch["frame"].dev("octave"), ch["frame"].dev("desc"),
-                    ch["frame"].dev("angle"), *cur, *common)
+                out = self._chain_step(*args)
             else:
                 self._last_meta = p
-                out = _prior_step_core(
-                    self._t(frame.Tcw), *dp,
-                    p["bound_pid_rows"], p["last_rows"], p["cand_rows"],
-                    last.dev("octave"), last.dev("desc"), last.dev("angle"),
-                    *cur, *common)
+                out = self._prior_step(*args)
             if self.cfg.pipelined_tracking:
                 self._chain = dict(
                     frame=frame, cand_rows=p["cand_rows"],

@@ -2,8 +2,10 @@
 PyTorch versions on the card; the solvers' per-target sums
 (``optim.segment.IndexSum``) against ``index_add_`` on the CPU; the
 pipelined tracker's pinned result copies and the repeatability of a
-pipelined run; and the estimated-pose solvers (pose optimization, EPnP
-RANSAC, the two-view initializer) against the port's own CPU results.
+pipelined run; the estimated-pose solvers (pose optimization, EPnP
+RANSAC, the two-view initializer) against the port's own CPU results;
+and the CUDA graphs (``graphs.py``) of the extraction and the fused
+step against their eager calls, with no host sync when warm.
 Every test here is marked ``gpu`` and skips without a CUDA device.  This file imports no jax, so it runs on a
 machine without the JAX package:
 
@@ -919,3 +921,280 @@ def test_viewer_png_of_a_card_frame(cuda):
                         np.uint8).reshape(h, 1 + 3 * w)
     np.testing.assert_array_equal(raw[:, 1:].reshape(h, w, 3), rgb)
     system.shutdown()
+
+
+# ----------------------------------------------------------------------
+# CUDA graphs (graphs.py): the extraction and both forms of the fused
+# pose-prior step replayed against their eager calls
+# ----------------------------------------------------------------------
+SCENE_CAM = dict(fx=450.0, fy=450.0, cx=320.0, cy=240.0)
+SCENE_BOUNDS = (0.0, 640.0, 0.0, 480.0)
+
+
+def prior_step_scene(case: str, seed: int = 0):
+    """The arguments of ``tracking._prior_step_core`` for a synthetic
+    frame, as numpy arrays (descriptors uint32) and statics, in its
+    order.  512 feature rows (480 keypoints at random positions, octaves
+    0-3, random descriptors and angles); the last frame is the same
+    keypoint set; point k lies on keypoint k's ray at depth 5-10 under
+    the identity pose.  Bound rows i < 200 hold point i at last-frame
+    row i (L = 512: the next chain step's kept pairs fit, as they do on
+    the main path); the candidates (C = 256) are points 200-423 and
+    points 480-511, copies of points 0-31: a copy finds its keypoint
+    only where the frame-to-frame pass left it unbound (``has_mp``).
+    ``case``: "all" (every bound row matches and passes the gate),
+    "none" (no bound row: the gate holds no match), "some" (the odd
+    points among 0-199 dead)."""
+    rng = np.random.default_rng(seed)
+    nf, n_kp, n_bound, L = 512, 480, 200, 512
+    sf = (1.2 ** np.arange(4)).astype(np.float32)
+    xy = np.zeros((nf, 2), np.float32)
+    xy[:n_kp] = rng.uniform([20, 20], [620, 460], (n_kp, 2))
+    octave = rng.integers(0, 4, nf).astype(np.int32)
+    desc = _rand_desc(rng, nf)
+    angle = rng.uniform(-np.pi, np.pi, nf).astype(np.float32)
+    valid = np.arange(nf) < n_kp
+    # the point store: points 0-479 on their keypoints' rays, 480-511
+    # copies of 0-31, rows past 512 empty
+    cap = 1024
+    src = np.concatenate([np.arange(n_kp), np.arange(32)])
+    depth = rng.uniform(5.0, 10.0, len(src)).astype(np.float32)
+    ray = np.stack([(xy[src, 0] - SCENE_CAM["cx"]) / SCENE_CAM["fx"],
+                    (xy[src, 1] - SCENE_CAM["cy"]) / SCENE_CAM["fy"],
+                    np.ones(len(src), np.float32)], 1)
+    pos = np.zeros((cap, 3), np.float32)
+    pos[:len(src)] = ray * depth[:, None]
+    dist = np.linalg.norm(pos[:len(src)], axis=1)
+    normal = np.zeros((cap, 3), np.float32)
+    normal[:len(src)] = pos[:len(src)] / dist[:, None]
+    # the predicted level is the keypoint's octave
+    max_d = np.zeros(cap, np.float32)
+    max_d[:len(src)] = dist * 1.2 ** (octave[src] - 0.5)
+    min_d = (max_d / sf[-1]).astype(np.float32)
+    pdesc = np.zeros((cap, 8), np.uint32)
+    pdesc[:len(src)] = desc[src]
+    alive = np.arange(cap) < len(src)
+    bound = np.full(L, -1, np.int32)
+    if case != "none":
+        bound[:n_bound] = np.arange(n_bound)
+    if case == "some":
+        alive[1:n_bound:2] = False
+    last_rows = np.zeros(L, np.int32)
+    last_rows[:n_bound] = np.arange(n_bound)
+    cand = np.concatenate([np.arange(200, 424),
+                           np.arange(n_kp, n_kp + 32)]).astype(np.int32)
+    return [np.eye(4, dtype=np.float32), pos, pdesc, normal, min_d,
+            max_d, alive, bound, last_rows, cand,
+            octave, desc, angle, xy, octave, desc, valid, angle,
+            sf, (1.0 / sf ** 2).astype(np.float32),
+            SCENE_CAM["fx"], SCENE_CAM["fy"], SCENE_CAM["cx"],
+            SCENE_CAM["cy"], SCENE_BOUNDS, 4, float(np.log(1.2)),
+            7.0, 1.0, 5.991]
+
+
+def scene_tensors(args, device="cpu"):
+    """``prior_step_scene``'s arguments as the port takes them."""
+    return [_t(a).to(device) if isinstance(a, np.ndarray) else a
+            for a in args]
+
+
+def _chain_args(args, out):
+    """``_track_prior_chain``'s arguments for the step after the one
+    that took ``args`` and gave ``out``: the bound set from its outputs,
+    the same candidates and the same frame again."""
+    return [*args[:7], out[6], args[9], out[0], out[4], out[2], out[5],
+            *args[9:]]
+
+
+@pytest.mark.gpu
+def test_graphed_fused_steps_equal_eager_on_card(cuda):
+    """Both forms of the fused step replayed from a CUDA graph equal
+    their eager calls bit for bit, over three calls each (a capture, then
+    replays) and for each gate case; a warm replay makes no host sync;
+    the outputs are fresh tensors, not the graph's buffers."""
+    from orb_slam2_tpu_torch import graphs
+    from orb_slam2_tpu_torch.pipeline import tracking
+    step = graphs.graphed(tracking._prior_step_core, "prior_step")
+    chain = graphs.graphed(tracking._track_prior_chain, "prior_chain")
+    for case in ("none", "all", "some"):
+        args = scene_tensors(prior_step_scene(case), cuda)
+        eager = tracking._prior_step_core(*args)
+        cargs = _chain_args(args, eager)
+        eager_chain = tracking._track_prior_chain(*cargs)
+        outs = []
+        for i in range(3):
+            if i == 2:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = step(*args)
+                got_chain = chain(*_chain_args(args, got))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            for a, b in zip((*got, *got_chain), (*eager, *eager_chain)):
+                assert torch.equal(a, b), case
+            outs.append(got)
+        assert outs[1][0].data_ptr() != outs[2][0].data_ptr()
+        if case == "all":
+            assert bool(eager[2][:200].all()) and not bool(eager[2][200:].any())
+    assert step.n_captures() == chain.n_captures() == 1
+
+
+@pytest.mark.gpu
+def test_graphed_extraction_equals_eager_and_keeps_frames(cuda):
+    """``FrameFactory.start`` replayed from a CUDA graph equals the eager
+    extraction plus undistortion bit for bit in every field, over three
+    frames at 640x480 (uint8 frames); frame t's arrays are unchanged
+    after frame t+1 is extracted; a warm extraction makes no host sync;
+    ``make_extractor`` replays likewise."""
+    from orb_slam2_tpu_torch.models.frame import FrameFactory
+    from orb_slam2_tpu_torch.ops import extractor as ex
+    cam = Intrinsics(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640,
+                     height=480, dist=(-0.1, 0.02, 0.0, 0.0, 0.0))
+    params = OrbParams(n_features=800, n_levels=4)
+    factory = FrameFactory(cam, params, device=cuda)
+    world = synth.make_world(seed=3, device=cuda)
+    images = [synth.render(world, cam, T) for T in
+              synth.aerial_trajectory(4, speed=0.3)]
+    kept = []
+    for i, img in enumerate(images):
+        if i == 3:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            feats, und, _ = factory.start(img)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want, want_und = factory._extract(img, False)
+        for a, b in zip((*feats, und), (*want, want_und)):
+            assert torch.equal(a, b), i
+        for prev, copies in kept:
+            for a, b in zip(prev, copies):
+                assert torch.equal(a, b)
+        kept.append(((*feats, und), [t.clone() for t in (*feats, und)]))
+        run = ex.make_extractor(480, 640, params)
+        for a, b in zip(run(img.float()), ex.extract(img.float(), params)):
+            assert torch.equal(a, b), i
+    assert factory._pipeline.n_captures() == 1
+
+
+def _graph_run(cuda, eager: bool, n_frames: int = 16):
+    """The 640x480 sweep, pipelined at depth 3 with sequential mapping
+    (one thread: the same work in the same order every run), eagerly or
+    through the graphs.  Returns the launch counts, states and
+    bindings."""
+    from orb_slam2_tpu_torch import graphs
+    cam = Intrinsics(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640,
+                     height=480)
+    cfg = SlamConfig(cam=cam, orb=OrbParams(n_features=800, n_levels=4),
+                     fps=10.0, pose_prior=True, init_min_matches=60,
+                     init_min_triangulated=40, init_min_tracked_after_ba=60,
+                     pipelined_tracking=True, pipeline_depth=3)
+    world = synth.make_world(seed=3, device=cuda)
+    poses = synth.aerial_trajectory(n_frames, speed=0.3)
+    images = [synth.render(world, cam, T) for T in poses]
+    call = graphs.Graphed.__call__
+    if eager:
+        graphs.Graphed.__call__ = lambda self, *a: self.fn(*a)
+    try:
+        system = System(cfg, enable_loop_closing=False, device=cuda)
+        kernels.reset_launch_counts()
+        frames = [system.track_monocular_with_pose(img, i * 0.1, T)
+                  for i, (img, T) in enumerate(zip(images, poses))]
+        system.flush_tracking()
+        torch.cuda.synchronize()
+        launches = (dict(kernels.LAUNCHES), dict(kernels.SHAPES))
+        system.shutdown()
+    finally:
+        graphs.Graphed.__call__ = call
+    return launches, [f.mp_ids.copy() for f in frames]
+
+
+@pytest.mark.gpu
+def test_graphed_run_launches_as_eager(cuda):
+    """A graphed run of 16 frames counts the same kernel launches, per
+    kernel and per search shape, as the eager run of the same frames
+    (a replay counts what its capture launched; the warm-up calls are
+    not counted), and binds the same map points."""
+    eager, b_eager = _graph_run(cuda, eager=True)
+    graph, b_graph = _graph_run(cuda, eager=False)
+    assert eager == graph
+    assert eager[0]["fast_score"] == 16
+    for i, (x, y) in enumerate(zip(b_eager, b_graph)):
+        np.testing.assert_array_equal(x, y, err_msg=f"frame {i}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_warm_fused_dispatch_makes_no_host_sync(cuda, pipelined):
+    """A warm ``Tracker._fused_dispatch`` (host-prepared when sequential,
+    the device chain when pipelined) queues its step and the result
+    copies without waiting for the card."""
+    cam = Intrinsics(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640,
+                     height=480)
+    cfg = SlamConfig(cam=cam, orb=OrbParams(n_features=800, n_levels=4),
+                     fps=10.0, pose_prior=True, init_min_matches=60,
+                     init_min_triangulated=40, init_min_tracked_after_ba=60,
+                     pipelined_tracking=pipelined, pipeline_depth=3)
+    world = synth.make_world(seed=3, device=cuda)
+    poses = synth.aerial_trajectory(12, speed=0.3)
+    system = System(cfg, enable_loop_closing=False, device=cuda)
+    for i, T in enumerate(poses[:10]):
+        system.track_monocular_with_pose(synth.render(world, cam, T),
+                                         i * 0.1, T)
+    tr = system.tracker
+    assert (tr._chain is not None) == pipelined
+    for i in (10, 11):
+        frame = tr.factory.make(synth.render(world, cam, poses[i]),
+                                Tcw=poses[i])
+        torch.cuda.synchronize()
+        if i == 11:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            rb = tr._fused_dispatch(frame)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert len(rb.arrays()) == 6
+    system.shutdown()
+
+
+GRAPHED_SYNC = """
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from orb_slam2_tpu_torch import graphs
+calls = []
+def reads_back(x):
+    calls.append(1)
+    return x * float((x > 0).sum().item())
+g = graphs.graphed(reads_back, "reads_back")
+x = torch.ones(64, device="cuda")
+for attempt in range(2):
+    try:
+        g(x)
+    except RuntimeError as e:
+        print("raised", type(e).__name__)
+    else:
+        print("returned")
+print("calls", len(calls), "captures", g.n_captures())
+"""
+
+
+@pytest.mark.gpu
+def test_graphed_sync_raises_without_eager_fallback(cuda):
+    """A function that reads a value back (``.item()``) cannot be
+    captured: every call raises, after the warm-up calls and one capture
+    attempt, and no call hands back an eager result.  In a child
+    process: a failed capture may leave the allocator's capture state
+    behind."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    from orb_slam2_tpu_torch import graphs
+    out = subprocess.run([sys.executable, "-c", GRAPHED_SYNC, root],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.split("\n")
+    assert lines[0].startswith("raised") and lines[1].startswith("raised")
+    assert lines[2] == (f"calls {2 * (graphs.WARMUP + 1)} captures 0"), \
+        out.stdout
