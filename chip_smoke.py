@@ -150,6 +150,10 @@ PROFILE_FROM = 20
 # frames tracked before the fused steps are compared on a warm state
 G_EXTRACT = 3
 G_TRACK = 12
+# phase G tracks on past G_TRACK until the keyframe mapped last has
+# called each of the mapper's graphs (structure BA needs 3 keyframes,
+# the vocabulary 4), up to G_MAP frames
+G_MAP = 30
 # path D: estimated-pose mode over path A's world.  50 frames leave at
 # least 6 keyframes (a loss then does not reset the map), which 40 may
 # not; the bars are tests/test_pipeline.py's TestEstimatedMode scaled
@@ -491,16 +495,28 @@ def phase_kernels(device, world, cfg):
 class LockWaitClock:
     """Wraps the map lock and adds up how long the tracking (main)
     thread waited to take it: the tracker's frame time spent waiting on
-    the mapping thread's host sections."""
+    the mapping thread's host sections; and how long the thread
+    ``holder`` (the mapping thread, once set) held it (``hold_s``, from
+    its outermost acquire to the matching release)."""
 
     def __init__(self, lock):
         self._lock = lock
         self._main = threading.main_thread()
         self.wait_s = 0.0
+        self.holder = None
+        self.hold_s = 0.0
+        self._depth = 0
+        self._t_acq = 0.0
 
     def acquire(self, *args, **kwargs):
-        if threading.current_thread() is not self._main:
-            return self._lock.acquire(*args, **kwargs)
+        me = threading.current_thread()
+        if me is not self._main:
+            got = self._lock.acquire(*args, **kwargs)
+            if got and me is self.holder:
+                self._depth += 1
+                if self._depth == 1:
+                    self._t_acq = time.perf_counter()
+            return got
         t0 = time.perf_counter()
         got = self._lock.acquire(*args, **kwargs)
         self.wait_s += time.perf_counter() - t0
@@ -508,6 +524,10 @@ class LockWaitClock:
 
     def release(self):
         self._lock.release()
+        if threading.current_thread() is self.holder:
+            self._depth -= 1
+            if self._depth == 0:
+                self.hold_s += time.perf_counter() - self._t_acq
 
     def __enter__(self):
         return self.acquire()
@@ -532,22 +552,20 @@ def kf_ate(store, true, poses=None):
 
 
 def device_window(trace_path: str, threads: dict) -> dict:
-    """Reads a torch.profiler chrome trace: the union of the card's
-    kernel, copy and fill intervals, and per host thread the CUDA
-    runtime calls that wait for the card (stream, device and event
-    synchronizations, and copies, which wait for the work queued before
-    them) and the kernel launches.  ``threads`` names threading.Thread
+    """Reads a torch.profiler chrome trace.  The tracker launched
+    torch.cuda._sleep (spin_kernel) as its window opened and again as it
+    closed; the mapping thread launches one as each keyframe begins and
+    ends (``watch_mapper``): those markers name the two threads,
+    however the profiler numbered them.  Over the tracker's window: the
+    union of the card's kernel, copy and fill intervals, and per host
+    thread the CUDA runtime calls that wait for the card (stream, device
+    and event synchronizations, and copies, which wait for the work
+    queued before them) and the kernel and graph launches.  Over the
+    whole trace, per thread, the same counts between consecutive
+    markers (``segments``).  ``threads`` names threading.Thread
     objects."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("ph") == "X" and e.get("cat") in
-                   ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy_us, end = 0.0, -1.0
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
     # a runtime event names its thread by the system thread id, or by
     # the pthread id (whole or its low 32 bits) where the profiler did
     # not record the thread's system id
@@ -555,38 +573,62 @@ def device_window(trace_path: str, threads: dict) -> dict:
     for who, t in threads.items():
         for key in (t.native_id, t.ident, t.ident & 0xFFFFFFFF):
             names[key] = who
-    # the tracker launched torch.cuda._sleep (spin_kernel) when the
-    # window opened: its runtime call's thread is the tracker's, however
-    # the profiler numbered it
     spin = {e.get("args", {}).get("correlation") for e in events
             if e.get("cat") == "kernel" and "spin_kernel" in e.get("name", "")}
-    spin_tids = {e.get("tid") for e in events
-                 if e.get("cat") == "cuda_runtime"
-                 and e.get("args", {}).get("correlation") in spin}
-    if spin_tids:
-        names = {k: v for k, v in names.items() if v != "tracker"}
-        names.update({tid: "tracker" for tid in spin_tids})
+    runtime = sorted((e for e in events if e.get("ph") == "X"
+                      and e.get("cat") == "cuda_runtime"),
+                     key=lambda e: e["ts"])
+    marks = [e for e in runtime
+             if e.get("args", {}).get("correlation") in spin]
+    lo, hi = -float("inf"), float("inf")
+    if marks:
+        # the first marker is the tracker's; markers on another thread
+        # are the mapping thread's
+        tracker = marks[0].get("tid")
+        names = {k: v for k, v in names.items()
+                 if v not in ("tracker", "mapper")}
+        names.update({e.get("tid"): "tracker" if e.get("tid") == tracker
+                      else "mapper" for e in marks})
+        ends = [e["ts"] for e in marks if e.get("tid") == tracker]
+        lo = ends[0]
+        hi = ends[1] if len(ends) > 1 else hi
+    spans = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                   for e in events
+                   if e.get("ph") == "X" and e.get("cat") in
+                   ("kernel", "gpu_memcpy", "gpu_memset")
+                   and e["ts"] + e["dur"] > lo and e["ts"] < hi)
+    busy_us, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
     per = {}
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") != "cuda_runtime":
-            continue
+
+    def count(d, e):
+        n = e["name"]
+        if "Synchronize" in n:
+            d["sync_ms"] = d.get("sync_ms", 0.0) + e["dur"] / 1e3
+        elif "Memcpy" in n or "Memset" in n:
+            d["copy_ms"] = d.get("copy_ms", 0.0) + e["dur"] / 1e3
+            d["copies"] = d.get("copies", 0) + 1
+        elif "LaunchKernel" in n or "GraphLaunch" in n:
+            k = "launches" if "LaunchKernel" in n else "graph_launches"
+            d[k] = d.get(k, 0) + 1
+            d["launch_ms"] = d.get("launch_ms", 0.0) + e["dur"] / 1e3
+    for e in runtime:
         tid = e.get("tid")
         who = names.get(tid, f"thread {tid}")
         d = per.setdefault(who, dict(sync_ms=0.0, copy_ms=0.0,
                                      launch_ms=0.0, launches=0,
-                                     graph_launches=0, copies=0))
-        n = e["name"]
-        if "Synchronize" in n:
-            d["sync_ms"] += e["dur"] / 1e3
-        elif "Memcpy" in n or "Memset" in n:
-            d["copy_ms"] += e["dur"] / 1e3
-            d["copies"] += 1
-        elif "LaunchKernel" in n:
-            d["launches"] += 1
-            d["launch_ms"] += e["dur"] / 1e3
-        elif "GraphLaunch" in n:
-            d["graph_launches"] += 1
-            d["launch_ms"] += e["dur"] / 1e3
+                                     graph_launches=0, copies=0,
+                                     segments=[]))
+        if e.get("args", {}).get("correlation") in spin:
+            d["segments"].append({})
+            continue
+        if d["segments"]:
+            count(d["segments"][-1], e)
+        if lo <= e["ts"] <= hi:
+            count(d, e)
     return dict(busy_ms=busy_us / 1e3, n_device_spans=len(spans),
                 threads=per)
 
@@ -616,41 +658,64 @@ def extraction_syncs(system, image) -> list:
 
 
 class SyncCounter:
-    """The host synchronizations the main (tracking) thread makes inside
-    the calls it wraps, counted as :func:`extraction_syncs` counts them
-    (torch.cuda.set_sync_debug_mode("warn") while a wrapped call runs);
-    a warning raised on another thread (the mapper's) is not counted.
-    ``sites`` holds (file:line) -> count."""
+    """The host synchronizations made inside the calls it wraps, counted
+    as :func:`extraction_syncs` counts them (the warnings of
+    torch.cuda.set_sync_debug_mode("warn"), which is on while any
+    wrapped call runs) and attributed to the role given with the wrap
+    ("tracker": the extractions and fused dispatches of the main thread,
+    "mapper": each keyframe's mapping on the mapping thread); a warning
+    raised outside a wrapped call is not counted.  Used as a context
+    manager around a run, which routes the warnings here.  ``counts``
+    holds role -> syncs and ``sites`` role -> (file:line) -> count."""
 
     def __init__(self):
         import collections
-        self.count = 0
-        self.sites = collections.Counter()
-        self._inside = False
+        self.counts = collections.Counter()
+        self.sites = collections.defaultdict(collections.Counter)
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self._active = 0
+
+    def __enter__(self):
+        import warnings
+        self._saved = (warnings.showwarning, warnings.filters[:])
+        warnings.simplefilter("always")
+        warnings.showwarning = self._show
+        return self
+
+    def __exit__(self, *exc):
+        import warnings
+        import torch
+        warnings.showwarning, warnings.filters[:] = self._saved
+        torch.cuda.set_sync_debug_mode(0)
 
     def _show(self, message, category, filename, lineno, *rest):
-        if (threading.current_thread() is threading.main_thread()
-                and "synchroniz" in str(message)):
-            self.count += 1
-            self.sites[f"{os.path.relpath(filename)}:{lineno}"] += 1
+        role = getattr(self._local, "role", None)
+        if "synchroniz" not in str(message):
+            self._saved[0](message, category, filename, lineno, *rest)
+        elif role is not None:
+            self.counts[role] += 1
+            self.sites[role][f"{os.path.relpath(filename)}:{lineno}"] += 1
 
-    def wrap(self, fn):
-        import warnings
+    def wrap(self, fn, role: str = "tracker"):
         import torch
 
         def counted(*args, **kwargs):
-            if self._inside:        # a wrapped call inside another
+            if getattr(self._local, "role", None):  # inside another
                 return fn(*args, **kwargs)
-            self._inside = True
-            with warnings.catch_warnings():
-                warnings.simplefilter("always")
-                warnings.showwarning = self._show
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    return fn(*args, **kwargs)
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-                    self._inside = False
+            self._local.role = role
+            with self._lock:
+                self._active += 1
+                if self._active == 1:
+                    torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with self._lock:
+                    self._active -= 1
+                    if self._active == 0:
+                        torch.cuda.set_sync_debug_mode(0)
+                self._local.role = None
         return counted
 
 
@@ -674,7 +739,7 @@ def phase_graphs(device, world, cfg) -> dict:
     from orb_slam2_tpu_torch.pipeline.system import System
     from orb_slam2_tpu_torch.utils import synth
     _, poses = bench_world(device)
-    frames = [synth.render(world, cfg.cam, T) for T in poses[:G_TRACK + 1]]
+    frames = [synth.render(world, cfg.cam, T) for T in poses[:G_MAP + 1]]
     graphs.reset_stats()
     factory = FrameFactory(cfg.cam, cfg.orb, device=device)
     fields = (*ex.Features._fields, "undistorted xy")
@@ -706,15 +771,19 @@ def phase_graphs(device, world, cfg) -> dict:
                               pipeline_depth=PIPELINE_DEPTH)
     system = System(cfg, enable_loop_closing=True, async_mapping=False,
                     device=device)
+    mapper_calls = record_mapper(system)
     system.prefetch(frames[0])
-    for i in range(G_TRACK):
-        system.track_monocular_with_pose(frames[i], i * 0.1, poses[i],
-                                         next_image=frames[i + 1])
+    n = 0
+    while n < G_TRACK or (len(mapper_calls) < len(MAPPER_GRAPHS)
+                          and n < G_MAP):
+        system.track_monocular_with_pose(frames[n], n * 0.1, poses[n],
+                                         next_image=frames[n + 1])
+        n += 1
     tr = system.tracker
     check(tr._chain is not None and tr._prep is not None,
           "G: no live device chain after the warm-up frames")
-    frame = tr.factory.make(frames[G_TRACK], G_TRACK * 0.1,
-                            Tcw=poses[G_TRACK])
+    check_mapper_graphs(mapper_calls, n, system)
+    frame = tr.factory.make(frames[n], n * 0.1, Tcw=poses[n])
     for chained, eager, graph in (
             (True, tracking._track_prior_chain, tr._chain_step),
             (False, tracking._prior_step_core, tr._prior_step)):
@@ -735,6 +804,206 @@ def phase_graphs(device, world, cfg) -> dict:
     stats = {k: dict(v) for k, v in graphs.STATS.items()}
     log(f"G: captures and replays per function {json.dumps(stats)}")
     return stats
+
+
+# the mapper's graphs (LocalMapper attributes) and the vocabulary
+# descent's (models.vocabulary._transform_graph), checked by phase G
+MAPPER_GRAPHS = ("_tri_step", "_fuse_fwd", "_fuse_rev", "_compact",
+                 "_sba_step", "bow")
+
+
+def record_mapper(system) -> dict:
+    """Wraps the mapper's graphs and the vocabulary descent's so that
+    each keeps the arguments and outputs of its calls in the keyframe
+    mapped last: returns {name: [(graph, args, outputs), ...]}, emptied
+    when a keyframe's mapping begins."""
+    from orb_slam2_tpu_torch.models import vocabulary
+    calls = {}
+    mapper = system.mapper
+
+    def recorder(name, graph):
+        def call(*args):
+            out = graph(*args)
+            calls.setdefault(name, []).append((graph, args, out))
+            return out
+        return call
+    for name in MAPPER_GRAPHS[:-1]:
+        setattr(mapper, name, recorder(name, getattr(mapper, name)))
+    graph = vocabulary._transform_graph
+    vocabulary._transform_graph = recorder("bow", graph)
+    vocabulary._transform_graph.graph = graph   # put back by the check
+    process = mapper.process_keyframe
+
+    def begin(kid, queue_pressure=False):
+        calls.clear()
+        return process(kid, queue_pressure)
+    mapper.process_keyframe = begin
+    return calls
+
+
+def check_mapper_graphs(calls: dict, n_frames: int, system) -> None:
+    """Phase G's mapper part: every call of the keyframe mapped last,
+    replayed again, against the eager function on the same arguments,
+    bit for bit; then each function's last call replayed under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a warm replay waits for
+    the card nowhere)."""
+    import torch
+    from orb_slam2_tpu_torch.models import vocabulary
+    vocabulary._transform_graph = vocabulary._transform_graph.graph
+    missing = [m for m in MAPPER_GRAPHS if m not in calls]
+    check(not missing, f"G: the last keyframe mapped within {n_frames} "
+          f"frames made no call of {missing}")
+
+    def leaves(out):
+        return (out,) if isinstance(out, torch.Tensor) else tuple(out)
+    shapes = {}
+    for name in MAPPER_GRAPHS:
+        for k, (graph, args, out) in enumerate(calls[name]):
+            want = leaves(graph.fn(*args))
+            again = leaves(graph(*args))
+            torch.cuda.synchronize()
+            for j, (a, b, c) in enumerate(zip(leaves(out), want, again)):
+                check(torch.equal(a, b) and torch.equal(c, b),
+                      f"G: the graphed {graph.name} differs from its eager "
+                      f"call in output {j} (call {k} of the last keyframe)")
+        graph, args, _ = calls[name][-1]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph(*args)
+        except RuntimeError as e:
+            raise SmokeFailure(f"G: a warm {graph.name} replay "
+                               f"synchronizes with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        shapes[graph.name] = (len(calls[name]), [
+            tuple(a.shape) for a in args if isinstance(a, torch.Tensor)][:3])
+    # the fuse graph copies the point store's snapshot into its static
+    # inputs at each replay (DevicePoints.sync replaces the tensors)
+    graph, args, _ = calls["_fuse_fwd"][-1]
+    snap = [a for a in args[:6]]
+    copies = [a.clone() for a in snap]
+    n_bytes = sum(a.numel() * a.element_size() for a in snap)
+    copy_ms = cuda_ms(lambda: [c.copy_(a) for c, a in zip(copies, snap)])
+    call_ms = cuda_ms(lambda: graph(*args))
+    log(f"G: a fuse_forward replay copies the {snap[0].shape[0]}-row "
+        f"point-store snapshot, {n_bytes / 2 ** 20:.1f} MiB, in "
+        f"{copy_ms:.4f} ms of its {call_ms:.4f} ms call (CUDA events)")
+    n_kf = system.store.n_valid_keyframes()
+    log(f"G: the mapper's graphs bit-exact against their eager calls on "
+        f"the keyframe mapped last after {n_frames} frames ({n_kf} "
+        f"keyframes), and a warm replay of each with no host sync; calls "
+        f"and first shapes {json.dumps(shapes)}")
+
+
+# the mapper's graphs by their graphs.STATS names
+MAPPER_STATS = ("triangulate", "fuse_forward", "fuse_reverse",
+                "compact_matches", "sba_step", "bow_transform")
+# the mapper's stage timers read per keyframe
+MAPPER_STAGES = ("mapping/process_kf", "mapping/cull_points",
+                 "mapping/triangulate", "mapping/fuse", "mapping/local_ba",
+                 "mapping/cull_keyframes", "mapping/loop_closing",
+                 "tri/prep_host", "tri/device", "tri/apply",
+                 "tri/update_points", "tri/update_conn", "fuse/collect",
+                 "fuse/sync", "fuse/device", "fuse/apply",
+                 "fuse/update_points", "fuse/update_conn", "sba/gather",
+                 "sba/device", "sba/apply")
+
+
+def watch_mapper(system, syncs, clock, torch):
+    """Wraps the mapper's ``process_keyframe`` (which the mapping thread
+    calls for each keyframe): its host syncs (``syncs``, role
+    "mapper"), its waits on a result read (``graphs.Readback.wait`` on
+    the mapping thread), how long it held the map lock (``clock``, a
+    LockWaitClock), its stage times and its start and end on the host
+    clock, per keyframe, into ``mapped["keyframes"]``.  While
+    ``mapped["window"]`` is open (a profile window), each keyframe
+    launches ``torch.cuda._sleep`` as it begins and as it ends: the
+    markers name the mapping thread in the trace and bound each
+    keyframe's launches.  Returns (mapped, a function that puts
+    ``Readback.wait`` back)."""
+    import importlib
+    mapper = system.mapper
+    thread = system.map_worker._thread
+    clock.holder = thread
+    mapped = dict(keyframes=[], window=None, waits=0)
+    try:
+        readback = importlib.import_module(
+            "orb_slam2_tpu_torch.graphs").Readback
+    except (ImportError, AttributeError):   # --tree: an older checkout
+        readback = None
+    if readback is not None:
+        wait = readback.wait
+
+        def counted_wait(self):
+            if threading.current_thread() is thread:
+                mapped["waits"] += 1
+            return wait(self)
+        readback.wait = counted_wait
+    process = syncs.wrap(mapper.process_keyframe, "mapper")
+
+    def marker():
+        window = mapped["window"]
+        if window is not None and window[1] is None:
+            torch.cuda._sleep(1000)
+            return True
+        return False
+
+    def process_keyframe(kid, queue_pressure=False):
+        begun = marker()
+        s0, w0, h0 = syncs.counts["mapper"], mapped["waits"], clock.hold_s
+        stages0 = {k: mapper.timer.total.get(k, 0.0) for k in MAPPER_STAGES}
+        t0 = time.perf_counter()
+        try:
+            return process(kid, queue_pressure)
+        finally:
+            mapped["keyframes"].append(dict(
+                marks=(begun, marker()), kid=kid, start=t0,
+                end=time.perf_counter(),
+                syncs=syncs.counts["mapper"] - s0,
+                waits=mapped["waits"] - w0, held=clock.hold_s - h0,
+                stages={k: mapper.timer.total.get(k, 0.0) - v
+                        for k, v in stages0.items()}))
+    mapper.process_keyframe = process_keyframe
+
+    def restore():
+        if readback is not None:
+            readback.wait = wait
+    return mapped, restore
+
+
+def report_mapper(name, system, mapped, syncs, graphs) -> None:
+    """Path A's mapper lines: captures and replays of each of its graphs
+    (bar: at most graphs.MAXSIZE captures a function), the stage times
+    per keyframe mapped, and the host syncs and result waits per
+    keyframe on the mapping thread."""
+    kfs = mapped["keyframes"]
+    n = max(len(kfs), 1)
+    if graphs:
+        stats = {k: dict(graphs.STATS.get(k, {})) for k in MAPPER_STATS}
+        log(f"{name}: the mapper's graphs (captures, replays) "
+            f"{json.dumps(stats)}")
+        for k, v in stats.items():
+            n_cap = v.get("captures", 0)
+            check(n_cap <= graphs.MAXSIZE, f"{name}: {k} captured {n_cap} "
+                  f"times, more than its {graphs.MAXSIZE} kept")
+    rep = system.mapper.timer.report()
+    per_kf = {k: round(rep[k][1] * 1e3 / n, 2) for k in MAPPER_STAGES
+              if k in rep}
+    med = {k: round(float(np.median([f["stages"][k] for f in kfs])) * 1e3,
+                    2) for k in MAPPER_STAGES} if kfs else {}
+    log(f"{name}: mapper stage times per keyframe mapped, ms over "
+        f"{len(kfs)} keyframes, mean {json.dumps(per_kf)}, median "
+        f"{json.dumps(med)}; keyframe mapping median "
+        f"{np.median([k['end'] - k['start'] for k in kfs]) * 1e3:.1f} ms"
+        if kfs else f"{name}: no keyframe mapped")
+    log(f"{name}: mapping thread, host syncs per keyframe "
+        f"{[k['syncs'] for k in kfs]} ({sum(k['syncs'] for k in kfs) / n:.1f}"
+        f" a keyframe; sites "
+        f"{dict(syncs.sites['mapper'].most_common(8))}), result waits "
+        f"(Readback.wait) per keyframe {[k['waits'] for k in kfs]}, the "
+        f"map lock held per keyframe, ms "
+        f"{[round(k['held'] * 1e3, 1) for k in kfs]}")
 
 
 def phase_bench(device, world, cfg, pipelined: bool = True,
@@ -802,12 +1071,14 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
         return make(image, timestamp, Tcw=Tcw, init_mode=init_mode,
                     started=started)
     system.factory.make = make_counted
-    # the syncs of every extraction and fused dispatch, per frame
+    # the syncs of every extraction and fused dispatch, per frame, and
+    # of each keyframe's mapping on the mapping thread
     syncs = SyncCounter()
     system.factory.start = syncs.wrap(system.factory.start)
     system.tracker._fused_dispatch = syncs.wrap(
         system.tracker._fused_dispatch)
     frame_syncs, frame_captures = [], []
+    mapped, restore_waits = watch_mapper(system, syncs, clock, torch)
 
     def captures():
         return sum(v["captures"] for v in graphs.STATS.values()) \
@@ -818,23 +1089,25 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
         graphs.reset_stats()
     states, starts, frame_ms, cpu_ms, lock_ms = [], [], [], [], []
     prof = None
+    syncs.__enter__()
     for i, T in enumerate(poses):
         if profile and i == PROFILE_FROM:
             prof = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA])
             prof.start()
             torch.cuda._sleep(1000)     # names the tracker's thread
+            mapped["window"] = [time.perf_counter(), None]
         if i == WARM_FRAMES:
             t_window = time.perf_counter()
             system.prefetch(frames[i])
         nxt = frames[i + 1] if i + 1 < len(frames) else None
         if i + 1 == WARM_FRAMES:
             nxt = None
-        n_sync, n_cap = syncs.count, captures()
+        n_sync, n_cap = syncs.counts["tracker"], captures()
         t0, c0, w0 = time.perf_counter(), time.thread_time(), clock.wait_s
         system.track_monocular_with_pose(frames[i], i * 0.1, T,
                                          next_image=nxt)
-        frame_syncs.append(syncs.count - n_sync)
+        frame_syncs.append(syncs.counts["tracker"] - n_sync)
         frame_captures.append(captures() - n_cap)
         starts.append(t0)
         frame_ms.append((time.perf_counter() - t0) * 1e3)
@@ -858,6 +1131,14 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
     track_s = sum(frame_ms) / 1e3
     window = None
     if prof is not None:
+        torch.cuda._sleep(1000)     # closes the tracker's window
+    t0 = time.perf_counter()
+    system.flush_mapping()      # re-raises a mapping-thread exception
+    flush_s = time.perf_counter() - t0
+    if prof is not None:
+        # the trace runs on through the flush, so the keyframe being
+        # mapped as the window closed is counted whole
+        mapped["window"][1] = time.perf_counter()
         torch.cuda.synchronize()
         prof.stop()
         path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -867,10 +1148,9 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
         window = device_window(path, {
             "tracker": threading.main_thread(),
             "mapper": system.map_worker._thread})
-    t0 = time.perf_counter()
-    system.flush_mapping()      # re-raises a mapping-thread exception
-    flush_s = time.perf_counter() - t0
     system.shutdown()
+    syncs.__exit__()
+    restore_waits()
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
@@ -913,12 +1193,13 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
         f"{frame_syncs}; {sum(n for _, n in steady_sync)} over the "
         f"{len(steady_sync)} steady frames (no capture), "
         f"{sum(n for _, n in steady_sync) / max(len(steady_sync), 1):.2f}"
-        f" a frame; sites {dict(syncs.sites.most_common(8))}")
+        f" a frame; sites {dict(syncs.sites['tracker'].most_common(8))}")
     # a checkout from before the graphs (--tree) still has the syncs
     check(sum(n for _, n in steady_sync) == 0 or graphs is None,
           f"{name}: steady frames synchronize with the host in extraction "
           f"or fused dispatch: {[x for x in steady_sync if x[1]]}, sites "
-          f"{dict(syncs.sites)}")
+          f"{dict(syncs.sites['tracker'])}")
+    report_mapper(name, system, mapped, syncs, graphs)
     steady = frame_ms[WARM_FRAMES:]
     fps = (N_FRAMES - WARM_FRAMES) / (t_end - t_window)
     log(f"{name}: {len(ok_idx)}/{N_FRAMES} frames OK (initialized at "
@@ -957,13 +1238,27 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
             f"{w_wall - w_cpu - w_lck:.1f} ms blocked otherwise")
         n_win = N_FRAMES - PROFILE_FROM
         for who, d in sorted(window["threads"].items()):
-            per_frame = (d["launches"] + d["graph_launches"]) / n_win
+            n_launch = d["launches"] + d["graph_launches"]
             log(f"{name} profile, {who}: {d['launches']} kernel launches "
                 f"and {d['graph_launches']} graph launches taking "
-                f"{d['launch_ms']:.1f} ms ({per_frame:.1f} a frame), "
-                f"{d['copies']} copies and fills taking {d['copy_ms']:.1f} "
-                f"ms ({d['copies'] / n_win:.1f} a frame), "
-                f"{d['sync_ms']:.1f} ms in synchronizations")
+                f"{d['launch_ms']:.1f} ms ({n_launch / n_win:.1f} a "
+                f"frame), {d['copies']} copies and fills taking "
+                f"{d['copy_ms']:.1f} ms ({d['copies'] / n_win:.1f} a "
+                f"frame), {d['sync_ms']:.1f} ms in synchronizations")
+        # the mapper's markers, in order: a keyframe begun in the trace
+        # marks its start, one ended in it its end; the segment after a
+        # keyframe's start marker, up to its end marker, is its launches
+        marks = [(kind, i) for i, k in enumerate(mapped["keyframes"])
+                 for kind, m in zip("SE", k["marks"]) if m]
+        segs = window["threads"].get("mapper", {}).get("segments", [])
+        whole = [segs[j] for j in range(min(len(marks), len(segs)) - 1)
+                 if marks[j][0] == "S" and marks[j + 1] == ("E",
+                                                            marks[j][1])]
+        counts = [(g.get("launches", 0), g.get("graph_launches", 0),
+                   g.get("copies", 0)) for g in whole]
+        log(f"{name} profile, mapper: per keyframe begun after frame "
+            f"{PROFILE_FROM}, (kernel launches, graph launches, copies and "
+            f"fills) {counts} ({len(marks)} markers, {len(segs)} traced)")
     log(f"{name}: kernel launches {json.dumps(launches)}")
     log(f"{name}: search launches by rows x columns {json.dumps(shapes)}")
     log(f"{name}: timing report:\n" + system.timing_report())

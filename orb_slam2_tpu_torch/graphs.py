@@ -1,13 +1,15 @@
-"""CUDA graphs for the per-frame programs: the port's counterpart of the
+"""CUDA graphs for the compiled programs: the port's counterpart of the
 JAX package's ``jax.jit``.
 
-The JAX package runs each frame as a few compiled programs, each
-dispatched once (``ops/extractor.make_extractor``,
+The JAX package runs each frame and each mapped keyframe as a few
+compiled programs, each dispatched once (``ops/extractor.make_extractor``,
 ``FrameFactory._pipeline``, ``_track_prior_step`` and
-``_track_prior_chain`` in ``pipeline/tracking.py``).  Run eagerly, the
-same work is thousands of small launches a frame, and the host thread
-that issues them is the frame's bottleneck.  :func:`graphed` captures a
-function once per static signature as a CUDA graph and replays it:
+``_track_prior_chain`` in ``pipeline/tracking.py``; the triangulation,
+fuse and structure-BA chunks of ``pipeline/local_mapping.py`` and the
+vocabulary descent).  Run eagerly, the same work is thousands of small
+launches a frame or keyframe, and the host thread that issues them is
+the bottleneck.  :func:`graphed` captures a function once per static
+signature as a CUDA graph and replays it:
 
 - the key is what ``jax.jit`` retraces on: every argument that is not a
   tensor, by value (the JAX package's ``static_argnames``), each
@@ -15,9 +17,9 @@ function once per static signature as a CUDA graph and replays it:
 - the first call for a key warms the function up with ``WARMUP`` eager
   calls on a side stream (lazy caches, the kernel library), then
   captures one call with ``capture_error_mode="thread_local"`` (the
-  asynchronous mapper keeps launching on the card from its own thread
-  while the tracker captures) and keeps the captured call's input
-  tensors as the graph's static inputs;
+  tracker and the asynchronous mapper each launch and capture from
+  their own thread while the other captures) and keeps the captured
+  call's input tensors as the graph's static inputs;
 - every call copies its tensors into those static inputs, replays the
   graph, and returns fresh clones of the graph's outputs (aliasing
   between outputs kept).  A frame keeps its extraction arrays for the
@@ -79,6 +81,40 @@ def upload(a, device, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
     t = torch.as_tensor(np.asarray(a), dtype=dtype)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+class Readback:
+    """Device outputs on their way to the host.  On the card they are
+    queued as non-blocking copies into pinned host memory right after
+    the launches that make them, followed by an event: a read waits on
+    that event (not on the whole stream, which the other thread shares),
+    and the copies overlap what the host does meanwhile.  A non-blocking
+    copy into pageable memory would be synchronous and undo the overlap;
+    the pinned tensors live here until they are read.  CPU tensors are
+    read as they are."""
+
+    def __init__(self, tensors):
+        self.event = None
+        self._arrays = None
+        if tensors[0].is_cuda:
+            self._host = tuple(
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                .copy_(t, non_blocking=True) for t in tensors)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self._host = tuple(tensors)
+
+    def wait(self):
+        if self.event is not None:
+            self.event.synchronize()
+
+    def arrays(self):
+        """The outputs as numpy arrays (waits for the copies once)."""
+        if self._arrays is None:
+            self.wait()
+            self._arrays = tuple(t.numpy() for t in self._host)
+        return self._arrays
 
 
 def _flatten(out, leaves: list):

@@ -23,11 +23,6 @@ _FEATURE_FIELDS = ("xy", "xy_raw", "response", "angle", "octave",
                    "desc", "valid")
 
 
-def to_host(name: str, t: torch.Tensor) -> np.ndarray:
-    a = t.cpu().numpy()
-    return a.view(np.uint32) if name == "desc" else a
-
-
 def to_device(name: str, a: np.ndarray, device) -> torch.Tensor:
     a = np.array(a)  # an owned, writable copy for torch
     if name == "desc":
@@ -71,9 +66,15 @@ class Frame:
         raise AttributeError(name)
 
     def _materialize(self):
-        for f in _FEATURE_FIELDS:
-            if f not in self.__dict__:
-                self.__dict__[f] = to_host(f, self._dev[f])
+        # one read: pinned copies behind one event (graphs.Readback),
+        # then owned host copies, so no pinned block stays held
+        missing = [f for f in _FEATURE_FIELDS if f not in self.__dict__]
+        if not missing:
+            return
+        arrays = graphs.Readback([self._dev[f] for f in missing]).arrays()
+        for f, a in zip(missing, arrays):
+            a = np.array(a)
+            self.__dict__[f] = a.view(np.uint32) if f == "desc" else a
 
     @property
     def n(self) -> int:

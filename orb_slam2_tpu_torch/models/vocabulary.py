@@ -10,7 +10,10 @@ intermediate node for match blocking) runs on the frame's device in
 plain torch: per tree level, gather the current node's k child centers,
 XOR, popcount and take the lowest-index argmin — all features descend
 in lockstep.  (In the JAX package this descent is plain XLA too, outside
-any Pallas kernel.)
+any Pallas kernel, jitted on (k, node_level).)  On the card it replays a
+CUDA graph (``graphs.graphed``) keyed on (k, node_level) and the shapes,
+the row count among them; the per-level centers are tensor arguments
+of the graph, copied in at each replay, never constants of the capture.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import graphs
 from ..matching.core import _min_lowest
 
 
@@ -48,6 +52,12 @@ def transform_device(centers, desc: torch.Tensor, k: int, node_level: int):
         if lvl == node_level - 1:
             node_at = node
     return node, node_at
+
+
+# the descent as a CUDA graph: (desc, k, node_level, *centers)
+_transform_graph = graphs.graphed(
+    lambda desc, k, node_level, *centers: transform_device(
+        centers, desc, k, node_level), "bow_transform")
 
 
 def _unpack_bits(desc: np.ndarray) -> np.ndarray:
@@ -167,8 +177,8 @@ class Vocabulary:
         key = str(torch.device(device))
         dev = cache.get(key)
         if dev is None:
-            dev = tuple(torch.as_tensor(
-                np.asarray(c, np.uint32).view(np.int32), device=device)
+            dev = tuple(graphs.upload(
+                np.asarray(c, np.uint32).view(np.int32), device)
                 for c in self.centers)
             cache[key] = dev
         return dev
@@ -176,8 +186,8 @@ class Vocabulary:
     def transform(self, desc: torch.Tensor):
         """Device transform: (N, 8) int32 -> (word_ids, node_ids) on
         ``desc``'s device."""
-        return transform_device(self.device_arrays(desc.device), desc,
-                                k=self.k, node_level=self.node_level)
+        return _transform_graph(desc, self.k, self.node_level,
+                                *self.device_arrays(desc.device))
 
     # ------------------------------------------------------------------
     def bow_vector_from_words(self, words: np.ndarray) -> dict:

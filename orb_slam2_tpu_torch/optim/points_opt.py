@@ -11,8 +11,11 @@ tile padding; the port uses the plain per-observation form: the (O, 2, 3)
 point Jacobians, reduced per point into (P, 3, 3) normal equations by
 ``segment.IndexSum`` (``index_add_`` that repeats on the card), with
 the same LM schedule (one linearization per iteration, per-point
-accept/reject, damping x0.5 / x4 from 1e-3) and the same Huber
-weighting.
+accept/reject, damping x0.5 / x4 from 1e-3, or from ``lam0``) and the
+same Huber weighting.  ``PointsOptResult.lam`` is the final damping:
+passed back as ``lam0``, a run in chunks of iterations resumes the LM
+where the last chunk left it, so chunks of 5 + 5 iterations give what
+one call of 10 gives (local mapping runs its structure BA so).
 
 Observation layout (flat arrays, length O):
   obs_pt[o]   : point index
@@ -36,6 +39,7 @@ CHI2_MONO = 5.991
 class PointsOptResult(NamedTuple):
     points: torch.Tensor      # (P, 3) optimized positions
     obs_inlier: torch.Tensor  # (O,) bool — obs passes chi2 at solution
+    lam: torch.Tensor         # (P,) final LM damping — pass back as lam0
 
 
 def optimize_points(
@@ -47,11 +51,17 @@ def optimize_points(
     obs_valid: torch.Tensor,
     fx: float, fy: float, cx: float, cy: float,
     iters: int = 10,
+    use_huber: bool = True,
     obs_cam: torch.Tensor | None = None,
+    lam0: torch.Tensor | None = None,
+    longest_obs: int | None = None,
 ) -> PointsOptResult:
+    """``longest_obs``: the most observations of one point, where the
+    caller knows it (``IndexSum``'s ``longest``: then the solve does not
+    wait for the card)."""
     P = points0.shape[0]
     obs_pt = obs_pt.long()
-    per_point = IndexSum(obs_pt, P)
+    per_point = IndexSum(obs_pt, P, longest=longest_obs)
     T = obs_Tcw[obs_cam.long()] if obs_cam is not None else obs_Tcw
     R = T[:, :3, :3]                      # (O, 3, 3)
     t = T[:, :3, 3]                       # (O, 3)
@@ -70,11 +80,16 @@ def optimize_points(
         """Per-point normal equations (H, g) and Huber cost."""
         pc, iz, r, c2 = project(pts)
         z = pc[:, 2]
-        w = obs_isig2 * torch.where(
-            c2 <= CHI2_MONO, torch.ones_like(c2),
-            torch.sqrt(CHI2_MONO / torch.clamp(c2, min=1e-12)))
-        rho = torch.where(c2 > CHI2_MONO,
-                          2.0 * torch.sqrt(c2 * CHI2_MONO) - CHI2_MONO, c2)
+        if use_huber:
+            w = obs_isig2 * torch.where(
+                c2 <= CHI2_MONO, torch.ones_like(c2),
+                torch.sqrt(CHI2_MONO / torch.clamp(c2, min=1e-12)))
+            rho = torch.where(c2 > CHI2_MONO,
+                              2.0 * torch.sqrt(c2 * CHI2_MONO) - CHI2_MONO,
+                              c2)
+        else:
+            w = obs_isig2
+            rho = c2
         w = torch.where(obs_valid & (z > 0), w, torch.zeros_like(w))
         # d(uv)/d(pc) (O, 2, 3) times R: the point Jacobian
         zero = torch.zeros_like(iz)
@@ -96,7 +111,8 @@ def optimize_points(
         return H, g, cost
 
     pts = points0.clone()
-    lam = torch.full((P,), 1e-3, dtype=points0.dtype, device=points0.device)
+    lam = (torch.full((P,), 1e-3, dtype=points0.dtype, device=points0.device)
+           if lam0 is None else lam0)
     H, g, cost = assemble(pts)
     eye = torch.eye(3, dtype=pts.dtype, device=pts.device)
     for _ in range(iters):
@@ -120,7 +136,7 @@ def optimize_points(
 
     pc, _, _, c2 = project(pts)
     inlier = obs_valid & (c2 <= CHI2_MONO) & (pc[:, 2] > 0)
-    return PointsOptResult(points=pts, obs_inlier=inlier)
+    return PointsOptResult(points=pts, obs_inlier=inlier, lam=lam)
 
 
 def _adjugate_sym(H: torch.Tensor):

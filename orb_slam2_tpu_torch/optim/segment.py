@@ -31,10 +31,13 @@ class IndexSum:
     observations, or the row that takes a padded problem's filler) the
     rows are laid out lane by lane and each (lane, target) segment is
     reduced by a block of threads (a tree), as vectors always are.
-    Choosing reads the longest segment back to the host once, when the
-    sum is made."""
+    ``longest`` is the row count of the longest target where the caller
+    knows it (a layout built on the host); otherwise choosing reads it
+    back from the card once, when the sum is made.  Given, nothing here
+    waits for the card, so the sum can be captured in a CUDA graph (the
+    choice is then the caller's static argument)."""
 
-    def __init__(self, idx: torch.Tensor, n: int):
+    def __init__(self, idx: torch.Tensor, n: int, longest: int | None = None):
         self.idx = idx.long()
         self.n = int(n)
         if self.idx.is_cuda:
@@ -43,7 +46,9 @@ class IndexSum:
                 self.idx[self.order],
                 torch.arange(self.n + 1, device=self.idx.device))
             self.lengths = self.starts.diff()
-            self.long = self.n > 0 and int(self.lengths.max()) > LONG_SEGMENTS
+            if longest is None:
+                longest = int(self.lengths.max()) if self.n > 0 else 0
+            self.long = longest > LONG_SEGMENTS
             self._offsets = {}      # lane count -> (lane, target) offsets
 
     def __call__(self, vals: torch.Tensor) -> torch.Tensor:

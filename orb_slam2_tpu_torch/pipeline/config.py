@@ -3,9 +3,7 @@
 Groups the reference's YAML settings (src/Tracking.cc:93-191) and the
 hard-coded thresholds scattered through Tracking/LocalMapping into one
 place, with the reference values as defaults.  Field names and defaults
-are those of the JAX package, except the BA padding floors
-(``pad_min_obs``, ``pad_min_pts``), which only its chunked structure BA
-reads.
+are those of the JAX package.
 """
 from __future__ import annotations
 
@@ -74,9 +72,12 @@ class SlamConfig:
     # power-of-4 buckets starting at these floors (tracking.pad_bucket).
     # The padding decides which rows the searches see, so the port keeps
     # the JAX package's floors to give the same answers on the same
-    # inputs.
+    # inputs.  Every padded size is also a static shape of a CUDA graph
+    # (graphs.py): a few buckets keep the captures per function few.
     pad_min_bound: int = 256    # tracked bound points (fused step L)
     pad_min_cand: int = 256     # local-map candidates (fused step C)
+    pad_min_obs: int = 256      # structure BA observation rows
+    pad_min_pts: int = 256      # structure BA point rows
     # initial row capacity of the device point store (rows are
     # append-only; the store grows by 4x re-allocation past it)
     device_point_capacity: int = 65536

@@ -9,12 +9,30 @@ CreateNewMapPoints -> FusePointsInNeighbors -> LocalBA (structure only
 in pose-prior mode, where the fork fixes every pose; pose-optimizing in
 estimated mode) -> KeyFrameCulling.
 
-Triangulation searches every neighbor with kernel K3; fuse projects
-points into every target with kernel K2.  The JAX package stacks the
-neighbors/targets and runs them with ``lax.map`` in fixed-size chunks
-with compacted readbacks for its slow chip link; the port loops over
-them and reads the results directly.  Loop closing runs at the tail of
-each keyframe (``on_keyframe_processed``).
+The device side of each stage is one of the JAX package's jitted
+programs, here a plain function on tensors that the mapper replays from
+CUDA graphs (``graphs.graphed``; the static arguments are passed by
+value, as the JAX package's ``static_argnames``):
+
+- :func:`_triangulate_neighbors_fused`: the epipolar search (kernel K3)
+  against a chunk of ``TRI_CHUNK`` neighbors, first-neighbor-wins
+  selection, DLT and the gates; the host merges the chunks;
+- :func:`_fuse_stack_rows` / :func:`_fuse_reverse_rows`: this
+  keyframe's points into a chunk of ``FUSE_CHUNK`` targets, and the
+  targets' points into it (kernel K2), the point rows gathered on the
+  device from the ``DevicePoints`` snapshot, one int16 per (target,
+  point) with the TH_LOW gate applied; :func:`_compact_matches` lists
+  the matches for the read;
+- :func:`_sba_step_gathered`: ``SBA_CHUNK`` LM iterations of the
+  structure-only BA, its damping threaded from chunk to chunk.
+
+Chunks and padding are the JAX package's: every shape is a power-of-4
+bucket, so a run needs a few captures per function, and the tracker's
+replays slot in between the chunks on the one stream.  Host arrays go up
+through pinned memory (``graphs.upload``) and every stage reads its
+results back through pinned copies and one event (``graphs.Readback``).
+Loop closing runs at the tail of each keyframe
+(``on_keyframe_processed``).
 
 :class:`AsyncMapper` is the reference's LocalMapping thread: tracking
 enqueues keyframes and mapping (with loop closing) runs on a worker
@@ -33,10 +51,12 @@ from typing import List
 import numpy as np
 import torch
 
+from .. import graphs
 from ..geom import triangulate
+from ..geom.camera import undistorted_bounds
 from ..matching import search, frustum
 from ..models.mapstore import MapStore
-from ..optim import ba, points_opt
+from ..optim import ba, points_opt, segment
 from ..ops.extractor import level_sigma2
 from ..ops.pyramid import scale_factors as pyramid_scale_factors
 from .config import SlamConfig
@@ -44,6 +64,11 @@ from .tracking import pad_bucket
 from ..utils.logging import get_logger, StageTimer
 
 log = get_logger("local_mapping")
+
+TRI_CHUNK = 5       # neighbors per triangulation call
+FUSE_CHUNK = 8      # targets per forward-fuse call
+SBA_CHUNK = 5       # LM iterations per structure-BA call
+FUSE_CAP = 2048     # matches listed per compacted fuse result
 
 
 def compute_F12(T1: np.ndarray, T2: np.ndarray, K: np.ndarray) -> np.ndarray:
@@ -64,10 +89,10 @@ def compute_F12(T1: np.ndarray, T2: np.ndarray, K: np.ndarray) -> np.ndarray:
 def _fuse_one(pos, normal, min_d, max_d, pvalid, desc,
               Tcw, kxy, koct, kdesc, kvalid,
               scale_factors, fx, fy, cx, cy, bounds,
-              n_levels, log_scale, th=3.0, ratio=1.0):
+              n_levels, log_scale, th, ratio):
     """Project a point set into one keyframe and search it (kernel K2);
     returns the matched feature per point, or -1, with the TH_LOW
-    merge gate applied."""
+    merge gate applied, as int16."""
     fr = frustum.is_in_frustum(
         pos, normal, min_d, max_d, pvalid, Tcw,
         fx, fy, cx, cy, bounds, n_levels, log_scale)
@@ -76,7 +101,7 @@ def _fuse_one(pos, normal, min_d, max_d, pvalid, desc,
         kxy, koct, kdesc, kvalid, torch.zeros_like(kvalid),
         scale_factors, th=th, ratio=ratio)
     return torch.where(r.valid & (r.dist <= 50), r.idx,
-                       torch.full_like(r.idx, -1))
+                       torch.full_like(r.idx, -1)).to(torch.int16)
 
 
 def _gather_rows(pt_pos, pt_desc, pt_normal, pt_min, pt_max, pt_alive,
@@ -88,15 +113,66 @@ def _gather_rows(pt_pos, pt_desc, pt_normal, pt_min, pt_max, pt_alive,
             (rows >= 0) & pt_alive[r], pt_desc[r])
 
 
-def _triangulate_neighbors(
+def _fuse_stack_rows(pt_pos, pt_desc, pt_normal, pt_min, pt_max,
+                     pt_alive, rows,
+                     Tcw_s, kxy_s, koct_s, kdesc_s, kvalid_s,
+                     scale_factors, fx, fy, cx, cy, bounds,
+                     n_levels, log_scale, th=3.0, ratio=1.0):
+    """Forward fuse: the point rows ``rows`` (-1 = empty slot) of the
+    device point store projected into each of a stack of keyframes and
+    searched there.  Returns (B, P) int16: the matched feature or -1."""
+    pts = _gather_rows(pt_pos, pt_desc, pt_normal, pt_min, pt_max,
+                       pt_alive, rows)
+    return torch.stack([_fuse_one(
+        *pts, Tcw_s[b], kxy_s[b], koct_s[b], kdesc_s[b], kvalid_s[b],
+        scale_factors, fx, fy, cx, cy, bounds, n_levels, log_scale, th,
+        ratio) for b in range(Tcw_s.shape[0])])
+
+
+def _fuse_reverse_rows(pt_pos, pt_desc, pt_normal, pt_min, pt_max,
+                       pt_alive, rows,
+                       Tcw, kxy, koct, kdesc, kvalid,
+                       scale_factors, fx, fy, cx, cy, bounds,
+                       n_levels, log_scale, th=3.0, ratio=1.0):
+    """Reverse fuse: the point rows ``rows`` into ONE keyframe.
+    Returns (P,) int16: the matched feature or -1."""
+    return _fuse_one(*_gather_rows(pt_pos, pt_desc, pt_normal, pt_min,
+                                   pt_max, pt_alive, rows),
+                     Tcw, kxy, koct, kdesc, kvalid,
+                     scale_factors, fx, fy, cx, cy, bounds,
+                     n_levels, log_scale, th, ratio)
+
+
+def _compact_matches(sfeat, cap):
+    """(..., P) int16 matched-feature-or--1 -> (flat positions (cap,)
+    int32, feature ids (cap,) int16, match count () int32).
+
+    The first ``cap`` matches in flat order, the rest of the list 0 (as
+    ``jnp.nonzero(size=cap, fill_value=0)``): a running count places
+    each match, and a scatter writes it; entries past the list land in a
+    spare slot.  ``count > cap`` makes the caller read the full
+    matrix."""
+    flat = sfeat.reshape(-1)
+    matched = flat >= 0
+    pos = torch.cumsum(matched.to(torch.int32), 0) - 1
+    slot = torch.where(matched & (pos < cap), pos.long(),
+                       torch.full_like(pos, cap, dtype=torch.long))
+    rows = torch.zeros(cap + 1, dtype=torch.int32, device=flat.device)
+    rows.scatter_(0, slot, torch.arange(
+        flat.shape[0], dtype=torch.int32, device=flat.device))
+    rows = rows[:cap]
+    return rows, flat[rows.long()], matched.sum(dtype=torch.int32)
+
+
+def _triangulate_neighbors_fused(
         xy1, desc1, valid1, octave1, Tcw1,
         xy2_s, desc2_s, valid2_s, oct2_s,
-        F12_s, epi_s, Tcw2_s, o2_s,
+        F12_s, epi_s, Tcw2_s, o2_s, nb_valid,
         K, sigma2, scale_factors,
         fx, fy, cx, cy, scale_ratio_factor):
-    """The device side of CreateNewMapPoints:
+    """The device side of CreateNewMapPoints for a chunk of neighbors:
 
-    1. the epipolar-gated search (kernel K3) against every neighbor,
+    1. the epipolar-gated search (kernel K3) against each neighbor,
     2. first-neighbor-wins pair selection per KF1 row (the reference
        binds a feature to the first neighbor that matches it,
        src/LocalMapping.cc:327-346),
@@ -104,8 +180,9 @@ def _triangulate_neighbors(
     4. depth/reprojection/parallax gates + the scale-consistency gate
        (src/LocalMapping.cc:380-470).
 
-    Neighbor tensors are stacked (B, n2, ...).  Returns per KF1 row
-    (good, nb, col, has)."""
+    Neighbor tensors are stacked (B, n2, ...); rows of ``nb_valid``
+    False are padding and match nothing.  Returns per KF1 row (good,
+    nb, col, has): nb and col int32."""
     sidx, svalid = [], []
     for b in range(xy2_s.shape[0]):
         r = search.search_for_triangulation(
@@ -115,7 +192,7 @@ def _triangulate_neighbors(
         sidx.append(r.idx)
         svalid.append(r.valid)
     sidx = torch.stack(sidx)
-    svalid = torch.stack(svalid)
+    svalid = torch.stack(svalid) & nb_valid[:, None]
 
     has = svalid.any(dim=0)                              # (N1,)
     nb = svalid.to(torch.uint8).argmax(dim=0)            # first True
@@ -142,7 +219,22 @@ def _triangulate_neighbors(
     good = (has & chk.good
             & (ratio_dist < ratio_oct * scale_ratio_factor)
             & (ratio_dist > ratio_oct / scale_ratio_factor))
-    return good, nb, col, has
+    return good, nb.to(torch.int32), col.to(torch.int32), has
+
+
+def _merge_chunks(parts, chunk: int):
+    """The host merge of triangulation chunks (numpy (good, nb, col,
+    has) each): the first chunk with a match wins a row, which is the
+    first matching neighbor, as chunks keep the neighbor order."""
+    good, nb, col, claimed = (np.array(a) for a in parts[0])
+    nb, col = nb.astype(np.int64), col.astype(np.int64)
+    for ci, (g2, nb2, col2, h2) in enumerate(parts[1:], 1):
+        fresh = ~claimed & h2
+        good[fresh] = g2[fresh]
+        nb[fresh] = nb2[fresh] + ci * chunk
+        col[fresh] = col2[fresh]
+        claimed |= h2
+    return good, nb, col
 
 
 def gather_ba_problem(store: MapStore, kf_ids: List[int], inv_sigma2):
@@ -180,12 +272,41 @@ def gather_ba_problem(store: MapStore, kf_ids: List[int], inv_sigma2):
     return [int(p) for p in uniq], (obs_kf, obs_pt, obs_uv, obs_sig, meta)
 
 
+def _sba_step_gathered(points0, obs_pt, kf_poses, xy_stack, oct_stack,
+                       inv_sigma2_lvl, obs_cam, obs_fi, n_obs,
+                       fx, fy, cx, cy, iters, lam0, longest_obs):
+    """A chunk of ``iters`` structure-BA iterations with the
+    measurements gathered on the device from the keyframes' feature
+    stacks.  Padding is a suffix: observation o is real when o <
+    ``n_obs`` (a 0-d tensor, so one capture serves every count).
+    ``longest_obs`` is the most observations of one point row, known on
+    the host (``IndexSum``'s choice, made without a read).  Returns the
+    points, the inlier verdicts and the damping for the next chunk."""
+    obs_valid = torch.arange(obs_pt.shape[0], device=obs_pt.device) < n_obs
+    obs_uv = xy_stack[obs_cam, obs_fi]
+    obs_sig = inv_sigma2_lvl[oct_stack[obs_cam, obs_fi].long()]
+    res = points_opt.optimize_points(
+        points0, obs_pt, kf_poses, obs_uv, obs_sig, obs_valid,
+        fx, fy, cx, cy, iters=iters, obs_cam=obs_cam, lam0=lam0,
+        longest_obs=longest_obs)
+    return res.points, res.obs_inlier, res.lam
+
+
 def run_structure_ba(store: MapStore, kf_ids: List[int], cfg: SlamConfig,
-                     iters: int = 10, timer: StageTimer | None = None):
+                     iters: int = 10, timer: StageTimer | None = None,
+                     step=_sba_step_gathered):
     """Fixed-pose local BA == independent point refinement
     (src/Optimizer.cc:328-637 with fixedPose=true), on the store's
-    device.  Measurements gather on the device from the keyframes'
-    feature tensors; only index vectors are uploaded."""
+    device, in chunks of ``SBA_CHUNK`` iterations through ``step``
+    (:func:`_sba_step_gathered`, or the mapper's CUDA graph of it).
+
+    The JAX package's buckets: observations and points by
+    ``pad_bucket`` from ``cfg.pad_min_obs`` / ``cfg.pad_min_pts``,
+    keyframes to a multiple of 32 with filler rows copied from the first
+    (identity poses).  The point rows keep one spare past the points,
+    which takes every padded observation, so padding never lengthens a
+    real point's sum.  Only index vectors go up; the measurements gather
+    on the device from the keyframes' feature tensors."""
     timer = timer or StageTimer()
     dev = store.device
     inv_sigma2 = (1.0 / level_sigma2(cfg.orb)).astype(np.float32)
@@ -195,34 +316,49 @@ def run_structure_ba(store: MapStore, kf_ids: List[int], cfg: SlamConfig,
         return
     obs_kf, obs_pt, _, _, meta = packed
     meta_kid, meta_fi = meta
+    n_obs, n_pts = len(obs_kf), len(pids)
     points0 = np.asarray(store.mp_pos[np.asarray(pids, np.int64)])
-    poses = np.stack([store.kfs[k].Tcw for k in kf_ids]).astype(np.float32)
+    O = pad_bucket(n_obs, cfg.pad_min_obs)
+    P = pad_bucket(n_pts + 1, cfg.pad_min_pts)
+    Kp = pad_bucket(len(kf_ids), 32)
+    pad_o = O - n_obs
+    poses = np.concatenate(
+        [np.stack([store.kfs[k].Tcw for k in kf_ids]),
+         np.broadcast_to(np.eye(4, dtype=np.float32),
+                         (Kp - len(kf_ids), 4, 4))]).astype(np.float32)
+    obs_pt_p = np.concatenate([obs_pt, np.full(pad_o, P - 1)]).astype(
+        np.int64)
+    # only the side of LONG_SEGMENTS it falls on chooses the reduction,
+    # so one capture serves every count on that side
+    longest = min(int(np.bincount(obs_pt_p, minlength=P).max()),
+                  segment.LONG_SEGMENTS + 1)
     fx, fy, cx, cy = (float(cfg.cam.fx), float(cfg.cam.fy),
                       float(cfg.cam.cx), float(cfg.cam.cy))
-    n2 = max(store.kfs[k].frame.n for k in kf_ids)
+    frames = [store.kfs[k].frame for k in kf_ids]
+    frames += [frames[0]] * (Kp - len(kf_ids))
+    n2 = max(f.n for f in frames)
     with timer.time("sba/device"), store.unlocked():
-        xy_stack = torch.stack(
-            [store.kfs[k].frame.dev_padded("xy", n2) for k in kf_ids])
-        oct_stack = torch.stack(
-            [store.kfs[k].frame.dev_padded("octave", n2) for k in kf_ids])
-        obs_cam = torch.as_tensor(obs_kf.astype(np.int64), device=dev)
-        obs_fi = torch.as_tensor(meta_fi.astype(np.int64), device=dev)
-        isig = torch.as_tensor(inv_sigma2, device=dev)
-        res = points_opt.optimize_points(
-            torch.as_tensor(points0, device=dev),
-            torch.as_tensor(obs_pt.astype(np.int64), device=dev),
-            torch.as_tensor(poses, device=dev),
-            xy_stack[obs_cam, obs_fi],
-            isig[oct_stack[obs_cam, obs_fi].long()],
-            torch.ones(len(obs_kf), dtype=torch.bool, device=dev),
-            fx, fy, cx, cy, iters=iters, obs_cam=obs_cam)
-        new_pts = res.points.cpu().numpy()
-        inl = res.obs_inlier.cpu().numpy()
+        def up(a):
+            return graphs.upload(a, dev)
+        xy_stack = torch.stack([f.dev_padded("xy", n2) for f in frames])
+        oct_stack = torch.stack([f.dev_padded("octave", n2)
+                                 for f in frames])
+        pts = up(np.pad(points0, ((0, P - n_pts), (0, 0))))
+        args = (up(obs_pt_p), up(poses), xy_stack, oct_stack,
+                up(inv_sigma2),
+                up(np.pad(obs_kf.astype(np.int64), (0, pad_o))),
+                up(np.pad(meta_fi.astype(np.int64), (0, pad_o))),
+                up(np.int64(n_obs)))
+        lam = torch.full((P,), 1e-3, dtype=torch.float32, device=dev)
+        for done in range(0, iters, SBA_CHUNK):
+            pts, inl, lam = step(pts, *args, fx, fy, cx, cy,
+                                 min(SBA_CHUNK, iters - done), lam, longest)
+        new_pts, inl = graphs.Readback((pts, inl)).arrays()
     with timer.time("sba/apply"):
-        store.mp_pos[np.asarray(pids, np.int64)] = new_pts
+        store.mp_pos[np.asarray(pids, np.int64)] = new_pts[:n_pts]
         # erase outlier observations (the reference's post-BA edge
         # removal, src/Optimizer.cc:560-600)
-        for o in np.where(~inl)[0]:
+        for o in np.where(~inl[:n_obs])[0]:
             pid = pids[obs_pt[o]]
             if store.mp_valid[pid]:
                 store.erase_observation(pid, int(meta_kid[o]))
@@ -231,16 +367,19 @@ def run_structure_ba(store: MapStore, kf_ids: List[int], cfg: SlamConfig,
 
 def run_local_ba(store: MapStore, center_kf: int, cfg: SlamConfig,
                  fixed_pose: bool = False, iters: int = 10,
-                 timer: StageTimer | None = None):
+                 timer: StageTimer | None = None,
+                 step=_sba_step_gathered):
     """LocalBundleAdjustment (src/Optimizer.cc:328-637): local KFs = the
     center and its covisibles; fixed KFs = every other observer of the
     local points, plus KF 0 and KF 1 (the initial pair holds the gauge
     and the scale).  ``fixed_pose`` (the fork's pose-prior mode) fixes
-    every pose: structure-only BA."""
+    every pose: structure-only BA, chunked through ``step``
+    (:func:`run_structure_ba`)."""
     local = [center_kf] + [k for k in store.covis[center_kf]
                            if store.kfs[k].valid]
     if fixed_pose:
-        run_structure_ba(store, local, cfg, iters=iters, timer=timer)
+        run_structure_ba(store, local, cfg, iters=iters, timer=timer,
+                         step=step)
         return
     timer = timer or StageTimer()
     with timer.time("lba/gather"):
@@ -308,7 +447,7 @@ def run_local_ba(store: MapStore, center_kf: int, cfg: SlamConfig,
     dev = store.device
 
     def t(a):
-        return torch.as_tensor(np.asarray(a), device=dev)
+        return graphs.upload(a, dev)
 
     with timer.time("lba/device"), store.unlocked():
         res = ba.bundle_adjust(
@@ -321,8 +460,8 @@ def run_local_ba(store: MapStore, center_kf: int, cfg: SlamConfig,
             t(np.pad(fixed_mask, (0, K - len(all_kfs)),
                      constant_values=True)),
             fx, fy, cx, cy, iters=iters, cg_iters=20)
-        new_poses, new_pts, inl = (a.cpu().numpy() for a in (
-            res.cam_Tcw, res.points, res.obs_inlier))
+        new_poses, new_pts, inl = graphs.Readback(
+            (res.cam_Tcw, res.points, res.obs_inlier)).arrays()
     with timer.time("lba/apply"):
         for i, kid in enumerate(all_kfs):
             if not fixed_mask[i]:
@@ -350,10 +489,35 @@ class LocalMapper:
         self.sigma2 = sigma2
         self.inv_sigma2 = (1.0 / sigma2).astype(np.float32)
         self.log_scale = float(np.log(cfg.orb.scale_factor))
+        self._consts = {}   # device -> (K, sigma2, scale factors)
+        # the device programs as CUDA graphs (the JAX package's jitted
+        # functions); each looks its module function up at each call
+        self._tri_step = graphs.graphed(
+            lambda *a: _triangulate_neighbors_fused(*a), "triangulate")
+        self._fuse_fwd = graphs.graphed(
+            lambda *a: _fuse_stack_rows(*a), "fuse_forward")
+        self._fuse_rev = graphs.graphed(
+            lambda *a: _fuse_reverse_rows(*a), "fuse_reverse")
+        self._compact = graphs.graphed(
+            lambda *a: _compact_matches(*a), "compact_matches")
+        self._sba_step = graphs.graphed(
+            lambda *a: _sba_step_gathered(*a), "sba_step")
 
-    def _t(self, a, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype,
-                               device=self.store.device)
+    def _t(self, a) -> torch.Tensor:
+        """Host array -> tensor on the store's device, without waiting
+        for the card (``graphs.upload``)."""
+        return graphs.upload(a, self.store.device)
+
+    def _const(self):
+        """(K, sigma2, scale factors) float32 on the store's device,
+        uploaded once."""
+        dev = self.store.device
+        c = self._consts.get(dev)
+        if c is None:
+            c = self._consts[dev] = tuple(self._t(np.asarray(
+                a, np.float32)) for a in (self.cfg.cam.K, self.sigma2,
+                                           self.scale_factors))
+        return c
 
     # ------------------------------------------------------------------
     def process_keyframe(self, kid: int, queue_pressure: bool = False):
@@ -401,7 +565,7 @@ class LocalMapper:
                     run_local_ba(store, kid, self.cfg,
                                  fixed_pose=self.cfg.pose_prior,
                                  iters=self.cfg.local_ba_iters,
-                                 timer=self.timer)
+                                 timer=self.timer, step=self._sba_step)
             store.yield_lock()
         with self.timer.time("mapping/cull_keyframes"):
             self._cull_keyframes(kid)
@@ -468,35 +632,51 @@ class LocalMapper:
             if not elig:
                 store.update_connections(kid)
                 return
+            # chunks of TRI_CHUNK neighbors, the last padded with
+            # nb_valid False rows (copies of the chunk's first frame)
             n2 = max(store.kfs[e[0]].frame.n for e in elig)
-            frames2 = [store.kfs[e[0]].frame for e in elig]
-            valid2 = np.zeros((len(elig), n2), bool)
-            for b, f2 in enumerate(frames2):
-                valid2[b, :f2.n] = (f2.mp_ids < 0) & f2.valid
-
+            chunks = []
+            for c0 in range(0, len(elig), TRI_CHUNK):
+                sub = elig[c0:c0 + TRI_CHUNK]
+                frames2 = [store.kfs[e[0]].frame for e in sub]
+                frames2 += [frames2[0]] * (TRI_CHUNK - len(sub))
+                valid2 = np.zeros((TRI_CHUNK, n2), bool)
+                F12_s = np.tile(np.eye(3, dtype=np.float32),
+                                (TRI_CHUNK, 1, 1))
+                epi_s = np.zeros((TRI_CHUNK, 2), np.float32)
+                Tcw2_s = np.tile(np.eye(4, dtype=np.float32),
+                                 (TRI_CHUNK, 1, 1))
+                o2_s = np.zeros((TRI_CHUNK, 3), np.float32)
+                for j, (kid2, F12, uv_e, o2) in enumerate(sub):
+                    f2 = frames2[j]
+                    valid2[j, :f2.n] = (f2.mp_ids < 0) & f2.valid
+                    F12_s[j], epi_s[j], o2_s[j] = F12, uv_e, o2
+                    Tcw2_s[j] = store.kfs[kid2].Tcw
+                chunks.append((frames2, valid2, F12_s, epi_s, Tcw2_s, o2_s,
+                               np.arange(TRI_CHUNK) < len(sub)))
             Tcw1 = kf1.Tcw.copy()
-            Tcw2 = np.stack([store.kfs[e[0]].Tcw for e in elig]).astype(
-                np.float32)
 
         with self.timer.time("tri/device"), store.unlocked():
-            good, nb, col, _ = _triangulate_neighbors(
-                f1.dev("xy"), f1.dev("desc"), self._t(unbound1),
-                f1.dev("octave"), self._t(Tcw1),
-                torch.stack([fr.dev_padded("xy", n2) for fr in frames2]),
-                torch.stack([fr.dev_padded("desc", n2) for fr in frames2]),
-                self._t(valid2),
-                torch.stack([fr.dev_padded("octave", n2) for fr in frames2]),
-                self._t(np.stack([e[1] for e in elig])),
-                self._t(np.stack([e[2] for e in elig])),
-                self._t(Tcw2),
-                self._t(np.stack([e[3] for e in elig]).astype(np.float32)),
-                self._t(K.astype(np.float32)),
-                self._t(self.sigma2.astype(np.float32)),
-                self._t(self.scale_factors.astype(np.float32)),
-                fx, fy, cx, cy, float(1.5 * cfg.orb.scale_factor))
-            good = good.cpu().numpy()
-            nb = nb.cpu().numpy().astype(np.int64)
-            col = col.cpu().numpy().astype(np.int64)
+            K_d, sigma2_d, scales_d = self._const()
+            t = self._t
+            head = (f1.dev("xy"), f1.dev("desc"), t(unbound1),
+                    f1.dev("octave"), t(Tcw1))
+            outs = []
+            for frames2, valid2, *host, nb_valid in chunks:
+                outs.append(self._tri_step(
+                    *head,
+                    torch.stack([fr.dev_padded("xy", n2) for fr in frames2]),
+                    torch.stack([fr.dev_padded("desc", n2)
+                                 for fr in frames2]),
+                    t(valid2),
+                    torch.stack([fr.dev_padded("octave", n2)
+                                 for fr in frames2]),
+                    *(t(a) for a in host), t(nb_valid),
+                    K_d, sigma2_d, scales_d,
+                    fx, fy, cx, cy, float(1.5 * cfg.orb.scale_factor)))
+            flat = graphs.Readback([a for o in outs for a in o]).arrays()
+            good, nb, col = _merge_chunks(
+                [flat[i:i + 4] for i in range(0, len(flat), 4)], TRI_CHUNK)
 
         with self.timer.time("tri/apply"):
             N1 = f1.n
@@ -589,9 +769,10 @@ class LocalMapper:
 
     def _fuse_combined(self, kid: int, target_kids: List[int],
                        own: List[int], cand: List[int]):
-        """Forward fuse (this KF's points into every target) and reverse
-        fuse (the targets' points into this KF), each a K2 search, then
-        the host merge."""
+        """Forward fuse (this KF's points into every target, in chunks
+        of FUSE_CHUNK targets) and reverse fuse (the targets' points
+        into this KF), each a K2 search, one read of the compacted
+        match lists, then the host merge."""
         store = self.store
         cfg = self.cfg
         f0 = store.kfs[kid].frame
@@ -604,36 +785,57 @@ class LocalMapper:
         with self.timer.time("fuse/sync"):
             store.dev_points.sync(store)
             dp = store.dev_points.snapshot()
-        fx, fy, cx, cy = (float(cfg.cam.fx), float(cfg.cam.fy),
-                          float(cfg.cam.cx), float(cfg.cam.cy))
-        from ..geom.camera import undistorted_bounds
-        geo = dict(scale_factors=self._t(self.scale_factors),
-                   fx=fx, fy=fy, cx=cx, cy=cy,
-                   bounds=undistorted_bounds(cfg.cam),
-                   n_levels=cfg.orb.n_levels, log_scale=self.log_scale)
-        poses = [store.kfs[t].Tcw.copy() for t in target_kids]
+        n2 = max(store.kfs[t].frame.n for t in target_kids)
+        chunks = []
+        for c0 in range(0, len(target_kids), FUSE_CHUNK):
+            sub = [store.kfs[t] for t in target_kids[c0:c0 + FUSE_CHUNK]]
+            frames = [kf.frame for kf in sub]
+            frames += [frames[0]] * (FUSE_CHUNK - len(sub))
+            Tcw_s = np.tile(np.eye(4, dtype=np.float32), (FUSE_CHUNK, 1, 1))
+            kvalid = np.zeros((FUSE_CHUNK, n2), bool)
+            for b, kf in enumerate(sub):
+                Tcw_s[b] = kf.Tcw
+                kvalid[b, :kf.frame.n] = kf.frame.valid
+            chunks.append((frames, Tcw_s, kvalid))
         pose0 = store.kfs[kid].Tcw.copy()
-        frames = [store.kfs[t].frame for t in target_kids]
+        geo = (float(cfg.cam.fx), float(cfg.cam.fy), float(cfg.cam.cx),
+               float(cfg.cam.cy), undistorted_bounds(cfg.cam),
+               cfg.orb.n_levels, self.log_scale, 3.0, 1.0)
         with self.timer.time("fuse/device"), store.unlocked():
-            own_pts = _gather_rows(*dp, self._t(own_rows))
-            fwd = []
-            for fr, T in zip(frames, poses):
-                fwd.append(_fuse_one(
-                    *own_pts, self._t(T), fr.dev("xy"),
-                    fr.dev("octave"), fr.dev("desc"), fr.dev("valid"),
-                    **geo))
-            rev = _fuse_one(
-                *_gather_rows(*dp, self._t(cand_rows)),
-                self._t(pose0), f0.dev("xy"), f0.dev("octave"),
-                f0.dev("desc"), f0.dev("valid"), **geo)
+            scales_d = self._const()[2]
+            t = self._t
+            own_d = t(own_rows)
+            fwd = [self._fuse_fwd(
+                *dp, own_d, t(Tcw_s),
+                torch.stack([fr.dev_padded("xy", n2) for fr in frames]),
+                torch.stack([fr.dev_padded("octave", n2) for fr in frames]),
+                torch.stack([fr.dev_padded("desc", n2) for fr in frames]),
+                t(kvalid), scales_d, *geo)
+                for frames, Tcw_s, kvalid in chunks]
+            rev = self._fuse_rev(
+                *dp, t(cand_rows), t(pose0), f0.dev("xy"), f0.dev("octave"),
+                f0.dev("desc"), f0.dev("valid"), scales_d, *geo)
+            comp = [self._compact(m, FUSE_CAP) for m in fwd + [rev]]
             with self.timer.time("fuse/read"):
-                sfeat = torch.stack(fwd).cpu().numpy()
-                rev_feat = rev.cpu().numpy()
+                host = graphs.Readback([a for c in comp for a in c]).arrays()
+            # decoded as the JAX package does: the listed matches, or
+            # the full matrix where a list overflowed
+            dense = []
+            for i, full in enumerate(fwd + [rev]):
+                rows_c, feats_c, count = host[3 * i:3 * i + 3]
+                count = int(count)
+                if count > FUSE_CAP:
+                    dense.append(graphs.Readback([full]).arrays()[0])
+                    continue
+                d = np.full(full.shape, -1, np.int16)
+                d.reshape(-1)[rows_c[:count]] = feats_c[:count]
+                dense.append(d)
+        sfeat = np.concatenate(dense[:-1])
         with self.timer.time("fuse/apply"):
             for b, t in enumerate(target_kids):
                 self._apply_fuse(t, own, sfeat[b])
                 store.yield_lock()
-            self._apply_fuse(kid, cand, rev_feat)
+            self._apply_fuse(kid, cand, dense[-1])
 
     def _apply_fuse(self, kid: int, pids: List[int], feat):
         """The fuse decision loop (ORBmatcher::Fuse tail,

@@ -16,6 +16,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .. import graphs
 from ..models.keyframe_db import KeyFrameDatabase
 from ..models.mapstore import MapStore
 from ..models.vocabulary import Vocabulary
@@ -64,9 +65,8 @@ class PlaceRecognition:
         invalid rows) and caches the node ids on the frame for the
         FeatureVector-style SearchByBoW blocking
         (src/ORBmatcher.cc:222-392)."""
-        w_dev, n_dev = self.vocab.transform(frame.dev("desc"))
-        w = w_dev.cpu().numpy()
-        nd = n_dev.cpu().numpy()
+        w, nd = graphs.Readback(
+            self.vocab.transform(frame.dev("desc"))).arrays()
         valid = np.asarray(frame.valid, bool)
         words = w[:len(valid)][valid]
         nodes = np.where(valid, nd[:len(valid)], -1).astype(np.int32)

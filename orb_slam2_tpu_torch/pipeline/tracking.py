@@ -22,8 +22,8 @@ tracking modes:
 ``cfg.pipeline_depth`` fused steps in flight: each step's bound set is
 rebuilt on the device from the previous step's outputs
 (:func:`_track_prior_chain`), its host-facing outputs are copied to
-pinned host memory behind an event (:class:`_Readback`), and the host
-consumes them one or more frames later.
+pinned host memory behind an event (:class:`graphs.Readback`), and the
+host consumes them one or more frames later.
 
 A LOST frame goes to relocalization; when the frame-to-frame match
 fails, the reference-keyframe fallback matches by descriptor, blocked by
@@ -278,39 +278,6 @@ def _track_prior_chain(Tcw,
         th_last, th_local, chi2)
 
 
-class _Readback:
-    """The host-facing outputs of one dispatched fused step, on their
-    way to the host.  On the card they are queued as non-blocking copies
-    into pinned host memory right after the step's launches, followed by
-    an event: a consume waits on that event (not on the whole stream),
-    and the copies overlap what the host does meanwhile.  A non-blocking
-    copy into pageable memory would be synchronous and undo the overlap;
-    the pinned tensors live here until they are read."""
-
-    def __init__(self, tensors):
-        self.event = None
-        self._arrays = None
-        if tensors[0].is_cuda:
-            self._host = tuple(
-                torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                .copy_(t, non_blocking=True) for t in tensors)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self._host = tuple(tensors)
-
-    def wait(self):
-        if self.event is not None:
-            self.event.synchronize()
-
-    def arrays(self):
-        """The outputs as numpy arrays (waits for the copies once)."""
-        if self._arrays is None:
-            self.wait()
-            self._arrays = tuple(t.numpy() for t in self._host)
-        return self._arrays
-
-
 class Tracker:
     def __init__(self, config: SlamConfig, store: MapStore,
                  factory: FrameFactory):
@@ -346,7 +313,7 @@ class Tracker:
         # device-side local-map preparation for the fused step, built at
         # the end of each tracked frame for the next one
         self._prep = None
-        # in-flight pipelined steps, oldest first: (frame, _Readback,
+        # in-flight pipelined steps, oldest first: (frame, graphs.Readback,
         # meta), at most cfg.pipeline_depth
         self._pending = []
         # the device recurrence: the last dispatched step's device
@@ -1038,7 +1005,8 @@ class Tracker:
                 last.dev("octave"), last.dev("desc"), last.dev("angle"),
                 *cur, *common)
 
-    def _fused_dispatch(self, frame: Frame, pre_read_hook=None) -> _Readback:
+    def _fused_dispatch(self, frame: Frame,
+                        pre_read_hook=None) -> graphs.Readback:
         """Queue the fused step for ``frame`` and the copies of its
         host-facing outputs (no read, no wait for the card).  With
         pipelined tracking and a live chain the step is the device
@@ -1066,12 +1034,12 @@ class Tracker:
                     bound_rows=out[6])
             # the copies are queued before the hook queues the next
             # frame's extraction, so they do not wait behind it
-            rb = _Readback(out[:6])
+            rb = graphs.Readback(out[:6])
         if pre_read_hook is not None:
             pre_read_hook()
         return rb
 
-    def _fused_verdict(self, frame: Frame, out: _Readback, p=None) -> str:
+    def _fused_verdict(self, frame: Frame, out: graphs.Readback, p=None) -> str:
         """Consume the fused step's results.  Returns 'ok', 'prior_fail'
         (frame-to-frame match too weak -> reference-KF tracking), or
         'lost' (local-map inliers below threshold,

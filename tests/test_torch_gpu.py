@@ -4,8 +4,10 @@ PyTorch versions on the card; the solvers' per-target sums
 pipelined tracker's pinned result copies and the repeatability of a
 pipelined run; the estimated-pose solvers (pose optimization, EPnP
 RANSAC, the two-view initializer) against the port's own CPU results;
-and the CUDA graphs (``graphs.py``) of the extraction and the fused
-step against their eager calls, with no host sync when warm.
+and the CUDA graphs (``graphs.py``) of the extraction, the fused step
+and the local mapper's programs (triangulation, both fuse directions,
+the compacted match lists, the structure-BA chunks, the vocabulary
+descent) against their eager calls, with no host sync when warm.
 Every test here is marked ``gpu`` and skips without a CUDA device.  This file imports no jax, so it runs on a
 machine without the JAX package:
 
@@ -27,7 +29,7 @@ from orb_slam2_tpu_torch.optim import pnp, pose_opt
 from orb_slam2_tpu_torch.optim.segment import IndexSum
 from orb_slam2_tpu_torch.pipeline.config import SlamConfig
 from orb_slam2_tpu_torch.pipeline.system import System
-from orb_slam2_tpu_torch.pipeline.tracking import _Readback
+from orb_slam2_tpu_torch.graphs import Readback
 from orb_slam2_tpu_torch.utils import synth
 
 torch.set_num_threads(1)
@@ -147,12 +149,16 @@ def _both(fn, args):
     return k
 
 
-@pytest.fixture
-def cuda():
+def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (on the card: python3 -m pytest "
                     "tests/test_torch_gpu.py -m gpu --noconftest)")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def cuda():
+    return cuda_device()
 
 
 @pytest.mark.gpu
@@ -487,7 +493,7 @@ def test_pinned_readback_equals_synchronous_copy(cuda):
             torch.rand(4096, device=cuda, generator=g) > 0.5,
             torch.randint(0, 4096, (16384,), device=cuda, generator=g),
             torch.rand(16384, device=cuda, generator=g) > 0.3)
-    rb = _Readback(outs)
+    rb = Readback(outs)
     big = torch.rand((4096, 4096), device=cuda, generator=g)
     for _ in range(4):
         big = big @ big / 4096.0       # later work on the same stream
@@ -1198,3 +1204,229 @@ def test_graphed_sync_raises_without_eager_fallback(cuda):
     assert lines[0].startswith("raised") and lines[1].startswith("raised")
     assert lines[2] == (f"calls {2 * (graphs.WARMUP + 1)} captures 0"), \
         out.stdout
+
+
+# ----------------------------------------------------------------------
+# the local mapper's CUDA graphs (pipeline/local_mapping.py) against
+# their eager calls
+# ----------------------------------------------------------------------
+MAPPER_GRAPHS = ("_tri_step", "_fuse_fwd", "_fuse_rev", "_compact",
+                 "_sba_step")
+
+
+class _Recorder:
+    """Stands in for a ``graphs.Graphed`` and keeps each call's
+    arguments and outputs."""
+
+    def __init__(self, graph):
+        self.graph = graph
+        self.calls = []
+
+    def __call__(self, *args):
+        out = self.graph(*args)
+        self.calls.append((args, out))
+        return out
+
+
+def _mapper_config(**kw):
+    cam = Intrinsics(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640,
+                     height=480)
+    return SlamConfig(cam=cam, orb=OrbParams(n_features=800, n_levels=4),
+                      fps=10.0, pose_prior=True, init_min_matches=60,
+                      init_min_triangulated=40, init_min_tracked_after_ba=60,
+                      **kw)
+
+
+@pytest.fixture(scope="module")
+def mapped_run():
+    """The 640x480 sweep over 16 frames with sequential mapping and loop
+    detection on the card, every mapper graph and the vocabulary
+    descent's recorded; the map state before each keyframe that was
+    mapped is kept (``interop.mapstore_state``)."""
+    from orb_slam2_tpu_torch import interop
+    from orb_slam2_tpu_torch.models import vocabulary
+    cuda = cuda_device()
+    cfg = _mapper_config()
+    world = synth.make_world(seed=3, device=cuda)
+    poses = synth.aerial_trajectory(16, speed=0.3)
+    system = System(cfg, enable_loop_closing=True, device=cuda)
+    mapper = system.mapper
+    rec = {name: _Recorder(getattr(mapper, name)) for name in MAPPER_GRAPHS}
+    for name, r in rec.items():
+        setattr(mapper, name, r)
+    rec["bow"] = vocabulary._transform_graph = _Recorder(
+        vocabulary._transform_graph)
+    before = []
+    process = mapper.process_keyframe
+
+    def snapshot(kid, queue_pressure=False):
+        before.append((kid, interop.mapstore_state(system.store),
+                       list(mapper.recent_points)))
+        process(kid, queue_pressure)
+    mapper.process_keyframe = snapshot
+    try:
+        for i, T in enumerate(poses):
+            system.track_monocular_with_pose(synth.render(world, cfg.cam, T),
+                                             i * 0.1, T)
+        system.flush_tracking()
+        torch.cuda.synchronize()
+    finally:
+        vocabulary._transform_graph = rec["bow"].graph
+    system.shutdown()
+    return dict(cfg=cfg, rec=rec, before=before)
+
+
+def _leaves(out):
+    return (out,) if isinstance(out, torch.Tensor) else tuple(out)
+
+
+@pytest.mark.gpu
+def test_graphed_mapper_functions_equal_eager_on_card(mapped_run):
+    """Every call the mapper made through its graphs (triangulation,
+    both fuse directions, the compacted lists, the structure-BA chunks)
+    and the vocabulary descent, against the eager function on the same
+    arguments: the replayed outputs equal it bit for bit, at the call
+    and replayed once more; each function captured at most MAXSIZE
+    times."""
+    from orb_slam2_tpu_torch import graphs
+    rec = mapped_run["rec"]
+    for name, r in rec.items():
+        assert r.calls, f"{name} was never called"
+        for k, (args, out) in enumerate(r.calls):
+            want = _leaves(r.graph.fn(*args))
+            again = _leaves(r.graph(*args))
+            for j, (a, b, c) in enumerate(zip(_leaves(out), want, again)):
+                assert torch.equal(a, b), (name, k, j)
+                assert torch.equal(c, b), (name, k, j)
+        assert r.graph.n_captures() <= graphs.MAXSIZE
+    assert len(rec["_fuse_fwd"].calls) >= len(rec["_fuse_rev"].calls)
+    assert len(rec["_sba_step"].calls) % 2 == 0     # 10 iterations: 5 + 5
+
+
+@pytest.mark.gpu
+def test_warm_mapper_chunks_make_no_host_sync(mapped_run):
+    """A warm triangulation, fuse and structure-BA chunk (replays of the
+    captures the run made) queue their work without waiting for the
+    card: no host sync under ``set_sync_debug_mode("error")``."""
+    rec = mapped_run["rec"]
+    for name in ("_tri_step", "_fuse_fwd", "_fuse_rev", "_compact",
+                 "_sba_step", "bow"):
+        args, _ = rec[name].calls[-1]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rec[name].graph(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.gpu
+def test_mapper_capture_beside_tracker_replays(mapped_run, cuda):
+    """A fresh capture of the structure-BA chunk and of the
+    triangulation on a second thread while the first thread replays the
+    tracker's fused step 50 times: every result equals its eager call."""
+    import threading
+    from orb_slam2_tpu_torch import graphs
+    from orb_slam2_tpu_torch.pipeline import local_mapping, tracking
+    step = graphs.graphed(tracking._prior_step_core, "prior_step")
+    args = scene_tensors(prior_step_scene("some"), cuda)
+    want = tracking._prior_step_core(*args)
+    step(*args)                              # captured before the thread
+    jobs = [(graphs.graphed(local_mapping._sba_step_gathered, "sba"),
+             mapped_run["rec"]["_sba_step"].calls[-1][0]),
+            (graphs.graphed(local_mapping._triangulate_neighbors_fused,
+                            "tri"),
+             mapped_run["rec"]["_tri_step"].calls[-1][0])]
+    got, errors = [], []
+
+    def mapper_thread():
+        try:
+            for g, a in jobs:
+                got.append((g(*a), g.fn(*a)))
+        except Exception as e:               # re-raised below
+            errors.append(e)
+    th = threading.Thread(target=mapper_thread)
+    th.start()
+    outs = [step(*args) for _ in range(50)]
+    th.join(timeout=600)
+    assert not th.is_alive() and not errors, errors
+    torch.cuda.synchronize()
+    for out in outs:
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+    for g, a in jobs:
+        assert g.n_captures() == 1
+    for out, eager in got:
+        for a, b in zip(out, eager):
+            assert torch.equal(a, b)
+
+
+def _map_one(cuda, state, cfg, eager: bool):
+    """Map keyframe ``kid`` from the map state ``state`` with a fresh
+    LocalMapper, eagerly or through the graphs (its first call of each
+    function captures); returns the launch counts and the map."""
+    from orb_slam2_tpu_torch import graphs, interop
+    from orb_slam2_tpu_torch.pipeline.local_mapping import LocalMapper
+    kid, snap, recent = state
+    store = interop.mapstore_from_numpy(**snap, device=cuda)
+    mapper = LocalMapper(cfg, store)
+    mapper.recent_points = list(recent)
+    call = graphs.Graphed.__call__
+    if eager:
+        graphs.Graphed.__call__ = lambda self, *a: self.fn(*a)
+    try:
+        kernels.reset_launch_counts()
+        mapper.process_keyframe(kid)
+        torch.cuda.synchronize()
+        launches = (dict(kernels.LAUNCHES), dict(kernels.SHAPES))
+    finally:
+        graphs.Graphed.__call__ = call
+    return launches, interop.mapstore_state(store)
+
+
+@pytest.mark.gpu
+def test_mapped_keyframe_launches_as_eager(mapped_run, cuda):
+    """The run's last mapped keyframe mapped again from the state before
+    it, eagerly and through the graphs: the same kernel launches, per
+    kernel and per search shape (a replay counts what its capture
+    launched), and the same map bit for bit (points, validity,
+    observations, keyframes)."""
+    state = mapped_run["before"][-1]
+    eager, m_eager = _map_one(cuda, state, mapped_run["cfg"], eager=True)
+    graph, m_graph = _map_one(cuda, state, mapped_run["cfg"], eager=False)
+    assert eager == graph
+    assert eager[0]["masked_top2_epi"] > 0
+    assert eager[0]["masked_top2_mutual"] > 0
+    for name in ("mp_pos", "mp_valid", "mp_desc", "mp_normal"):
+        np.testing.assert_array_equal(m_eager["points"][name],
+                                      m_graph["points"][name], err_msg=name)
+    assert m_eager["mp_obs"] == m_graph["mp_obs"]
+    assert [k["valid"] for k in m_eager["keyframes"]] == \
+        [k["valid"] for k in m_graph["keyframes"]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [50000, 100])
+@pytest.mark.parametrize("trail", [(), (3,), (3, 3)])
+def test_index_sum_host_given_choice(cuda, n, trail):
+    """``IndexSum`` told the longest segment (``np.bincount(idx).max()``,
+    known on the host) makes the choice the one that reads it makes,
+    and sums bit for bit as it does; made and called with the length
+    given, it waits for the card nowhere (argsort, searchsorted and
+    ``segment_reduce(unsafe=True)`` queue without a sync)."""
+    rng = np.random.default_rng(n + len(trail))
+    idx_np = rng.integers(0, n, 200000)
+    idx = torch.as_tensor(idx_np).to(cuda)
+    vals = torch.as_tensor(rng.standard_normal((200000,) + trail)
+                           .astype(np.float32)).to(cuda)
+    read = IndexSum(idx, n)
+    longest = int(np.bincount(idx_np, minlength=n).max())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        given = IndexSum(idx, n, longest=longest)
+        out = given(vals)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert given.long == read.long == (n == 100)
+    assert torch.equal(out, read(vals))
