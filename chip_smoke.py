@@ -50,10 +50,19 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
   6. path B, a loop that closes at full width: a drifted circuit with
      sequential mapping must run DetectLoop -> Sim3 -> correction ->
      essential graph -> global BA and lower the keyframe ATE below the
-     drifted priors'; prints the loop-closing stage times;
+     drifted priors'; prints the loop-closing stage times and the loop
+     keyframe's split (``LoopWatch``: its stage times, host syncs, each
+     loop program's calls, first-call and warm-call times and a warm
+     call's launches, the loop graphs' captures, bar <= 8 a graph);
+     then phase G on its loop programs: each call of the loop keyframe
+     (the BoW match, the Sim3 RANSAC, both Sim3 searches, OptimizeSim3,
+     the essential graph, global BA) against the same call with every
+     CUDA graph run eagerly, bit for bit, and a warm call of each with
+     no host sync;
   7. path D, estimated-pose mode at full width: path A's world and a
      50-frame sweep through ``track_monocular`` with no pose (the H/F
      two-view bootstrap, the motion model, pose-optimizing local BA,
+     whose ``lba/*`` stage times it prints,
      sequential mapping with loop detection): initialized within 10
      frames, 0.8 of the frames after it OK, the Sim3-aligned ATE of the
      camera centers under 1% of the distance flown; then a noise frame
@@ -94,15 +103,20 @@ counts set to 0 just before it.  The last three lines are a JSON object
 describing the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 
-Four diagnostics print no such lines: ``--profile`` runs path A alone
+Five diagnostics print no such lines: ``--loop-split`` runs path B
+twice with its loop keyframe split (the second run under torch.profiler
+for the keyframe's launches) and then path D, ``--profile``
+runs path A alone
 (pipelined) with torch.profiler over a window of frames (the card's
 busy share; each thread's kernel and graph launches, copies and waits
 for the card, and per frame), ``--repeat-a``
 runs paths A-seq, A, A, A-seq one after another for the spread of their
 fps and frame times, ``--repeat-b`` runs path B four times and says
-where the runs part (``--tree DIR`` runs either of the first two with
-the port imported from the checkout DIR: a parent and its change under
-one script), and ``--kernels-from DIR``
+where the runs part (``--tree DIR`` runs ``--loop-split``,
+``--profile`` or ``--repeat-a`` with the port
+imported from the checkout
+DIR: a parent and its change under one script), and ``--kernels-from
+DIR``
 runs phases 1 and 2 alone with the port imported from DIR
 (``--gloo-worker`` is path F's own subprocess).  To compare
 two commits on one card, unpack the other one (``git archive``) into a
@@ -697,12 +711,22 @@ class SyncCounter:
             self.counts[role] += 1
             self.sites[role][f"{os.path.relpath(filename)}:{lineno}"] += 1
 
-    def wrap(self, fn, role: str = "tracker"):
+    def wrap(self, fn, role: str = "tracker", nested: bool = False):
+        """``fn`` with its syncs counted under ``role``.  Inside another
+        wrapped call the outer role keeps them, unless ``nested``: then
+        this role takes them for the call's length."""
         import torch
 
         def counted(*args, **kwargs):
-            if getattr(self._local, "role", None):  # inside another
-                return fn(*args, **kwargs)
+            outer = getattr(self._local, "role", None)
+            if outer:                               # inside another
+                if not nested:
+                    return fn(*args, **kwargs)
+                self._local.role = role
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self._local.role = outer
             self._local.role = role
             with self._lock:
                 self._active += 1
@@ -1331,13 +1355,279 @@ def record_trail(system, trail: list, frame: list) -> None:
         timer.time = contextlib.contextmanager(timed)
 
 
-def phase_loop(device, cfg, trail: list = None, record: dict = None):
+# the loop closer's programs (the JAX package's jit sites on its path) by
+# label: the LoopCloser attribute that holds its CUDA graph in this
+# checkout's port (None: the module function is the entry point, which
+# replays its solver's step programs), and the module function an older
+# checkout's loop closer calls eagerly (--tree)
+LOOP_PROGRAMS = (
+    ("bow_match", "_match_bow", "matching.search", "search_descriptors"),
+    ("sim3_ransac", "_ransac", "optim.sim3_ransac", "sim3_ransac"),
+    ("search_by_sim3", "_match_sim3", "matching.search", "search_by_sim3"),
+    ("optimize_sim3", None, "optim.sim3_opt", "optimize_sim3"),
+    ("search_by_projection_sim3", "_match_proj", "matching.search",
+     "search_by_projection_sim3"),
+    ("essential_graph", None, "optim.pose_graph", "optimize_pose_graph"),
+    ("global_ba", None, "optim.ba", "bundle_adjust"),
+)
+# their graphs by graphs.STATS name
+LOOP_GRAPHS = ("loop_bow_match", "sim3_ransac", "search_by_sim3",
+               "sim3_round", "search_by_projection_sim3", "pose_graph_step",
+               "pose_graph_cost", "ba_begin", "ba_step", "ba_finish")
+LOOP_STAGES = ("loop/bow", "loop/detect", "loop/sim3", "loop/correct",
+               "loop/essential_graph", "loop/global_ba")
+
+
+def _leaves(out) -> tuple:
+    import torch
+    if isinstance(out, torch.Tensor):
+        return (out,)
+    return tuple(x for o in out for x in _leaves(o))
+
+
+def runtime_counts(fn) -> dict:
+    """The CUDA runtime calls ``fn()`` makes, from a torch.profiler trace
+    (CUDA activity): kernel launches, graph launches, copies and fills,
+    and synchronizations."""
+    import tempfile
+    import torch
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return runtime_split(events)
+
+
+def runtime_split(events) -> dict:
+    out = dict(launches=0, graph_launches=0, copies=0, syncs=0)
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") != "cuda_runtime":
+            continue
+        n = e["name"]
+        if "LaunchKernel" in n:
+            out["launches"] += 1
+        elif "GraphLaunch" in n:
+            out["graph_launches"] += 1
+        elif "Memcpy" in n or "Memset" in n:
+            out["copies"] += 1
+        elif "Synchronize" in n:
+            out["syncs"] += 1
+    return out
+
+
+class LoopWatch:
+    """Path B's loop keyframe, split.  Wraps ``LoopCloser.
+    process_keyframe`` (the loop closer's work on one keyframe: its host
+    syncs, by SyncCounter, under role "loop", its stage times and host
+    time) and each program of LOOP_PROGRAMS (its syncs under its label,
+    its time between two ``torch.cuda.synchronize()`` on the host clock,
+    its arguments and outputs); programs called outside the loop closer
+    (the initialization's BA) are passed through.  Keeps the calls of
+    the first keyframe that closes a loop (``loop_kf``) and each
+    program's first call's time in the run (``first_ms``).  With
+    ``profile``, each keyframe's loop-closer work runs under
+    torch.profiler, and the loop keyframe's runtime calls are kept
+    (``loop_kf["runtime"]``)."""
+
+    def __init__(self, system, syncs, profile: bool = False):
+        import importlib
+        self.lc = lc = system.loop_closer
+        self.syncs = syncs
+        self.profile = profile
+        self.graphed = hasattr(lc, "_ransac")
+        self.first_ms = {}
+        self.loop_kf = None
+        self._cur = None
+        self._restore = []
+        for label, attr, mod, name in LOOP_PROGRAMS:
+            if self.graphed and attr is not None:
+                setattr(lc, attr, self._program(label, getattr(lc, attr)))
+            else:
+                m = importlib.import_module(f"orb_slam2_tpu_torch.{mod}")
+                self._restore.append((m, name, getattr(m, name)))
+                setattr(m, name, self._program(label, getattr(m, name)))
+        counted = syncs.wrap(lc.process_keyframe, "loop")
+
+        def process_keyframe(kid):
+            import torch
+            roles = ("loop",) + tuple(p[0] for p in LOOP_PROGRAMS)
+            self._cur = {p[0]: [] for p in LOOP_PROGRAMS}
+            n0 = lc.n_loops_closed
+            s0 = {r: syncs.counts[r] for r in roles}
+            st0 = {k: lc.timer.total.get(k, 0.0) for k in LOOP_STAGES}
+            prof = None
+            if profile:
+                torch.cuda.synchronize()
+                prof = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])
+                prof.start()
+            t0 = time.perf_counter()
+            try:
+                return counted(kid)
+            finally:
+                ms = (time.perf_counter() - t0) * 1e3
+                calls, self._cur = self._cur, None
+                closed = lc.n_loops_closed > n0 and self.loop_kf is None
+                runtime = None
+                if prof is not None:
+                    torch.cuda.synchronize()
+                    prof.stop()
+                    if closed:
+                        import tempfile
+                        with tempfile.TemporaryDirectory() as root:
+                            path = os.path.join(root, "trace.json")
+                            prof.export_chrome_trace(path)
+                            with open(path) as f:
+                                runtime = runtime_split(
+                                    json.load(f)["traceEvents"])
+                if closed:
+                    self.loop_kf = dict(
+                        kid=kid, ms=ms, calls=calls, runtime=runtime,
+                        syncs={r: syncs.counts[r] - s0[r] for r in roles},
+                        stages={k: (lc.timer.total.get(k, 0.0) - v) * 1e3
+                                for k, v in st0.items()})
+        lc.process_keyframe = process_keyframe
+        # the mapper calls the loop closer through the hook System wired
+        system.mapper.on_keyframe_processed = process_keyframe
+
+    def _program(self, label, fn):
+        import torch
+        counted = self.syncs.wrap(fn, label, nested=True)
+
+        def call(*args, **kwargs):
+            if self._cur is None:
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = counted(*args, **kwargs)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            self.first_ms.setdefault(label, ms)
+            self._cur[label].append(dict(fn=fn, args=args, kwargs=kwargs,
+                                         out=out, ms=ms))
+            return out
+        return call
+
+    def restore(self):
+        for m, name, fn in self._restore:
+            setattr(m, name, fn)
+
+    def report(self, graphs) -> dict:
+        """Prints the loop keyframe's split: stage times, host syncs
+        (the loop closer's and each program's), each program's calls,
+        their time, its first call's time in the run and a warm call's
+        (the last call again, twice, the second timed), a warm call's
+        runtime calls (torch.profiler), and each graph's captures and
+        replays (bar: at most graphs.MAXSIZE)."""
+        import torch
+        lk = self.loop_kf
+        check(lk is not None, "B: no keyframe closed a loop")
+        log(f"B loop keyframe {lk['kid']}: the loop closer's work "
+            f"{lk['ms']:.1f} ms (host clock); stages, ms "
+            f"{json.dumps({k: round(v, 1) for k, v in lk['stages'].items()})}"
+            f"; host syncs {json.dumps(lk['syncs'])} (role loop: outside "
+            f"the programs)")
+        if lk["runtime"] is not None:
+            log(f"B loop keyframe {lk['kid']}, torch.profiler over the "
+                f"loop closer's work: {json.dumps(lk['runtime'])}")
+        split = {}
+        for label, *_ in LOOP_PROGRAMS:
+            calls = lk["calls"][label]
+            if not calls:
+                continue
+            last = calls[-1]
+            warm = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                last["fn"](*last["args"], **last["kwargs"])
+                torch.cuda.synchronize()
+                warm.append((time.perf_counter() - t0) * 1e3)
+            rt = runtime_counts(
+                lambda: last["fn"](*last["args"], **last["kwargs"]))
+            split[label] = dict(
+                calls=len(calls), ms=round(sum(c["ms"] for c in calls), 2),
+                first_ms=round(self.first_ms[label], 2),
+                warm_ms=round(warm[1], 2), warm_runtime=rt)
+            log(f"B loop keyframe, {label}: {json.dumps(split[label])}")
+        if graphs is not None and self.graphed:
+            stats = {k: dict(graphs.STATS.get(k, {})) for k in LOOP_GRAPHS}
+            log(f"B: the loop programs' graphs (captures, replays) over "
+                f"the run {json.dumps(stats)}")
+            for k, v in stats.items():
+                n_cap = v.get("captures", 0)
+                check(n_cap <= graphs.MAXSIZE, f"B: {k} captured {n_cap} "
+                      f"times, more than its {graphs.MAXSIZE} kept")
+        return split
+
+    def check_graphs(self) -> None:
+        """Phase G on path B's first loop correction: every program call
+        of the loop keyframe, made again, against the same call with
+        every graph run eagerly (``graphs.Graphed.__call__`` patched to
+        call its function), bit for bit, and against the output the run
+        got; then each program's last call under
+        ``torch.cuda.set_sync_debug_mode("error")`` (a warm call waits
+        for the card nowhere)."""
+        import torch
+        from orb_slam2_tpu_torch import graphs
+        lk = self.loop_kf
+        checked = {}
+        for label, *_ in LOOP_PROGRAMS:
+            calls = lk["calls"][label]
+            for k, c in enumerate(calls):
+                again = _leaves(c["fn"](*c["args"], **c["kwargs"]))
+                saved = graphs.Graphed.__call__
+                graphs.Graphed.__call__ = lambda g, *a: g.fn(*a)
+                try:
+                    want = _leaves(c["fn"](*c["args"], **c["kwargs"]))
+                finally:
+                    graphs.Graphed.__call__ = saved
+                torch.cuda.synchronize()
+                for j, (a, b, o) in enumerate(zip(again, want,
+                                                  _leaves(c["out"]))):
+                    check(torch.equal(a, b) and torch.equal(o, b),
+                          f"G: B's {label} differs from its eager call in "
+                          f"output {j} (call {k} of the loop keyframe)")
+            if not calls:
+                continue
+            c = calls[-1]
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                c["fn"](*c["args"], **c["kwargs"])
+            except RuntimeError as e:
+                raise SmokeFailure(f"G: a warm call of B's {label} "
+                                   f"synchronizes with the host: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            checked[label] = (len(calls), [tuple(a.shape) for a in c["args"]
+                                           if isinstance(a, torch.Tensor)][:2])
+        missing = [p[0] for p in LOOP_PROGRAMS if p[0] not in checked]
+        check(not missing, f"G: B's loop keyframe made no call of {missing}")
+        log(f"G: path B's loop programs bit-exact against their eager "
+            f"calls on the loop keyframe, and a warm call of each with no "
+            f"host sync; calls and first shapes {json.dumps(checked)}")
+
+
+def phase_loop(device, cfg, trail: list = None, record: dict = None,
+               watch: bool = False, profile: bool = False):
     """Path B: a drifted circuit at bench width, sequential mapping, so
     that whether the loop fires does not depend on thread timing.
     ``trail`` collects record_trail's stage digests; ``record`` receives
     path F's problems from the first loop correction: the global BA's
     inputs (``ba``), the essential graph's (``pose_graph``) and the map
-    as run_global_ba found it (``store``, an ``interop`` snapshot)."""
+    as run_global_ba found it (``store``, an ``interop`` snapshot).
+    ``watch``: the loop keyframe's split (``LoopWatch``), and, where the
+    port graphs the loop programs, phase G's check of them; ``profile``:
+    the loop keyframe's runtime calls too (timings then include the
+    profiler's cost)."""
     import dataclasses
     import torch
     from orb_slam2_tpu_torch import interop, kernels
@@ -1372,6 +1662,13 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None):
         lc._optimize_essential_graph, "group correction + loop fuse",
         "essential graph")
     lc.run_global_ba = staged(lc.run_global_ba, None, "global BA")
+    syncs = lw = None
+    if watch:
+        from orb_slam2_tpu_torch import graphs
+        graphs.reset_stats()
+        syncs = SyncCounter()
+        lw = LoopWatch(system, syncs, profile=profile)
+        syncs.__enter__()
     solvers = (ba.bundle_adjust, pose_graph.optimize_pose_graph)
     if record is not None:
         in_gba = [False]
@@ -1406,20 +1703,26 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None):
     if trail is not None:
         record_trail(system, trail, frame_no)
     kernels.reset_launch_counts()
-    states, frame_ms = [], []
-    for i, (img, Tf) in enumerate(zip(frames, fed)):
-        frame_no[0] = i
-        t0 = time.perf_counter()
-        system.track_monocular_with_pose(img, i * 0.1, Tf)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        states.append(system.state)
-        log(f"B frame {i:2d}: {system.state.name:15s} "
-            f"kfs={system.store.n_valid_keyframes():3d} "
-            f"loops={system.loop_closer.n_loops_closed} "
-            f"{frame_ms[-1]:9.1f} ms")
-    system.shutdown()
-    ba.bundle_adjust, pose_graph.optimize_pose_graph = solvers
+    states, frame_ms, loops = [], [], []
+    try:
+        for i, (img, Tf) in enumerate(zip(frames, fed)):
+            frame_no[0] = i
+            t0 = time.perf_counter()
+            system.track_monocular_with_pose(img, i * 0.1, Tf)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            states.append(system.state)
+            loops.append(system.loop_closer.n_loops_closed)
+            log(f"B frame {i:2d}: {system.state.name:15s} "
+                f"kfs={system.store.n_valid_keyframes():3d} "
+                f"loops={system.loop_closer.n_loops_closed} "
+                f"{frame_ms[-1]:9.1f} ms")
+        system.shutdown()
+    finally:
+        ba.bundle_adjust, pose_graph.optimize_pose_graph = solvers
+        if watch:
+            syncs.__exit__(None, None, None)
+            lw.restore()
     launches = dict(kernels.LAUNCHES)
     n_ok = sum(s == TrackState.OK for s in states)
     last = {k: v for k, v in (lc.last_loop or {}).items()
@@ -1449,8 +1752,16 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None):
         check(launches[name] > 0, f"B: kernel {name} never launched")
     log(f"B: kernel launches {json.dumps(launches)}")
     log("B: loop-closing stages (host clock):\n" + lc.timer.summary())
+    first_loop = next(i for i, n in enumerate(loops) if n >= 1)
     log(f"B: median frame {np.median(frame_ms):.1f} ms, max "
-        f"{np.max(frame_ms):.1f} ms")
+        f"{np.max(frame_ms):.1f} ms; the first loop closed on frame "
+        f"{first_loop}, in {frame_ms[first_loop]:.1f} ms (host clock, the "
+        f"frame's tracking and its keyframe's mapping included)")
+    if watch:
+        from orb_slam2_tpu_torch import graphs
+        lw.report(graphs)
+        if lw.graphed:
+            lw.check_graphs()
     return launches
 
 
@@ -1573,6 +1884,10 @@ def phase_dist(device, record: dict) -> dict:
     devs = [device] * F_SHARDS
     out = {}
     bargs, bkw = record["ba"]
+    # the host's longest-segment counts belong to the padded layout that
+    # run_global_ba gave; the problem below is cut, and the sharded
+    # solvers count their own
+    bkw = {k: v for k, v in bkw.items() if not k.startswith("longest")}
     cams, pts, oc, op, ouv, isig, valid, fixed = bargs[:8]
     fx, fy, cx, cy = bargs[8:12]
     # the problem without run_global_ba's padding (observations past the
@@ -1617,6 +1932,7 @@ def phase_dist(device, record: dict) -> dict:
         out[name] = dict(ms=ms, single_ms=single_ms, **g)
 
     pargs, pkw = record["pose_graph"]
+    pkw = {k: v for k, v in pkw.items() if k != "longest"}
     # without the zero-weight filler edges at the end
     n_edges = int((pargs[4] > 0).sum())
     check(bool((pargs[4][:n_edges] > 0).all()), "F: filler inside the edges")
@@ -1805,6 +2121,12 @@ def phase_estimated(device, world, cfg):
         f"median {np.median(steady):.1f} ms, max {np.max(steady):.1f} ms "
         f"(host clock per call)")
     log(f"D: kernel launches {json.dumps(launches)}")
+    rep = system.mapper.timer.report()
+    lba = {k: dict(calls=rep[k][0], mean_ms=round(rep[k][2] * 1e3, 2),
+                   max_ms=round(system.mapper.timer.maxv[k] * 1e3, 2))
+           for k in ("lba/gather", "lba/device", "lba/apply") if k in rep}
+    log(f"D: the pose-optimizing local BA per keyframe (host clock) "
+        f"{json.dumps(lba)}")
 
     # EPnP relocalization: a noise frame, then a mapped keyframe's image
     rng = np.random.default_rng(0)
@@ -2253,6 +2575,21 @@ def repeat_loop(device, cfg) -> int:
     return 1 if failed else 0
 
 
+def loop_split(device, world, cfg) -> int:
+    """--loop-split: path B with its loop keyframe split (LoopWatch:
+    stage times, host syncs, each program's calls, first-call and
+    warm-call times and a warm call's runtime calls), then path B again
+    with the loop keyframe's loop-closer work under torch.profiler (its
+    kernel and graph launches, copies, synchronizations; the times of
+    that run include the profiler's), then path D (its pose-optimizing
+    local BA's times).  With --tree the port comes from another
+    checkout, whose loop closer may call its programs eagerly."""
+    phase_loop(device, cfg, watch=True)
+    phase_loop(device, cfg, watch=True, profile=True)
+    phase_estimated(device, world, cfg)
+    return 0
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2265,6 +2602,10 @@ def main() -> int:
                          "repeat_bench)")
     ap.add_argument("--repeat-b", action="store_true",
                     help="run only path B, four times (see repeat_loop)")
+    ap.add_argument("--loop-split", action="store_true",
+                    help="run only path B, twice, with its loop keyframe "
+                         "split (the second run under torch.profiler), "
+                         "then path D (see loop_split)")
     ap.add_argument("--gloo-worker", nargs=3,
                     metavar=("HOST:PORT", "RANK", "PROBLEM"),
                     help="path F's process-group rank (started by path F)")
@@ -2274,13 +2615,14 @@ def main() -> int:
                          "orb_slam2_tpu_torch imported from the checkout "
                          "DIR, and print the results as one JSON line")
     ap.add_argument("--tree", metavar="DIR",
-                    help="with --repeat-a or --profile: import "
+                    help="with --repeat-a, --profile or --loop-split: "
+                         "import "
                          "orb_slam2_tpu_torch from the checkout DIR (the "
                          "parent of a change, unpacked by git archive), "
                          "so both run under this script")
     args = ap.parse_args()
-    if args.tree and not (args.repeat_a or args.profile):
-        ap.error("--tree goes with --repeat-a or --profile")
+    if args.tree and not (args.repeat_a or args.profile or args.loop_split):
+        ap.error("--tree goes with --repeat-a, --profile or --loop-split")
     try:
         import torch
     except ImportError:
@@ -2322,6 +2664,12 @@ def main() -> int:
         return repeat_loop(device, cfg)
     if args.tree:
         log(f"the port imported from {root}")
+    if args.loop_split:
+        try:
+            return loop_split(device, world, cfg)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
     if args.repeat_a:
         try:
             return repeat_bench(device, world, cfg)
@@ -2355,7 +2703,7 @@ def main() -> int:
                                                    device))
         launches["hamming_top2"] = phase_k4(device, k4_ref)["hamming_top2"]
         record = {}
-        phase_loop(device, cfg, record=record)
+        phase_loop(device, cfg, record=record, watch=True)
         kernels.reset_launch_counts()
         phase_dist(device, record)
         check(sum(kernels.LAUNCHES.values()) == 0,

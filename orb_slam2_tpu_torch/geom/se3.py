@@ -10,17 +10,23 @@ Conventions
   ``Tcw`` maps world -> camera (src/Frame.cc:231-273).
 - Tangent vectors are ``xi = (upsilon, omega)``: translation part first,
   rotation part last (Sophus ordering).
-- Everything broadcasts over leading batch axes, and every function
-  supports forward-mode autodiff (the Sim3 optimizer takes its Jacobian
-  with ``torch.func.jacfwd``).
+- Everything broadcasts over leading batch axes.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _EPS = 1e-8
+
+
+def broadcast(*shapes) -> tuple:
+    """The broadcast of the shapes.  ``torch.broadcast_shapes`` imports
+    ``torch.fx``'s symbolic shapes and sympy at its first call in a
+    process: seconds of host time that the first Sim3 RANSAC paid."""
+    return tuple(np.broadcast_shapes(*shapes))
 
 
 def _eye(n: int, like: torch.Tensor, shape) -> torch.Tensor:
@@ -135,12 +141,15 @@ def log(T: torch.Tensor) -> torch.Tensor:
 
 def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble (..., 4, 4) from (..., 3, 3) and (..., 3)."""
-    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    batch = broadcast(R.shape[:-2], t.shape[:-1])
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    # [0 0 0 1] made on the device (storing a Python number into a 0-d
+    # element copies it from the host, which a CUDA graph cannot hold)
+    bottom = torch.cat([
+        torch.zeros(batch + (1, 3), dtype=R.dtype, device=R.device),
+        torch.ones(batch + (1, 1), dtype=R.dtype, device=R.device)], -1)
     return torch.cat([top, bottom], dim=-2)
 
 

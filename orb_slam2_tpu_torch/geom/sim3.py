@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from . import se3
+from .smallsolve import solve3x3
 
 _EPS = 1e-8
 
@@ -22,7 +23,7 @@ def make(R: torch.Tensor, t: torch.Tensor, s) -> torch.Tensor:
     """Pack rotation (..., 3, 3), translation (..., 3), scale (...)."""
     q = se3.rot_to_quat(R)
     s = torch.as_tensor(s, dtype=t.dtype, device=t.device)
-    batch = torch.broadcast_shapes(q.shape[:-1], t.shape[:-1], s.shape)
+    batch = se3.broadcast(q.shape[:-1], t.shape[:-1], s.shape)
     return torch.cat([q.expand(batch + (4,)), t.expand(batch + (3,)),
                       s.expand(batch)[..., None]], dim=-1)
 
@@ -131,7 +132,8 @@ def exp(xi: torch.Tensor) -> torch.Tensor:
 
 def log(g: torch.Tensor) -> torch.Tensor:
     """Sim(3) log map -> (upsilon, omega, sigma), (..., 7): W rebuilt by
-    pushing the tangent basis through exp, then W upsilon = t solved."""
+    pushing the tangent basis through exp, then W upsilon = t solved in
+    closed form."""
     R, t, s = rot(g), trans(g), scale(g)
     omega = se3.so3_log(R)
     sigma = torch.log(s)
@@ -142,5 +144,7 @@ def log(g: torch.Tensor) -> torch.Tensor:
 
     eye = torch.eye(3, dtype=t.dtype, device=t.device)
     W = torch.stack([w_col(eye[0]), w_col(eye[1]), w_col(eye[2])], dim=-1)
-    ups = torch.linalg.solve(W, t[..., :, None])[..., 0]
+    # closed form (adjugate over determinant): torch.linalg.solve checks
+    # its result on the host, which a CUDA graph cannot hold
+    ups = solve3x3(W, t)
     return torch.cat([ups, omega, sigma[..., None]], dim=-1)

@@ -6,7 +6,8 @@ compiled programs, each dispatched once (``ops/extractor.make_extractor``,
 ``FrameFactory._pipeline``, ``_track_prior_step`` and
 ``_track_prior_chain`` in ``pipeline/tracking.py``; the triangulation,
 fuse and structure-BA chunks of ``pipeline/local_mapping.py`` and the
-vocabulary descent).  Run eagerly, the same work is thousands of small
+vocabulary descent; loop closing's searches, Sim3 RANSAC and the LM
+iterations of its solvers, ``pipeline/loop_closing.py``).  Run eagerly, the same work is thousands of small
 launches a frame or keyframe, and the host thread that issues them is
 the bottleneck.  :func:`graphed` captures a function once per static
 signature as a CUDA graph and replays it:
@@ -44,16 +45,24 @@ from __future__ import annotations
 
 import collections
 import threading
+import time
 
 import numpy as np
 import torch
 
 from . import kernels
 
-WARMUP = 2      # eager calls on a side stream before a capture
+# eager calls on a side stream before a capture: one makes what the
+# capture must find made (the cuBLAS handle and workspace of the
+# matmuls, the caching allocator's blocks for the program's shapes, the
+# constant tables cached per device), and loop closing's programs, which
+# run once per signature, pay each warm-up call in full
+WARMUP = 1
 MAXSIZE = 8     # captures kept per function
 
-# per function name: {"captures": n, "replays": n}
+# per function name: {"captures": n, "replays": n, "warmup_ms": t,
+# "capture_ms": t}, the last two the host time of the captures' eager
+# warm-up calls and of their capture and instantiation, summed
 STATS = {}
 _stats_lock = threading.Lock()
 
@@ -63,10 +72,11 @@ def reset_stats() -> None:
         STATS.clear()
 
 
-def _count(name: str, what: str) -> None:
+def _count(name: str, what: str, n=1) -> None:
     with _stats_lock:
-        s = STATS.setdefault(name, dict(captures=0, replays=0))
-        s[what] += 1
+        s = STATS.setdefault(name, dict(captures=0, replays=0,
+                                        warmup_ms=0.0, capture_ms=0.0))
+        s[what] += n
 
 
 def upload(a, device, dtype=None) -> torch.Tensor:
@@ -145,19 +155,30 @@ class _Capture:
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(cur)
+        t0 = time.perf_counter()
         with kernels.recording(), torch.cuda.stream(side):
             for _ in range(WARMUP):
                 fn(*self.static)
         cur.wait_stream(side)
+        t1 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
-        with kernels.recording() as rec:
-            with torch.cuda.graph(self.graph, stream=side,
-                                  capture_error_mode="thread_local"):
+        # capture_begin / capture_end, not the torch.cuda.graph context:
+        # that also synchronizes the device and empties the device and
+        # pinned-host caching allocators at every capture, so the next
+        # allocations and pinned uploads of both threads would pay
+        # cudaMalloc / cudaHostAlloc again
+        with kernels.recording() as rec, torch.cuda.stream(side):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
                 out = fn(*self.static)
+            finally:
+                self.graph.capture_end()
         self.launches = dict(rec)
         self.outputs = []
         self.rebuild = _flatten(out, self.outputs)
         _count(name, "captures")
+        _count(name, "warmup_ms", (t1 - t0) * 1e3)
+        _count(name, "capture_ms", (time.perf_counter() - t1) * 1e3)
 
     def run(self, args):
         for s, a in zip(self.static, args):

@@ -83,10 +83,12 @@ def best_match(
     best, best_idx = _min_lowest(d, dim=1)
     ok = best <= max_dist
     if ratio is not None:
-        rows = torch.arange(d.shape[0], device=d.device)
-        d2 = d.clone()
-        d2[rows, best_idx] = _BIG
-        second = d2.amin(dim=1)
+        # the best column masked out (a masked fill: an indexed store of
+        # a Python number copies it from the host, which a CUDA graph
+        # cannot hold)
+        cols = torch.arange(d.shape[1], device=d.device)
+        second = d.masked_fill(cols[None, :] == best_idx[:, None],
+                               _BIG).amin(dim=1)
         ok = ok & (best.float() < ratio * second.float())
     return MatchResult(idx=best_idx, dist=best, valid=ok)
 

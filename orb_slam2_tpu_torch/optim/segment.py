@@ -11,11 +11,25 @@ order; on the CPU it is ``index_add_``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # rows of the longest target from which each (lane, target) is reduced
 # by a block of threads rather than by one thread
 LONG_SEGMENTS = 64
+
+
+def longest_segment(idx, n: int) -> int:
+    """``IndexSum``'s ``longest`` from a host index vector: the row count
+    of its longest target, clamped at ``LONG_SEGMENTS + 1``.  Only the
+    side of ``LONG_SEGMENTS`` it falls on chooses the reduction, so as a
+    static argument of a CUDA graph the clamped count keeps one capture
+    per side (the exact count made one per problem)."""
+    idx = np.asarray(idx)
+    if idx.size == 0:
+        return 0
+    return min(int(np.bincount(idx.reshape(-1).astype(np.int64),
+                               minlength=n).max()), LONG_SEGMENTS + 1)
 
 
 class IndexSum:

@@ -63,8 +63,11 @@ def sim3_ransac(pts1_cam, pts2_cam, uv1, uv2, max_err1, max_err2, valid,
            & ((e2 * e2).sum(-1) < max_err2[None]))            # (H, N)
     counts = torch.where(hyp_ok, inl.sum(-1), torch.full_like(hyp_ok, -1,
                                                               dtype=torch.long))
-    best = torch.argmax(counts)          # the first of equal counts
-    n_best = counts[best]
-    return Sim3RansacResult(S12=sims[best], inliers=inl[best],
+    # the first of equal counts; gathered by a 1-element index tensor (a
+    # 0-d index tensor is read back to the host, a sync)
+    best = torch.argmax(counts).reshape(1)
+    n_best = counts.index_select(0, best)[0]
+    return Sim3RansacResult(S12=sims.index_select(0, best)[0],
+                            inliers=inl.index_select(0, best)[0],
                             n_inliers=torch.clamp(n_best, min=0),
                             ok=n_best >= min_inliers)

@@ -22,12 +22,17 @@ from .mesh import LocalMesh
 
 
 def make_mesh(n_devices: int | Sequence | None = None,
-              axis: str = "obs") -> LocalMesh:
-    """A mesh over the visible cards (the CPU when there is none), the
-    first ``n_devices`` of them, or the devices of an explicit list (a
-    device may repeat)."""
+              axis: str = "obs", device="cuda") -> LocalMesh:
+    """A mesh over the visible devices of ``device``'s type (every card
+    for ``"cuda"``, the one CPU for ``"cpu"``), the first ``n_devices``
+    of them, or the devices of an explicit list (a device may repeat).
+    The CPU is used only when asked for: ``"cuda"`` without a card
+    raises."""
     if n_devices is None or isinstance(n_devices, int):
-        kind = "cuda" if torch.cuda.is_available() else "cpu"
+        kind = torch.device(device).type
+        if kind == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA device is visible; "
+                               "pass device='cpu' for a CPU mesh")
         devs = mesh_mod.local_devices(kind)
         if n_devices is not None:
             devs = devs[:n_devices]

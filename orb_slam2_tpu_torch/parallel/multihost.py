@@ -59,13 +59,17 @@ def init_multihost(coordinator: Optional[str] = None,
                             rank=int(process_id))
 
 
-def make_global_mesh(axis: str = "obs") -> ProcessGroupMesh:
+def make_global_mesh(axis: str = "obs", device=None) -> ProcessGroupMesh:
     """One mesh over every rank of the process group, each rank a shard
-    on its card (``LOCAL_RANK``, else the rank modulo the visible cards)
-    or on the CPU when it has none."""
-    if torch.cuda.is_available():
+    on ``device``: by default the card at its local rank
+    (``LOCAL_RANK``, else the rank modulo the visible cards), which must
+    exist; the CPU only when asked for (``device="cpu"``)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_global_mesh: no CUDA device is "
+                               "visible; pass device='cpu' for CPU ranks")
         device = torch.device("cuda", _local_rank())
+    device = torch.device(device)
+    if device.type == "cuda":
         torch.cuda.set_device(device)
-    else:
-        device = torch.device("cpu")
     return ProcessGroupMesh(device, axis)

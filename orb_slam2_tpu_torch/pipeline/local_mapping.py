@@ -328,10 +328,7 @@ def run_structure_ba(store: MapStore, kf_ids: List[int], cfg: SlamConfig,
                          (Kp - len(kf_ids), 4, 4))]).astype(np.float32)
     obs_pt_p = np.concatenate([obs_pt, np.full(pad_o, P - 1)]).astype(
         np.int64)
-    # only the side of LONG_SEGMENTS it falls on chooses the reduction,
-    # so one capture serves every count on that side
-    longest = min(int(np.bincount(obs_pt_p, minlength=P).max()),
-                  segment.LONG_SEGMENTS + 1)
+    longest = segment.longest_segment(obs_pt_p, P)
     fx, fy, cx, cy = (float(cfg.cam.fx), float(cfg.cam.fy),
                       float(cfg.cam.cx), float(cfg.cam.cy))
     frames = [store.kfs[k].frame for k in kf_ids]
@@ -449,17 +446,21 @@ def run_local_ba(store: MapStore, center_kf: int, cfg: SlamConfig,
     def t(a):
         return graphs.upload(a, dev)
 
+    obs_kf_p = np.pad(obs_kf, (0, pad_o))
+    obs_pt_p = np.pad(obs_pt, (0, pad_o))
     with timer.time("lba/device"), store.unlocked():
         res = ba.bundle_adjust(
             t(np.concatenate([poses, eye]).astype(np.float32)),
             t(np.pad(points0, ((0, P - len(pids)), (0, 0)))),
-            t(np.pad(obs_kf, (0, pad_o))), t(np.pad(obs_pt, (0, pad_o))),
+            t(obs_kf_p), t(obs_pt_p),
             t(np.pad(obs_uv, ((0, pad_o), (0, 0)))),
             t(np.pad(inv_sigma2[oct_flat], (0, pad_o))),
             t(np.pad(np.ones(n_obs, bool), (0, pad_o))),
             t(np.pad(fixed_mask, (0, K - len(all_kfs)),
                      constant_values=True)),
-            fx, fy, cx, cy, iters=iters, cg_iters=20)
+            fx, fy, cx, cy, iters=iters, cg_iters=20,
+            longest_cam=segment.longest_segment(obs_kf_p, K),
+            longest_pt=segment.longest_segment(obs_pt_p, P))
         new_poses, new_pts, inl = graphs.Readback(
             (res.cam_Tcw, res.points, res.obs_inlier)).arrays()
     with timer.time("lba/apply"):

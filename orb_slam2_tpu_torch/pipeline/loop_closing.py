@@ -19,6 +19,18 @@ mapper's locked section, with the reference's thresholds:
 The searches and solvers run on the map store's device; the few
 single-Sim3 compositions run on the host.  RANSAC samples come from a
 seeded ``numpy.random.Generator`` (seed 0, as the JAX package's).
+
+The device side is the JAX package's jitted programs, replayed from CUDA
+graphs on the card (``graphs.graphed``; static arguments by value, as
+its ``static_argnames``): the BoW match, the Sim3 RANSAC and the
+Sim3-projected searches are programs of each ``LoopCloser``; the Sim3
+optimization, the essential graph and global BA replay their modules'
+step programs, one LM round or iteration a replay with the state
+threaded (``sim3_opt``, ``pose_graph``, ``ba``).  Host arrays go up
+through pinned memory (``graphs.upload``) and every result comes back
+through pinned copies and one event per program (``graphs.Readback``),
+so nothing else waits for the card.  The JAX package's padding
+(``pad_bucket``) keeps the signatures few.
 Global BA shards its point state over the runtime's local devices when
 there are several (``parallel.local_devices``), as the JAX package
 does over ``jax.devices()``.
@@ -30,11 +42,11 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from .. import parallel
+from .. import graphs, parallel
 from ..geom import sim3 as sim3_mod
 from ..matching import search
 from ..models.mapstore import MapStore
-from ..optim import ba, pose_graph, sim3_opt, sim3_ransac
+from ..optim import ba, pose_graph, segment, sim3_opt, sim3_ransac
 from .config import SlamConfig
 from .local_mapping import gather_ba_problem
 from .place_recognition import PlaceRecognition
@@ -99,6 +111,18 @@ class LoopCloser:
             cfg.orb.n_levels, cfg.orb.scale_factor)[0].astype(np.float32)
         self.log_scale = float(np.log(cfg.orb.scale_factor))
         self._rng = np.random.default_rng(0)
+        self._sf = {}       # store device -> the scale factors there
+        # the device programs as CUDA graphs (the JAX package's jitted
+        # functions); each looks its module function up at each call
+        self._match_bow = graphs.graphed(
+            lambda *a: search.search_descriptors(*a), "loop_bow_match")
+        self._ransac = graphs.graphed(
+            lambda *a: sim3_ransac.sim3_ransac(*a), "sim3_ransac")
+        self._match_sim3 = graphs.graphed(
+            lambda *a: search.search_by_sim3(*a), "search_by_sim3")
+        self._match_proj = graphs.graphed(
+            lambda *a: search.search_by_projection_sim3(*a),
+            "search_by_projection_sim3")
 
     def reset(self):
         self.last_loop_kf_id = 0
@@ -106,9 +130,17 @@ class LoopCloser:
         self.pr = PlaceRecognition(self.store, vocab=self.pr.vocab)
 
     def _t(self, a, dtype=None) -> torch.Tensor:
-        """Host array -> tensor on the map store's device."""
-        return torch.as_tensor(np.asarray(a), dtype=dtype,
-                               device=self.store.device)
+        """Host array -> tensor on the map store's device, without
+        waiting for the card (``graphs.upload``)."""
+        return graphs.upload(a, self.store.device, dtype)
+
+    def _scales(self) -> torch.Tensor:
+        """The pyramid's scale factors on the store's device, uploaded
+        once."""
+        key = str(self.store.device)
+        if key not in self._sf:
+            self._sf[key] = self._t(self.scale_factors)
+        return self._sf[key]
 
     def _desc(self, a: np.ndarray) -> torch.Tensor:
         """(N, 8) uint32 descriptors -> int32 device tensor, same bits."""
@@ -203,7 +235,7 @@ class LoopCloser:
         idx_cur = self._mp_features(kid)
         if len(idx_cur) < self.cfg.loop_sim3_min_inliers:
             return None
-        sf = self._t(self.scale_factors)
+        sf = self._scales()
 
         for cand in candidates:
             idx_cand = self._mp_features(cand)
@@ -227,7 +259,7 @@ class LoopCloser:
             node2 = (self._t(np.pad(nb[idx_cand], (0, n2 - len(idx_cand)),
                                     constant_values=-1))
                      if nb is not None else None)
-            res = search.search_descriptors(
+            res = self._match_bow(
                 self._desc(np.pad(fcur.desc[idx_cur],
                                   ((0, n1 - len(idx_cur)), (0, 0)))),
                 self._t(v1),
@@ -237,10 +269,10 @@ class LoopCloser:
                                   ((0, n2 - len(idx_cand)), (0, 0)))),
                 self._t(v2),
                 self._t(np.pad(fc.angle[idx_cand], (0, n2 - len(idx_cand)))),
-                node2,
-                ratio=0.75).host()
-            rows = np.where(res.valid[:len(idx_cur)])[0]
-            midx = res.idx[:len(idx_cur)]
+                node2, 0.75, True, search.TH_LOW)
+            bvalid, bidx = graphs.Readback((res.valid, res.idx)).arrays()
+            rows = np.where(bvalid[:len(idx_cur)])[0]
+            midx = bidx[:len(idx_cur)]
             if len(rows) < self.cfg.loop_sim3_min_inliers:
                 log.debug("sim3 cand %d: bow matches %d < %d", cand,
                           len(rows), self.cfg.loop_sim3_min_inliers)
@@ -261,7 +293,9 @@ class LoopCloser:
             padn = N - len(rows)
             samples = self._rng.integers(0, len(rows), (256, 3)).astype(
                 np.int32)
-            rr = sim3_ransac.sim3_ransac(
+            # the samples are a tensor input of the graph, not a
+            # constant of its capture
+            rr = self._ransac(
                 self._t(np.pad(p1, ((0, padn), (0, 0)))),
                 self._t(np.pad(p2, ((0, padn), (0, 0)))),
                 self._t(np.pad(uv1, ((0, padn), (0, 0)))),
@@ -270,13 +304,13 @@ class LoopCloser:
                 self._t(np.pad(me2, (0, padn))),
                 self._t(np.pad(np.ones(len(rows), bool), (0, padn))),
                 self._t(samples), fx, fy, cx, cy,
-                min_inliers=self.cfg.loop_sim3_min_inliers,
-                fix_scale=self.fix_scale)
-            if not bool(rr.ok):
+                int(self.cfg.loop_sim3_min_inliers), bool(self.fix_scale))
+            ok, S12 = graphs.Readback((rr.ok, rr.S12)).arrays()
+            if not bool(ok):
                 log.debug("sim3 cand %d: RANSAC failed (%d bow matches)",
                           cand, len(rows))
                 continue
-            S12 = rr.S12.cpu().numpy()
+            S12 = np.array(S12)
 
             # --- SearchBySim3: grow the match set (src/LoopClosing.cc:378) ---
             pc1_all = np.zeros((fcur.n, 3), np.float32)
@@ -291,7 +325,7 @@ class LoopCloser:
             mv2[idx_cand] = True
             md1[idx_cur] = np.asarray(store.mp_max_dist[fcur.mp_ids[idx_cur]])
             md2[idx_cand] = np.asarray(store.mp_max_dist[fc.mp_ids[idx_cand]])
-            sres = search.search_by_sim3(
+            sres = self._match_sim3(
                 self._t(pc1_all), fcur.dev("desc"), self._t(mv1),
                 self._t(md1), fcur.dev("xy"), fcur.dev("octave"),
                 fcur.dev("valid"),
@@ -299,13 +333,14 @@ class LoopCloser:
                 self._t(md2), fc.dev("xy"), fc.dev("octave"),
                 fc.dev("valid"),
                 self._t(S12), sf, fx, fy, cx, cy, self.bounds,
-                self.cfg.orb.n_levels, self.log_scale, th=7.5).host()
+                self.cfg.orb.n_levels, self.log_scale, 7.5)
+            svalid, sidx = graphs.Readback((sres.valid, sres.idx)).arrays()
 
             # union of BoW matches and Sim3-search matches, by cur feature
             pair: Dict[int, int] = {int(a): int(b)
                                     for a, b in zip(fi_cur, fi_cand)}
-            for i in np.where(sres.valid)[0]:
-                pair.setdefault(int(i), int(sres.idx[i]))
+            for i in np.where(svalid)[0]:
+                pair.setdefault(int(i), int(sidx[i]))
             fi_cur2 = np.array(sorted(pair), np.int32)
             fi_cand2 = np.array([pair[i] for i in fi_cur2], np.int32)
 
@@ -326,13 +361,16 @@ class LoopCloser:
                                (0, padm)).astype(np.float32)),
                 self._t(np.pad(np.ones(len(fi_cur2), bool), (0, padm))),
                 fx, fy, cx, cy, iters=8, fix_scale=self.fix_scale)
-            n_inl = int(ores.n_inliers)
+            n_inl, S12, inl = graphs.Readback(
+                (ores.n_inliers, ores.S12,
+                 ores.inliers1 & ores.inliers2)).arrays()
+            n_inl = int(n_inl)
             if n_inl < self.cfg.loop_sim3_min_inliers:
                 log.debug("sim3 cand %d: OptimizeSim3 inliers %d < %d",
                           cand, n_inl, self.cfg.loop_sim3_min_inliers)
                 continue
-            S12 = ores.S12.cpu().numpy()
-            inl = (ores.inliers1 & ores.inliers2).cpu().numpy()[:len(fi_cur2)]
+            S12 = np.array(S12)
+            inl = inl[:len(fi_cur2)]
 
             # matched loop MPs on current-KF features (the Sim3 inliers)
             matched: Dict[int, int] = {}
@@ -369,7 +407,7 @@ class LoopCloser:
         soa = store.points_soa(pids)
         P = pad_bucket(len(pids))
         pad = P - len(pids)
-        res = search.search_by_projection_sim3(
+        res = self._match_proj(
             self._t(np.pad(soa["pos"], ((0, pad), (0, 0)))),
             self._desc(np.pad(soa["desc"], ((0, pad), (0, 0)))),
             self._t(np.pad(soa["normal"], ((0, pad), (0, 0)))),
@@ -377,10 +415,11 @@ class LoopCloser:
             self._t(np.pad(soa["valid"], (0, pad))),
             self._t(S),
             f.dev("xy"), f.dev("octave"), f.dev("desc"), f.dev("valid"),
-            self._t(has_mp), self._t(self.scale_factors),
+            self._t(has_mp), self._scales(),
             fx, fy, cx, cy, self.bounds,
-            self.cfg.orb.n_levels, self.log_scale, th=th).host()
-        return res.valid[:len(pids)], res.idx[:len(pids)]
+            self.cfg.orb.n_levels, self.log_scale, float(th), search.TH_LOW)
+        valid, idx = graphs.Readback((res.valid, res.idx)).arrays()
+        return valid[:len(pids)], idx[:len(pids)]
 
     def _project_loop_points(self, kid: int, Scw: np.ndarray,
                              loop_mps: List[int],
@@ -598,8 +637,9 @@ class LoopCloser:
 
         res = pose_graph.optimize_pose_graph(
             self._t(sims_p), self._t(ei), self._t(ej), self._t(em),
-            self._t(ew), self._t(fixed), iters=20, cg_iters=30)
-        sims_new = res.sims.cpu().numpy()[:K]
+            self._t(ew), self._t(fixed), iters=20, cg_iters=30,
+            longest=segment.longest_segment(np.concatenate([ei, ej]), Kp))
+        sims_new = graphs.Readback((res.sims,)).arrays()[0][:K]
 
         # writeback poses (src/Optimizer.cc:929-940)
         for k, i in vid.items():
@@ -683,18 +723,21 @@ class LoopCloser:
                 np.pad(fixed, (0, Kp - len(kids)), constant_values=True),
                 fx, fy, cx, cy, iters=iters, cg_iters=30, use_huber=True)
         else:
+            obs_kf_p = np.pad(obs_kf, (0, O - no))
+            obs_pt_p = np.pad(obs_pt, (0, O - no))
             res = ba.bundle_adjust(
                 self._t(np.concatenate([poses, eye]).astype(np.float32)),
                 self._t(np.pad(points0, ((0, P - len(pids)), (0, 0)))),
-                self._t(np.pad(obs_kf, (0, O - no))),
-                self._t(np.pad(obs_pt, (0, O - no))),
+                self._t(obs_kf_p), self._t(obs_pt_p),
                 self._t(np.pad(obs_uv, ((0, O - no), (0, 0)))),
                 self._t(np.pad(obs_sig, (0, O - no))),
                 self._t(np.pad(np.ones(no, bool), (0, O - no))),
                 self._t(np.pad(fixed, (0, Kp - len(kids)), constant_values=True)),
-                fx, fy, cx, cy, iters=iters, cg_iters=30, use_huber=True)
-        new_poses = res.cam_Tcw.cpu().numpy()
-        new_pts = res.points.cpu().numpy()
+                fx, fy, cx, cy, iters=iters, cg_iters=30, use_huber=True,
+                longest_cam=segment.longest_segment(obs_kf_p, Kp),
+                longest_pt=segment.longest_segment(obs_pt_p, P))
+        new_poses, new_pts = graphs.Readback(
+            (res.cam_Tcw, res.points)).arrays()
         for i, k in enumerate(kids):
             if not fixed[i]:
                 store.set_kf_pose(k, new_poses[i])

@@ -46,7 +46,7 @@ from ..models.frame import Frame, FrameFactory
 from ..models.mapstore import MapStore
 from ..geom import triangulate, twoview
 from ..ops.extractor import padded_feature_count
-from ..optim import ba, pose_opt
+from ..optim import ba, pose_opt, segment
 from .config import SlamConfig
 from ..utils.logging import get_logger, StageTimer
 
@@ -806,20 +806,23 @@ class Tracker:
         pad_o = O - len(obs_kf)
         fx, fy, cx, cy = self._cam_tuple
         eye = np.broadcast_to(np.eye(4, dtype=np.float32), (6, 4, 4))
+        obs_kf_p, obs_pt_p = (np.pad(obs_kf, (0, pad_o)),
+                              np.pad(obs_pt, (0, pad_o)))
         res = ba.bundle_adjust(
             self._t(np.concatenate([poses, eye]).astype(np.float32)),
             self._t(np.pad(np.asarray(store.mp_pos[pids_a]),
                            ((0, P - len(pids)), (0, 0)))),
-            self._t(np.pad(obs_kf, (0, pad_o))),
-            self._t(np.pad(obs_pt, (0, pad_o))),
+            self._t(obs_kf_p), self._t(obs_pt_p),
             self._t(np.pad(obs_uv, ((0, pad_o), (0, 0)))),
             self._t(np.pad(obs_sig, (0, pad_o))),
             self._t(np.pad(np.ones(len(obs_kf), bool), (0, pad_o))),
             self._t(np.pad(np.array([True, False]), (0, 6),
                            constant_values=True)),
-            fx, fy, cx, cy, iters=iters, cg_iters=20)
-        new_poses, new_pts, inl = (a.cpu().numpy() for a in (
-            res.cam_Tcw, res.points, res.obs_inlier))
+            fx, fy, cx, cy, iters=iters, cg_iters=20,
+            longest_cam=segment.longest_segment(obs_kf_p, 8),
+            longest_pt=segment.longest_segment(obs_pt_p, P))
+        new_poses, new_pts, inl = graphs.Readback(
+            (res.cam_Tcw, res.points, res.obs_inlier)).arrays()
         store.set_kf_pose(k2, new_poses[1])
         store.kfs[k2].frame.Tcw = new_poses[1].copy()
         store.mp_pos[pids_a] = new_pts[:len(pids)]

@@ -1430,3 +1430,257 @@ def test_index_sum_host_given_choice(cuda, n, trail):
         torch.cuda.set_sync_debug_mode(0)
     assert given.long == read.long == (n == 100)
     assert torch.equal(out, read(vals))
+
+
+# ----------------------------------------------------------------------
+# loop closing's CUDA graphs (pipeline/loop_closing.py; the step programs
+# of optim/sim3_opt.py, optim/pose_graph.py, optim/ba.py) against their
+# eager calls
+# ----------------------------------------------------------------------
+LOOP_GRAPHS = ("_match_bow", "_ransac", "_match_sim3", "_match_proj")
+# the solvers' step programs, module attributes their entry points call
+STEP_GRAPHS = (("sim3_opt", "_round_graph"), ("pose_graph", "_step_graph"),
+               ("pose_graph", "_cost_graph"), ("ba", "_begin_graph"),
+               ("ba", "_step_graph"), ("ba", "_finish_graph"))
+
+
+def _step_modules():
+    from orb_slam2_tpu_torch.optim import ba, pose_graph, sim3_opt
+    return dict(ba=ba, pose_graph=pose_graph, sim3_opt=sim3_opt)
+
+
+@pytest.fixture(scope="module")
+def loop_run():
+    """tests/test_torch_loop.py's drifted 640x480 circuit (40 frames and
+    14 again, priors drifting 0.02 a frame) on the card with sequential
+    mapping and loop closing; every call of the LoopCloser's graphs (BoW
+    match, RANSAC, both Sim3 searches) and of the solvers' step programs
+    (the Sim3 rounds, the essential graph's and global BA's LM
+    iterations) recorded."""
+    cuda = cuda_device()
+    cfg = _mapper_config(loop_min_kfs_since_last=6)
+    world = synth.make_world(seed=3, device=cuda)
+    true = synth.loop_trajectory(40, radius=8.0)
+    true = true + true[:14]
+    system = System(cfg, enable_loop_closing=True, device=cuda)
+    lc = system.loop_closer
+    rec = {name: _Recorder(getattr(lc, name)) for name in LOOP_GRAPHS}
+    for name, r in rec.items():
+        setattr(lc, name, r)
+    mods = _step_modules()
+    for mod, name in STEP_GRAPHS:
+        rec[f"{mod}.{name}"] = _Recorder(getattr(mods[mod], name))
+        setattr(mods[mod], name, rec[f"{mod}.{name}"])
+    try:
+        for t, Tcw in enumerate(true):
+            D = np.eye(4, dtype=np.float32)
+            D[:3, 3] = [0.02 * t, 0.01 * t, 0.0]
+            system.track_monocular_with_pose(
+                synth.render(world, cfg.cam, Tcw), t * 0.1,
+                (Tcw @ np.linalg.inv(D)).astype(np.float32))
+        torch.cuda.synchronize()
+    finally:
+        for mod, name in STEP_GRAPHS:
+            setattr(mods[mod], name, rec[f"{mod}.{name}"].graph)
+    n_loops = lc.n_loops_closed
+    system.shutdown()
+    return dict(rec=rec, n_loops=n_loops)
+
+
+@pytest.mark.gpu
+def test_graphed_loop_programs_equal_eager_on_card(loop_run):
+    """The circuit closes its loop; every call the loop closer made
+    through a graph (the BoW match, the RANSAC, both Sim3 searches, the
+    Sim3 rounds, the essential graph's and global BA's steps) against
+    the eager function on the same arguments: bit for bit, at the call
+    and replayed once more; each captured at most MAXSIZE times."""
+    from orb_slam2_tpu_torch import graphs
+    assert loop_run["n_loops"] >= 1
+    for name, r in loop_run["rec"].items():
+        assert r.calls, f"{name} was never called"
+        for k, (args, out) in enumerate(r.calls):
+            want = _leaves_all(r.graph.fn(*args))
+            again = _leaves_all(r.graph(*args))
+            for j, (a, b, c) in enumerate(zip(_leaves_all(out), want, again)):
+                assert torch.equal(a, b), (name, k, j)
+                assert torch.equal(c, b), (name, k, j)
+        assert r.graph.n_captures() <= graphs.MAXSIZE
+
+
+def _leaves_all(out):
+    if isinstance(out, torch.Tensor):
+        return (out,)
+    return tuple(x for o in out for x in _leaves_all(o))
+
+
+@pytest.mark.gpu
+def test_warm_loop_programs_make_no_host_sync(loop_run):
+    """A warm replay of each loop program (the captures the run made)
+    queues its work without waiting for the card: no host sync under
+    ``set_sync_debug_mode("error")``."""
+    for name, r in loop_run["rec"].items():
+        args, _ = r.calls[-1]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            r.graph(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def _eager_call(fn, *args, **kwargs):
+    """``fn`` with every CUDA graph run as its eager function."""
+    from orb_slam2_tpu_torch import graphs
+    call = graphs.Graphed.__call__
+    graphs.Graphed.__call__ = lambda self, *a: self.fn(*a)
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        graphs.Graphed.__call__ = call
+
+
+def _path_b_problems(cuda):
+    """Synthetic problems at path B's padded shapes (chip_smoke.py's
+    loop at 1920x1440): global BA 128 keyframe rows, 65,536 point rows,
+    262,144 observation rows (8 keyframes over 19,458 points: ~150,000
+    observations); the essential graph 128 vertices, 1,024 edge rows;
+    a Sim3 match set of 1,024 rows."""
+    from orb_slam2_tpu_torch.geom import sim3
+    from orb_slam2_tpu_torch.optim import segment
+    rng = np.random.default_rng(12)
+    cams, pts, oc, op, ouv, isig, valid, fixed = _ba_scene(
+        seed=12, n_cams=8, n_pts=19458)
+    K, P, O = 128, 65536, 262144
+    n = len(oc)
+    cams = np.concatenate([cams, np.broadcast_to(
+        np.eye(4, dtype=np.float32), (K - len(cams), 4, 4))])
+    fixed = np.r_[fixed, np.ones(K - len(fixed), bool)]
+    ba_args = [cams, np.pad(pts, ((0, P - len(pts)), (0, 0))),
+               np.pad(oc, (0, O - n)), np.pad(op, (0, O - n)),
+               np.pad(ouv, ((0, O - n), (0, 0))), np.pad(isig, (0, O - n)),
+               np.pad(valid, (0, O - n)), fixed]
+    Kv, E = 128, 1024
+    xi = rng.normal(0, 0.3, (Kv, 7)).astype(np.float32)
+    xi[:, 6] *= 0.05
+    true = sim3.exp(torch.from_numpy(xi))
+    ei = np.r_[np.arange(Kv - 1), rng.integers(0, Kv, 772),
+               np.zeros(E - Kv + 1 - 772, int)]
+    ej = np.r_[np.arange(1, Kv), rng.integers(0, Kv, 772),
+               np.zeros(E - Kv + 1 - 772, int)]
+    meas = sim3.compose(true[ej], sim3.inv(true[ei])).numpy()
+    w = np.r_[np.ones(Kv - 1 + 772), np.zeros(E - Kv + 1 - 772)].astype(
+        np.float32) * (ei != ej)
+    drift = np.cumsum(rng.normal(0, 0.01, (Kv, 7)), 0).astype(np.float32)
+    sims0 = sim3.compose(sim3.exp(torch.from_numpy(drift)), true).numpy()
+    pg_fixed = np.zeros(Kv, bool)
+    pg_fixed[0] = True
+    pg_args = [sims0, ei.astype(np.int64), ej.astype(np.int64), meas, w,
+               pg_fixed]
+    M = 1024
+    S12 = sim3.exp(torch.tensor([0.3, -0.2, 0.1, 0.02, -0.05, 0.03, 0.0]))
+    p2 = np.c_[rng.uniform(-3, 3, (M, 2)), rng.uniform(8, 12, M)].astype(
+        np.float32)
+    p1 = sim3.apply(S12, torch.from_numpy(p2)).numpy()
+
+    def proj(p):
+        return np.stack([450.0 * p[:, 0] / p[:, 2] + 960.0,
+                         450.0 * p[:, 1] / p[:, 2] + 720.0], -1)
+    uv1 = (proj(p1) + rng.normal(0, 0.7, (M, 2))).astype(np.float32)
+    uv2 = (proj(p2) + rng.normal(0, 0.7, (M, 2))).astype(np.float32)
+    sig = np.ones(M, np.float32)
+    sim_valid = np.arange(M) < 700
+    samples = rng.integers(0, 700, (256, 3)).astype(np.int32)
+    t = lambda a: torch.as_tensor(a).to(cuda)      # noqa: E731
+    return dict(
+        ba=([t(a) for a in ba_args], dict(
+            iters=10, cg_iters=30, use_huber=True,
+            longest_cam=segment.longest_segment(ba_args[2], K),
+            longest_pt=segment.longest_segment(ba_args[3], P))),
+        pose_graph=([t(a) for a in pg_args], dict(
+            iters=20, cg_iters=30, longest=segment.longest_segment(
+                np.concatenate([ei, ej]), Kv))),
+        sim3_opt=([t(S12.numpy())] + [t(a) for a in (
+            p1, p2, uv1, uv2, sig, sig, sim_valid)], dict(iters=8)),
+        ransac=[t(a) for a in (p1, p2, uv1, uv2, 9.21 * sig, 9.21 * sig,
+                               sim_valid, samples)])
+
+
+@pytest.mark.gpu
+def test_loop_solvers_at_path_b_shapes(cuda):
+    """At path B's padded shapes: ``bundle_adjust``,
+    ``optimize_pose_graph`` and ``optimize_sim3`` through their step
+    graphs, and the Sim3 RANSAC as one graph, against the same calls
+    with every graph run eagerly, bit for bit; a warm call of each
+    makes no host sync; each step program captured at most MAXSIZE
+    times."""
+    from orb_slam2_tpu_torch import graphs
+    from orb_slam2_tpu_torch.optim import ba, pose_graph, sim3_opt, sim3_ransac
+    pr = _path_b_problems(cuda)
+    ransac = graphs.graphed(sim3_ransac.sim3_ransac, "ransac")
+    calls = [
+        (ba.bundle_adjust, pr["ba"][0] + [450.0, 450.0, 960.0, 720.0],
+         pr["ba"][1]),
+        (pose_graph.optimize_pose_graph, pr["pose_graph"][0],
+         pr["pose_graph"][1]),
+        (sim3_opt.optimize_sim3, pr["sim3_opt"][0] + [450.0, 450.0, 960.0,
+                                                      720.0],
+         pr["sim3_opt"][1]),
+        (ransac, pr["ransac"] + [450.0, 450.0, 960.0, 720.0, 20, False],
+         {})]
+    for fn, args, kw in calls:
+        got = _leaves_all(fn(*args, **kw))
+        want = _leaves_all(_eager_call(fn, *args, **kw))
+        torch.cuda.synchronize()
+        for j, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), (fn, j)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for mod, name in STEP_GRAPHS:
+        assert getattr(_step_modules()[mod], name).n_captures() \
+            <= graphs.MAXSIZE
+
+
+@pytest.mark.gpu
+def test_loop_capture_beside_tracker_replays(loop_run, cuda):
+    """Fresh captures of global BA's step and the essential graph's step
+    on a second thread (the mapping thread, where the loop closer runs)
+    while the first thread replays the tracker's fused step 50 times:
+    every result equals its eager call."""
+    import threading
+    from orb_slam2_tpu_torch import graphs
+    from orb_slam2_tpu_torch.optim import ba, pose_graph
+    from orb_slam2_tpu_torch.pipeline import tracking
+    step = graphs.graphed(tracking._prior_step_core, "prior_step")
+    args = scene_tensors(prior_step_scene("some"), cuda)
+    want = tracking._prior_step_core(*args)
+    step(*args)                              # captured before the thread
+    rec = loop_run["rec"]
+    jobs = [(graphs.graphed(ba._ba_step, "ba"),
+             rec["ba._step_graph"].calls[-1][0]),
+            (graphs.graphed(pose_graph._pg_step, "pg"),
+             rec["pose_graph._step_graph"].calls[-1][0])]
+    got, errors = [], []
+
+    def mapper_thread():
+        try:
+            for g, a in jobs:
+                got.append((g(*a), g.fn(*a)))
+        except Exception as e:               # re-raised below
+            errors.append(e)
+    th = threading.Thread(target=mapper_thread)
+    th.start()
+    outs = [step(*args) for _ in range(50)]
+    th.join(timeout=600)
+    assert not th.is_alive() and not errors, errors
+    torch.cuda.synchronize()
+    for out in outs:
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+    for g, a in jobs:
+        assert g.n_captures() == 1
+    for out, eager in got:
+        for a, b in zip(_leaves_all(out), _leaves_all(eager)):
+            assert torch.equal(a, b)

@@ -7,6 +7,8 @@ tests/test_loop_proof.py end to end.
 Size of the end-to-end runs: 640x480, 800 ORB features, 4 levels, the
 40-frame circuit plus its first 14 frames again, rendered once with the
 port's renderer and fed to both packages, sequential mapping."""
+import copy
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -371,6 +373,25 @@ def circuit():
         if first:
             rec["after"] = interop.mapstore_state(jsys.store)
     lc._correct_loop = correct
+    compute = lc._compute_sim3
+
+    def compute_sim3(kid, candidates):
+        # the map, the vocabulary and the RANSAC generator as this call
+        # found them; kept for the first call that finds a loop
+        state = (interop.mapstore_state(jsys.store),
+                 dict(k=lc.pr.vocab.k, levels=lc.pr.vocab.levels,
+                      centers=lc.pr.vocab.centers, idf=lc.pr.vocab.idf,
+                      node_level=lc.pr.vocab.node_level),
+                 copy.deepcopy(lc._rng.bit_generator.state))
+        found = compute(kid, candidates)
+        if found is not None and "sim3" not in rec:
+            cand, Scw, loop_mps, matched = found
+            rec["sim3"] = dict(store=state[0], vocab=state[1], rng=state[2],
+                               args=(kid, list(candidates)),
+                               found=(cand, np.array(Scw), list(loop_mps),
+                                      dict(matched)))
+        return found
+    lc._compute_sim3 = compute_sim3
 
     port = System(cfg, device="cpu")
     states = []
@@ -453,3 +474,36 @@ def test_correct_loop_from_one_state(circuit, monkeypatch):
     d = np.abs(np.asarray(store.mp_pos)[:n][both]
                - after["points"]["mp_pos"][:n][both]).max(1)
     assert (d < 2e-3).mean() >= 0.99, np.quantile(d, [0.5, 0.99])
+
+
+@pytest.mark.parametrize("eigvec", ["lapack", "jacobi"])
+def test_compute_sim3_from_one_state(circuit, eigvec, monkeypatch):
+    """The port's _compute_sim3 (the BoW match, the Sim3 RANSAC, the
+    Sim3 search, OptimizeSim3, the Scw projection of the loop points) on
+    the JAX store, vocabulary and RANSAC generator as they stood when
+    the JAX run's first loop was found, with its candidates; Horn's
+    eigenvector as the CPU takes it (LAPACK's ``eigh``) and as the card
+    takes it (Jacobi sweeps in float64).  Bars: the same loop keyframe
+    and loop points; Scw within 2e-3 in translation and 1e-3 in its
+    rotation matrix (the bars of test_correct_loop_from_one_state);
+    >= 95% of the JAX run's matched (feature, point) pairs."""
+    if eigvec == "jacobi":
+        monkeypatch.setattr(thorn, "top_eigvec", lambda N: (
+            thorn.sym4_top_eigvec(N.double()).to(N.dtype)))
+    rec = circuit["rec"]["sim3"]
+    store = interop.mapstore_from_numpy(**rec["store"], device="cpu")
+    pr = PlaceRecognition(store, vocab=interop.vocabulary_from_numpy(
+        **rec["vocab"]))
+    lc = LoopCloser(circuit["cfg"], store, place_rec=pr)
+    lc._rng.bit_generator.state = copy.deepcopy(rec["rng"])
+    found = lc._compute_sim3(*rec["args"])
+    assert found is not None
+    cand, Scw, loop_mps, matched = found
+    j_cand, j_Scw, j_mps, j_matched = rec["found"]
+    assert cand == j_cand
+    assert loop_mps == j_mps
+    St, Sj = torch.from_numpy(np.asarray(Scw)), torch.from_numpy(j_Scw)
+    assert np.abs(Scw[4:] - j_Scw[4:]).max() < 2e-3
+    assert np.abs(_np(tsim3.rot(St)) - _np(tsim3.rot(Sj))).max() < 1e-3
+    same = sum(matched.get(f) == p for f, p in j_matched.items())
+    assert same >= 0.95 * len(j_matched), (same, len(j_matched))

@@ -29,7 +29,7 @@ def worker():
                                               make_global_mesh)
     import torch.distributed as dist
     init_multihost(coordinator=coord, num_processes=world, process_id=rank)
-    mesh = make_global_mesh()
+    mesh = make_global_mesh(device="cpu")
     assert mesh.size == world and mesh.local_shards() == [rank]
     x = mesh.psum(torch.tensor([float(rank + 1)]))
     assert x.item() == world * (world + 1) / 2

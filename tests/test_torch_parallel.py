@@ -291,5 +291,8 @@ def test_local_devices_and_make_mesh():
     assert parallel.local_devices("cpu") == [torch.device("cpu")]
     m = parallel.make_mesh(["cpu", "cpu"])
     assert m.size == 2 and m.axis_names == ("obs",)
+    assert parallel.make_mesh(device="cpu").devices == [torch.device("cpu")]
     if not torch.cuda.is_available():
-        assert parallel.make_mesh().devices == [torch.device("cpu")]
+        # the CPU only when asked for: no card, no default mesh
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            parallel.make_mesh()
