@@ -61,14 +61,26 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      no host sync;
   7. path D, estimated-pose mode at full width: path A's world and a
      50-frame sweep through ``track_monocular`` with no pose (the H/F
-     two-view bootstrap, the motion model, pose-optimizing local BA,
-     whose ``lba/*`` stage times it prints,
-     sequential mapping with loop detection): initialized within 10
-     frames, 0.8 of the frames after it OK, the Sim3-aligned ATE of the
-     camera centers under 1% of the distance flown; then a noise frame
-     must go LOST and a mapped frame's image relocalize through EPnP to
-     within 1% of the distance flown and 1 degree of the pose tracked
-     for it;
+     two-view bootstrap, eager, whose time it prints; the motion model
+     and the local-map search; the pose optimization, whose programs
+     replay CUDA graphs; pose-optimizing local BA, whose ``lba/*``
+     stage times it prints; sequential mapping with loop detection):
+     initialized within 10 frames, 0.8 of the frames after it OK, the
+     Sim3-aligned ATE of the camera centers under 1% of the distance
+     flown; each frame's host syncs (bar: none on a steady frame that
+     maps no keyframe and captures no graph), captures and time, the
+     frame times split into frames with and without a keyframe, three
+     frames' kernel and graph launches under torch.profiler; then two
+     EPnP relocalizations, each a noise frame that must go LOST and a
+     mapped keyframe's image that must relocalize to within 1% of the
+     distance flown and 1 degree of the pose tracked for it, their
+     times side by side; then phase G on path D's programs (the
+     last-frame and local-map searches, the pose optimization, the
+     chi2 gate, the descriptor search, the EPnP RANSAC, the
+     relocalizer's projection search): each call of a steady frame and
+     of the first relocalization against the same call with every
+     CUDA graph run eagerly, bit for bit, and a warm call of each with
+     no host sync; the graphs' captures (bar <= 8 a graph);
   8. path E, the command line at full width: a shenzhen-layout dataset
      (24 frames of path A's world as 8-bit .npy, a UE4 pose list, an
      OpenCV settings YAML, a binary ORBvoc of the shipped vocabulary's
@@ -103,7 +115,13 @@ counts set to 0 just before it.  The last three lines are a JSON object
 describing the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 
-Five diagnostics print no such lines: ``--loop-split`` runs path B
+Six diagnostics print no such lines: ``--repeat-d`` runs path D twice
+(with ``--tree DIR``: four processes, the port from DIR, this
+checkout, this checkout and DIR, so a parent and its change are
+measured on one card) with one summary line per run (its steady and
+keyframe frames' median times, a profiled steady frame's launches, its
+host syncs, both relocalizations' times, the bootstrap's time),
+``--loop-split`` runs path B
 twice with its loop keyframe split (the second run under torch.profiler
 for the keyframe's launches) and then path D, ``--profile``
 runs path A alone
@@ -177,6 +195,8 @@ D_MIN_OK = 0.8          # share of the frames after it tracked OK
 D_ATE_SHARE = 0.01      # ATE bar, share of the distance flown
 D_MIN_KEYFRAMES = 6     # a loss with <= 5 keyframes resets the map
 D_RELOC_DEG = 1.0       # relocalized pose against the tracked one
+D_WATCH = 4             # the last frames whose program calls phase G keeps
+D_PROFILE = (40, 41, 42)  # frames under torch.profiler (their launches)
 # path E: the command line on a shenzhen-layout dataset of path A's
 # world; a sequence frame relocalized on the saved and loaded map, then
 # E_LOC_FRAMES frames in localization mode
@@ -2051,17 +2071,147 @@ def centers(poses) -> np.ndarray:
     return np.stack([-T[:3, :3].T @ T[:3, 3] for T in poses])
 
 
-def phase_estimated(device, world, cfg):
+# path D's programs (the JAX package's jit sites on its per-frame and
+# relocalization path) by label: the module under orb_slam2_tpu_torch
+# and its attribute that holds the CUDA graph, which the tracker and the
+# relocalizer look up at each call
+D_PROGRAMS = (
+    ("match_last", "pipeline.tracking", "match_last_graph"),
+    ("frustum_search", "pipeline.tracking", "frustum_graph"),
+    ("pose_opt", "pipeline.tracking", "pose_opt_graph"),
+    ("reproj_chi2_gate", "pipeline.tracking", "chi2_gate_graph"),
+    ("search_descriptors", "pipeline.tracking", "descriptors_graph"),
+    ("pnp_ransac", "pipeline.relocalization", "pnp_graph"),
+    ("kf_projection_search", "pipeline.relocalization",
+     "kf_projection_graph"),
+)
+
+
+class DPrograms:
+    """Path D's programs (D_PROGRAMS), each module attribute wrapped so
+    that, while ``keep`` is set, its calls (the graph, the arguments,
+    the outputs) are kept under ``calls[keep][label]``.  An older
+    checkout's port (--tree) has no such graphs: then ``graphed`` is
+    False and nothing is wrapped."""
+
+    def __init__(self):
+        import importlib
+        self.keep = None
+        self.calls = {}
+        self._saved = []
+        mods = [importlib.import_module(f"orb_slam2_tpu_torch.{m}")
+                for _, m, _ in D_PROGRAMS]
+        self.graphed = all(hasattr(m, a) for m, (_, _, a)
+                           in zip(mods, D_PROGRAMS))
+        if not self.graphed:
+            return
+        for m, (label, _, attr) in zip(mods, D_PROGRAMS):
+            g = getattr(m, attr)
+            self._saved.append((m, attr, g))
+            setattr(m, attr, self._wrap(label, g))
+
+    def _wrap(self, label, g):
+        def call(*args):
+            out = g(*args)
+            if self.keep is not None:
+                self.calls.setdefault(self.keep, {}).setdefault(
+                    label, []).append((g, args, out))
+            return out
+        return call
+
+    def restore(self):
+        for m, attr, g in self._saved:
+            setattr(m, attr, g)
+
+    def check(self, keys) -> dict:
+        """Phase G on path D: every kept call under ``keys``, made
+        again, against the same call with every graph run eagerly
+        (``graphs.Graphed.__call__`` patched to call its function), bit
+        for bit, and against the output the run got; then each program's
+        last call under ``torch.cuda.set_sync_debug_mode("error")`` (a
+        warm call waits for the card nowhere), its time warm and eager
+        (host clock between two ``torch.cuda.synchronize()``) and the
+        eager call's kernel launches (torch.profiler).
+        Every program of D_PROGRAMS must have been called."""
+        import torch
+        from orb_slam2_tpu_torch import graphs
+        checked = {}
+        for key in keys:
+            for label, calls in self.calls.get(key, {}).items():
+                for k, (g, args, out) in enumerate(calls):
+                    again = _leaves(g(*args))
+                    saved = graphs.Graphed.__call__
+                    graphs.Graphed.__call__ = lambda gr, *a: gr.fn(*a)
+                    try:
+                        want = _leaves(g(*args))
+                    finally:
+                        graphs.Graphed.__call__ = saved
+                    torch.cuda.synchronize()
+                    for j, (a, b, o) in enumerate(zip(again, want,
+                                                      _leaves(out))):
+                        check(torch.equal(a, b) and torch.equal(o, b),
+                              f"G: D's {label} differs from its eager call "
+                              f"in output {j} (call {k} of {key})")
+                g, args, _ = calls[-1]
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    g(*args)
+                except RuntimeError as e:
+                    raise SmokeFailure(f"G: a warm call of D's {label} "
+                                       f"synchronizes with the host: {e}")
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                ms = {}
+                for how in ("graph", "eager"):
+                    saved = graphs.Graphed.__call__
+                    if how == "eager":
+                        graphs.Graphed.__call__ = lambda gr, *a: gr.fn(*a)
+                    try:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        g(*args)
+                        torch.cuda.synchronize()
+                        ms[how] = round((time.perf_counter() - t0) * 1e3, 3)
+                    finally:
+                        graphs.Graphed.__call__ = saved
+                saved = graphs.Graphed.__call__
+                graphs.Graphed.__call__ = lambda gr, *a: gr.fn(*a)
+                try:
+                    ms["eager_launches"] = runtime_counts(
+                        lambda: g(*args))["launches"]
+                finally:
+                    graphs.Graphed.__call__ = saved
+                n, shapes, _ = checked.get(label, (0, None, None))
+                checked[label] = (n + len(calls), shapes or [
+                    tuple(a.shape) for a in args
+                    if isinstance(a, torch.Tensor)][:2], ms)
+        missing = [p[0] for p in D_PROGRAMS if p[0] not in checked]
+        check(not missing, f"G: path D made no call of {missing}")
+        return checked
+
+
+def phase_estimated(device, world, cfg) -> dict:
     """Path D: estimated-pose mode at full width.  Path A's world, a
     D_FRAMES sweep, ``pose_prior=False``, System(enable_loop_closing=True,
     async_mapping=False), ``track_monocular(image, t)`` with no pose: the
     H/F two-view bootstrap (a planar world: H), the motion model,
-    pose-optimizing local BA.  Then an EPnP relocalization: a noise frame
+    pose-optimizing local BA.  Each frame's host syncs (SyncCounter;
+    bar: none on a steady frame that maps no keyframe and captures no
+    graph), its time, and whether it mapped a keyframe; the frames of
+    D_PROFILE under torch.profiler instead of the clock (their kernel
+    and graph launches).  Then two EPnP relocalizations: a noise frame
     goes LOST, and a mapped keyframe's image, shown again with no pose,
-    must relocalize to the pose tracked for it."""
+    must relocalize to the pose tracked for it, the second against
+    another keyframe.  Then phase G on path D's programs (DPrograms:
+    the calls of the last steady frame of the sweep and of the first
+    relocalization against their eager calls, bit for bit, and a warm
+    call of each with no host sync) and their graphs' captures (bar:
+    at most graphs.MAXSIZE a graph).  Returns the run's summary."""
+    import copy
     import dataclasses
     import torch
-    from orb_slam2_tpu_torch import kernels
+    from orb_slam2_tpu_torch import graphs, kernels
     from orb_slam2_tpu_torch.pipeline.system import System
     from orb_slam2_tpu_torch.pipeline.tracking import TrackState
     from orb_slam2_tpu_torch.utils import synth
@@ -2073,93 +2223,250 @@ def phase_estimated(device, world, cfg):
     torch.cuda.synchronize()
     system = System(dcfg, enable_loop_closing=True, async_mapping=False,
                     device=device)
-    kernels.reset_launch_counts()
-    states, frame_ms = [], []
-    for i, img in enumerate(frames):
-        t0 = time.perf_counter()
-        system.track_monocular(img, i * 0.1)
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        states.append(system.state)
-        log(f"D frame {i:2d}: {system.state.name:15s} "
-            f"inliers={system.tracker.matches_inliers:5d} "
-            f"kfs={system.store.n_valid_keyframes():3d} "
-            f"{frame_ms[-1]:9.1f} ms")
-    launches = dict(kernels.LAUNCHES)
-    ok_idx = [i for i, s in enumerate(states) if s == TrackState.OK]
-    check(bool(ok_idx) and ok_idx[0] < D_INIT_BY,
-          f"D: not initialized within {D_INIT_BY} frames: "
-          f"{[s.name for s in states]}")
-    first = ok_idx[0]
-    ok_share = (len(ok_idx) - 1) / (D_FRAMES - first - 1)
-    check(ok_share >= D_MIN_OK, f"D: only {ok_share:.3f} of the frames "
-          f"after initialization OK")
-    est = centers([system.trajectory[i][2] for i in ok_idx])
-    gt = centers([poses[i] for i in ok_idx])
-    flown = float(np.linalg.norm(np.diff(centers(poses), axis=0),
-                                 axis=1).sum())
-    ate = ate_rmse(est, gt, align="sim3")
-    check(bool(np.isfinite(est).all()), "D: a tracked pose is not finite")
-    check(ate < D_ATE_SHARE * flown, f"D: ATE {ate:.4f} over "
-          f"{D_ATE_SHARE} of the {flown:.2f} units flown")
-    for k in ("fast_score", "masked_top2_mutual", "masked_top2_epi"):
-        check(launches[k] > 0, f"D: kernel {k} never launched")
-    n_kf = system.store.n_valid_keyframes()
-    check(n_kf >= D_MIN_KEYFRAMES, f"D: only {n_kf} keyframes after "
-          f"{D_FRAMES} frames (a loss would reset the map)")
-    model = {True: "H", False: "F", None: "none"}[
-        system.tracker.init_used_homography]
-    log(f"D: the two-view bootstrap took model {model} (homography on a "
-        f"planar world)")
-    check(model == "H", f"D: the bootstrap took model {model}, not H, on "
-          f"a planar world")
-    steady = frame_ms[first + 1:]
-    log(f"D: initialized at frame {first} (two-view, "
-        f"{len(ok_idx)}/{D_FRAMES} frames OK, {ok_share:.3f} after it), "
-        f"{n_kf} keyframes, {system.store.n_valid_points()} map points; "
-        f"Sim3-aligned ATE of the camera centers {ate:.4f} over "
-        f"{flown:.2f} units flown ({ate / flown:.5f} of it); frame time "
-        f"median {np.median(steady):.1f} ms, max {np.max(steady):.1f} ms "
-        f"(host clock per call)")
-    log(f"D: kernel launches {json.dumps(launches)}")
-    rep = system.mapper.timer.report()
-    lba = {k: dict(calls=rep[k][0], mean_ms=round(rep[k][2] * 1e3, 2),
-                   max_ms=round(system.mapper.timer.maxv[k] * 1e3, 2))
-           for k in ("lba/gather", "lba/device", "lba/apply") if k in rep}
-    log(f"D: the pose-optimizing local BA per keyframe (host clock) "
-        f"{json.dumps(lba)}")
+    tr = system.tracker
+    progs = DPrograms()
+    syncs = SyncCounter()
+    track = syncs.wrap(system.track_monocular, "tracker")
+    stats0 = {k: dict(v) for k, v in graphs.STATS.items()}
 
-    # EPnP relocalization: a noise frame, then a mapped keyframe's image
-    rng = np.random.default_rng(0)
-    noise = torch.as_tensor(rng.uniform(0, 255, (cfg.cam.height,
-                                                 cfg.cam.width))
-                            .astype(np.float32), device=device)
-    system.track_monocular(noise, D_FRAMES * 0.1)
-    check(system.state == TrackState.LOST,
-          f"D: the noise frame is {system.state.name}, not LOST")
-    check(system.store.n_valid_keyframes() >= D_MIN_KEYFRAMES,
-          "D: the loss reset the map")
-    j = max(kf.frame.frame_id for kf in system.store.kfs if kf.valid)
-    est_flown = float(np.linalg.norm(np.diff(est, axis=0), axis=1).sum())
-    t0 = time.perf_counter()
-    frame = system.track_monocular(frames[j], (D_FRAMES + 1) * 0.1)
-    reloc_ms = (time.perf_counter() - t0) * 1e3
-    check(system.state == TrackState.OK
-          and system.tracker.last_reloc_frame_id == frame.frame_id,
-          f"D: frame {j}'s image shown again did not relocalize "
-          f"({system.state.name})")
-    T_tracked = system.trajectory[j][2]
-    dc = float(np.linalg.norm(centers([frame.Tcw])[0]
-                              - centers([T_tracked])[0]))
-    deg = rotation_deg(frame.Tcw, T_tracked)
-    log(f"D: relocalized the image of keyframe frame {j} in {reloc_ms:.1f} "
-        f"ms with {system.tracker.matches_inliers} inliers: center "
-        f"{dc:.5f} from the tracked one ({dc / est_flown:.5f} of the "
-        f"{est_flown:.3f} map units flown), rotation {deg:.4f} deg")
-    check(dc < 0.01 * est_flown and deg < D_RELOC_DEG,
-          f"D: relocalized pose {dc:.4f} units / {deg:.3f} deg from the "
-          f"tracked one")
+    def n_captures():
+        return sum(v["captures"] for v in graphs.STATS.values())
+
+    init_calls = []
+    initialize = tr._initialize
+
+    def timed_initialize(frame, prior):
+        t0 = time.perf_counter()
+        try:
+            return initialize(frame, prior)
+        finally:
+            init_calls.append(dict(frame=frame.frame_id, ok=tr.state
+                                   == TrackState.OK,
+                                   ms=(time.perf_counter() - t0) * 1e3))
+    tr._initialize = timed_initialize
+
+    def step(img, t, keep=None, profile=False):
+        """One frame: (frame, row) with its host time (None when
+        profiled), syncs, captures, keyframe flag."""
+        s0, c0 = syncs.counts["tracker"], n_captures()
+        progs.keep = keep
+        rt, ms = None, None
+        try:
+            if profile:
+                out = []
+                rt = runtime_counts(lambda: out.append(track(img, t)))
+                frame = out[0]
+            else:
+                t0 = time.perf_counter()
+                frame = track(img, t)
+                ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            progs.keep = None
+        return frame, dict(ms=ms, state=system.state.name,
+                           syncs=syncs.counts["tracker"] - s0,
+                           captures=n_captures() - c0,
+                           kf=tr.last_kf_frame_id == frame.frame_id,
+                           runtime=rt)
+
+    kernels.reset_launch_counts()
+    rows = []
+    try:
+        with syncs:
+            for i, img in enumerate(frames):
+                keep = i if (progs.graphed
+                             and i >= D_FRAMES - D_WATCH) else None
+                _, row = step(img, i * 0.1, keep, profile=i in D_PROFILE)
+                rows.append(row)
+                log(f"D frame {i:2d}: {row['state']:15s} "
+                    f"inliers={tr.matches_inliers:5d} "
+                    f"kfs={system.store.n_valid_keyframes():3d} "
+                    f"syncs={row['syncs']:4d} captures={row['captures']}"
+                    f"{' keyframe' if row['kf'] else ''} " + (
+                        f"{row['ms']:9.1f} ms" if row['ms'] is not None
+                        else f"profiled {json.dumps(row['runtime'])}"))
+            launches = dict(kernels.LAUNCHES)
+            states = [r["state"] for r in rows]
+            ok_idx = [i for i, s in enumerate(states) if s == "OK"]
+            check(bool(ok_idx) and ok_idx[0] < D_INIT_BY,
+                  f"D: not initialized within {D_INIT_BY} frames: {states}")
+            first = ok_idx[0]
+            ok_share = (len(ok_idx) - 1) / (D_FRAMES - first - 1)
+            check(ok_share >= D_MIN_OK, f"D: only {ok_share:.3f} of the "
+                  f"frames after initialization OK")
+            est = centers([system.trajectory[i][2] for i in ok_idx])
+            gt = centers([poses[i] for i in ok_idx])
+            flown = float(np.linalg.norm(np.diff(centers(poses), axis=0),
+                                         axis=1).sum())
+            ate = ate_rmse(est, gt, align="sim3")
+            check(bool(np.isfinite(est).all()),
+                  "D: a tracked pose is not finite")
+            check(ate < D_ATE_SHARE * flown, f"D: ATE {ate:.4f} over "
+                  f"{D_ATE_SHARE} of the {flown:.2f} units flown")
+            for k in ("fast_score", "masked_top2_mutual", "masked_top2_epi"):
+                check(launches[k] > 0, f"D: kernel {k} never launched")
+            n_kf = system.store.n_valid_keyframes()
+            check(n_kf >= D_MIN_KEYFRAMES, f"D: only {n_kf} keyframes "
+                  f"after {D_FRAMES} frames (a loss would reset the map)")
+            model = {True: "H", False: "F", None: "none"}[
+                tr.init_used_homography]
+            log(f"D: the two-view bootstrap took model {model} (homography "
+                f"on a planar world)")
+            check(model == "H", f"D: the bootstrap took model {model}, "
+                  f"not H, on a planar world")
+            boot = [c for c in init_calls if c["ok"]]
+            log(f"D: the bootstrap (Tracker._initialize, eager) at frame "
+                f"{first}: {boot[0]['ms'] if boot else float('nan'):.1f} ms "
+                f"(host clock); its calls before it "
+                f"{[round(c['ms'], 1) for c in init_calls if not c['ok']]}")
+            after = rows[first + 1:]
+            steady = [r for r in after if r["state"] == "OK" and not r["kf"]
+                      and r["ms"] is not None]
+            quiet = [r for r in steady if r["captures"] == 0]
+            keyed = [r for r in after if r["kf"] and r["ms"] is not None]
+            all_ms = [r["ms"] for r in after if r["ms"] is not None]
+            log(f"D: initialized at frame {first} (two-view, "
+                f"{len(ok_idx)}/{D_FRAMES} frames OK, {ok_share:.3f} after "
+                f"it), {n_kf} keyframes, {system.store.n_valid_points()} map "
+                f"points; Sim3-aligned ATE of the camera centers {ate:.4f} "
+                f"over {flown:.2f} units flown ({ate / flown:.5f} of it); "
+                f"frame time (host clock per call) median "
+                f"{np.median(all_ms):.1f} ms, max {np.max(all_ms):.1f} ms; "
+                f"frames without a keyframe {len(steady)}, median "
+                f"{np.median([r['ms'] for r in steady]):.1f} ms (without a "
+                f"capture {len(quiet)}, median "
+                f"{np.median([r['ms'] for r in quiet]) if quiet else float('nan'):.1f}"
+                f" ms); frames with a keyframe {len(keyed)}, median "
+                f"{np.median([r['ms'] for r in keyed]) if keyed else float('nan'):.1f}"
+                f" ms")
+            quiet_syncs = [r["syncs"] for r in after if r["state"] == "OK"
+                           and not r["kf"] and r["captures"] == 0]
+            prof = [r for r in after if r["runtime"] is not None]
+            log(f"D: host syncs a frame after the bootstrap "
+                f"{[r['syncs'] for r in after]}; on the steady frames "
+                f"without a capture {quiet_syncs}; the frames under "
+                f"torch.profiler {json.dumps([dict(r['runtime'], keyframe=r['kf'], captures=r['captures']) for r in prof])}")
+            log(f"D: host syncs by site "
+                f"{json.dumps(syncs.sites['tracker'].most_common(12))}")
+            if progs.graphed:
+                check(quiet_syncs and max(quiet_syncs) == 0,
+                      f"D: a steady frame without a keyframe or a capture "
+                      f"made host syncs: {quiet_syncs}")
+            log(f"D: kernel launches {json.dumps(launches)}")
+            rep = system.mapper.timer.report()
+            lba = {k: dict(calls=rep[k][0],
+                           mean_ms=round(rep[k][2] * 1e3, 2),
+                           max_ms=round(system.mapper.timer.maxv[k] * 1e3,
+                                        2))
+                   for k in ("lba/gather", "lba/device", "lba/apply")
+                   if k in rep}
+            log(f"D: the pose-optimizing local BA per keyframe (host clock) "
+                f"{json.dumps(lba)}")
+
+            # two EPnP relocalizations: each a noise frame, then a mapped
+            # keyframe's image
+            rng = np.random.default_rng(0)
+            noise = torch.as_tensor(rng.uniform(0, 255, (
+                cfg.cam.height, cfg.cam.width)).astype(np.float32),
+                device=device)
+            est_flown = float(np.linalg.norm(np.diff(est, axis=0),
+                                             axis=1).sum())
+            kf_frames = sorted(kf.frame.frame_id for kf in system.store.kfs
+                               if kf.valid)
+            reloc = []
+            t = D_FRAMES * 0.1
+            for n, j in enumerate(kf_frames[-1:-3:-1]):
+                step(noise, t)
+                check(system.state == TrackState.LOST,
+                      f"D: noise frame {n + 1} is {system.state.name}, not "
+                      f"LOST")
+                check(system.store.n_valid_keyframes() >= D_MIN_KEYFRAMES,
+                      "D: the loss reset the map")
+                frame, row = step(frames[j], t + 0.1,
+                                  keep=f"reloc{n + 1}" if progs.graphed
+                                  else None)
+                t += 0.2
+                check(system.state == TrackState.OK
+                      and tr.last_reloc_frame_id == frame.frame_id,
+                      f"D: frame {j}'s image shown again did not relocalize "
+                      f"({system.state.name})")
+                T_tracked = system.trajectory[j][2]
+                dc = float(np.linalg.norm(centers([frame.Tcw])[0]
+                                          - centers([T_tracked])[0]))
+                deg = rotation_deg(frame.Tcw, T_tracked)
+                reloc.append(dict(frame=j, ms=row["ms"], syncs=row["syncs"],
+                                  captures=row["captures"]))
+                log(f"D: relocalization {n + 1}: the image of keyframe frame "
+                    f"{j} in {row['ms']:.1f} ms ({row['syncs']} host syncs, "
+                    f"{row['captures']} captures) with {tr.matches_inliers} "
+                    f"inliers: center {dc:.5f} from the tracked one "
+                    f"({dc / est_flown:.5f} of the {est_flown:.3f} map units "
+                    f"flown), rotation {deg:.4f} deg")
+                check(dc < 0.01 * est_flown and deg < D_RELOC_DEG,
+                      f"D: relocalization {n + 1}: pose {dc:.4f} units / "
+                      f"{deg:.3f} deg from the tracked one")
+            log(f"D: relocalization times {reloc[0]['ms']:.1f} ms (first) "
+                f"and {reloc[1]['ms']:.1f} ms (second)")
+
+        stats = {}
+        for name in graphs.STATS:
+            now, was = graphs.STATS[name], stats0.get(name, {})
+            d = {k: round(now[k] - was.get(k, 0), 2) for k in now}
+            if d["captures"] or d["replays"]:
+                stats[name] = d
+        log(f"D: the graphs' captures and replays over the run "
+            f"{json.dumps(stats)}")
+        if progs.graphed:
+            for label, mod, _ in D_PROGRAMS:
+                n_cap = stats.get(label, {}).get("captures", 0)
+                check(n_cap <= graphs.MAXSIZE, f"D: {label} captured "
+                      f"{n_cap} times, more than its {graphs.MAXSIZE} kept")
+            # the programs the run did not call, called once on its
+            # state: the chi2 gate (pose-prior mode's) on the last
+            # relocalized frame's bindings, and the relocalizer's
+            # projection search if its escalation did not run
+            last = max((i for i in range(D_FRAMES - D_WATCH, D_FRAMES)
+                        if i in progs.calls and not rows[i]["kf"]
+                        and rows[i]["captures"] == 0), default=None)
+            check(last is not None, "D: no steady frame among the last "
+                  f"{D_WATCH} of the sweep")
+            progs.keep = "extra"
+            try:
+                fcopy = copy.copy(tr.last_frame)   # the relocalized one
+                fcopy.mp_ids = tr.last_frame.mp_ids.copy()
+                tr._pose_chi2_filter(fcopy)
+                if "kf_projection_search" not in progs.calls.get(
+                        "reloc1", {}):
+                    fcopy.mp_ids = np.full_like(fcopy.mp_ids, -1)
+                    system.relocalizer._project_kf_points(
+                        system.store.valid_kf_ids()[-1], fcopy, th=10.0)
+            finally:
+                progs.keep = None
+            checked = progs.check([last, "reloc1", "extra"])
+            log(f"G: path D's programs bit-exact against their eager calls "
+                f"(steady frame {last}, the first relocalization, the "
+                f"extra calls) and a warm call of each with no host sync; "
+                f"calls, first shapes, the last call's ms as a graph and "
+                f"eager and its eager kernel launches "
+                f"{json.dumps(checked)}")
+    finally:
+        progs.restore()
+        tr._initialize = initialize
     system.shutdown()
-    return launches
+    summary = dict(
+        init_frame=first, bootstrap_ms=boot[0]["ms"] if boot else None,
+        steady_median_ms=float(np.median([r["ms"] for r in steady])),
+        quiet_median_ms=(float(np.median([r["ms"] for r in quiet]))
+                         if quiet else None),
+        keyframe_median_ms=(float(np.median([r["ms"] for r in keyed]))
+                            if keyed else None),
+        n_steady=len(steady), n_quiet=len(quiet), n_keyframe=len(keyed),
+        steady_syncs=quiet_syncs,
+        profiled=[dict(r["runtime"], keyframe=r["kf"],
+                       captures=r["captures"]) for r in prof],
+        reloc_ms=[r["ms"] for r in reloc], ate=ate, flown=flown,
+        launches=launches)
+    log(f"D summary {json.dumps(summary)}")
+    return summary
 
 
 def read_tracked_ply(path: str):
@@ -2575,6 +2882,63 @@ def repeat_loop(device, cfg) -> int:
     return 1 if failed else 0
 
 
+def repeat_estimated(device, world, cfg) -> int:
+    """--repeat-d: path D twice in this process, one summary line each
+    (``D summary``), then the two side by side."""
+    runs = []
+    for _ in range(2):
+        try:
+            runs.append(phase_estimated(device, world, cfg))
+        except SmokeFailure as e:
+            log(f"D repeat {len(runs)}: FAIL: {e}")
+            return 1
+    for k, r in enumerate(runs):
+        log(f"repeat D {k}: {d_line(r)}")
+    return 0
+
+
+def d_line(r: dict) -> str:
+    """One path-D summary in a line."""
+    steady = [p for p in r["profiled"] if not p["keyframe"]]
+    return (f"steady frame median {r['steady_median_ms']:.1f} ms "
+            f"({r['n_steady']} frames; without a capture "
+            f"{r['quiet_median_ms']}), keyframe frame median "
+            f"{r['keyframe_median_ms']} ms ({r['n_keyframe']}), launches a "
+            f"profiled steady frame "
+            f"{[(p['launches'], p['graph_launches']) for p in steady]}, "
+            f"syncs a steady frame {r['steady_syncs']}, relocalizations "
+            f"{[round(x, 1) for x in r['reloc_ms']]} ms, bootstrap "
+            f"{r['bootstrap_ms']} ms")
+
+
+def repeat_estimated_trees(tree: str) -> int:
+    """--repeat-d --tree DIR: path D in four processes, the port
+    imported from DIR, this checkout, this checkout and DIR (parent,
+    change, change, parent on one card), each as ``--repeat-d
+    --d-once``; their output passes through, and their summaries are
+    printed side by side."""
+    here = os.path.abspath(__file__)
+    runs = []
+    for which in ("tree", "here", "here", "tree"):
+        cmd = [sys.executable, here, "--repeat-d", "--d-once"]
+        if which == "tree":
+            cmd += ["--tree", tree]
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=900)
+        sys.stdout.write(out.stdout)
+        sys.stderr.write(out.stderr[-4000:])
+        summary = [ln for ln in out.stdout.splitlines()
+                   if ln.startswith("D summary ")]
+        if out.returncode != 0 or not summary:
+            log(f"D repeat ({which}): exit {out.returncode}")
+            return 1
+        runs.append((which, json.loads(summary[-1][len("D summary "):])))
+    for which, r in runs:
+        log(f"repeat D {'parent' if which == 'tree' else 'change'}: "
+            f"{d_line(r)}")
+    return 0
+
+
 def loop_split(device, world, cfg) -> int:
     """--loop-split: path B with its loop keyframe split (LoopWatch:
     stage times, host syncs, each program's calls, first-call and
@@ -2606,6 +2970,13 @@ def main() -> int:
                     help="run only path B, twice, with its loop keyframe "
                          "split (the second run under torch.profiler), "
                          "then path D (see loop_split)")
+    ap.add_argument("--repeat-d", action="store_true",
+                    help="run only path D, twice (see repeat_estimated); "
+                         "with --tree DIR, four times in four processes: "
+                         "DIR, this checkout, this checkout, DIR")
+    ap.add_argument("--d-once", action="store_true",
+                    help="with --repeat-d: path D once (a process of "
+                         "--repeat-d --tree)")
     ap.add_argument("--gloo-worker", nargs=3,
                     metavar=("HOST:PORT", "RANK", "PROBLEM"),
                     help="path F's process-group rank (started by path F)")
@@ -2615,14 +2986,16 @@ def main() -> int:
                          "orb_slam2_tpu_torch imported from the checkout "
                          "DIR, and print the results as one JSON line")
     ap.add_argument("--tree", metavar="DIR",
-                    help="with --repeat-a, --profile or --loop-split: "
-                         "import "
+                    help="with --repeat-a, --repeat-d, --profile or "
+                         "--loop-split: import "
                          "orb_slam2_tpu_torch from the checkout DIR (the "
                          "parent of a change, unpacked by git archive), "
                          "so both run under this script")
     args = ap.parse_args()
-    if args.tree and not (args.repeat_a or args.profile or args.loop_split):
-        ap.error("--tree goes with --repeat-a, --profile or --loop-split")
+    if args.tree and not (args.repeat_a or args.profile or args.loop_split
+                          or args.repeat_d):
+        ap.error("--tree goes with --repeat-a, --repeat-d, --profile or "
+                 "--loop-split")
     try:
         import torch
     except ImportError:
@@ -2633,6 +3006,8 @@ def main() -> int:
               "card", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
+    if args.repeat_d and args.tree and not args.d_once:
+        return repeat_estimated_trees(os.path.abspath(args.tree))
     root = os.path.abspath(args.kernels_from or args.tree or here)
     if not os.path.isdir(os.path.join(root, "orb_slam2_tpu_torch")):
         print(f"chip_smoke: orb_slam2_tpu_torch/ is not in {root}",
@@ -2670,6 +3045,15 @@ def main() -> int:
         except SmokeFailure as e:
             print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
             return 1
+    if args.repeat_d:
+        if not args.d_once:
+            return repeat_estimated(device, world, cfg)
+        try:
+            phase_estimated(device, world, cfg)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        return 0
     if args.repeat_a:
         try:
             return repeat_bench(device, world, cfg)

@@ -13,63 +13,24 @@ fixes the quaternion only up to sign; the rotation it gives is unique.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from . import se3, sim3 as sim3_mod
+from . import jacobi, se3, sim3 as sim3_mod
 
 
-# cyclic Jacobi: each sweep rotates every off-diagonal pair to zero once,
-# and convergence is quadratic; 6 sweeps hold the top eigenvector to
-# eigh's within 1e-6 on tests/test_torch_loop_graphs.py's blocks
+# cyclic Jacobi (``jacobi.sym_eigh``): convergence is quadratic; 6
+# sweeps hold the top eigenvector to eigh's within 1e-6 on
+# tests/test_torch_loop_graphs.py's blocks
 JACOBI_SWEEPS = 6
-_PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
-
-
-@functools.lru_cache(maxsize=None)
-def _rotation_masks(p: int, q: int, dtype, device):
-    """(e_p e_p^T + e_q e_q^T, e_p e_q^T - e_q e_p^T) as 4x4 tensors,
-    made once per device (a CUDA graph replays the cached tensors)."""
-    diag = torch.zeros(4, 4, dtype=dtype)
-    diag[p, p] = diag[q, q] = 1.0
-    off = torch.zeros(4, 4, dtype=dtype)
-    off[p, q], off[q, p] = 1.0, -1.0
-    return diag.to(device), off.to(device)
 
 
 def sym4_top_eigvec(N: torch.Tensor, sweeps: int = JACOBI_SWEEPS):
     """The unit eigenvector of the largest eigenvalue of symmetric 4x4
-    blocks (..., 4, 4), by cyclic Jacobi rotations (Golub & Van Loan
-    8.5): (..., 4), of either sign.  The last column of ``eigh``'s
-    eigenvectors, where the largest eigenvalue is simple."""
-    dt, dev = N.dtype, N.device
-    eye = torch.eye(4, dtype=dt, device=dev)
-    A = N
-    V = eye.expand(N.shape).clone()
-    for _ in range(sweeps):
-        for p, q in _PAIRS:
-            app, aqq, apq = A[..., p, p], A[..., q, q], A[..., p, q]
-            zero = apq == 0
-            theta = (aqq - app) / (2.0 * torch.where(zero,
-                                                     torch.ones_like(apq),
-                                                     apq))
-            # the smaller root of t^2 + 2 t theta - 1 = 0 (|angle| <= pi/4)
-            t = torch.where(theta >= 0, 1.0, -1.0).to(dt) / (
-                theta.abs() + torch.sqrt(theta * theta + 1.0))
-            t = torch.where(zero, torch.zeros_like(t), t)
-            c = torch.rsqrt(t * t + 1.0)
-            s = t * c
-            # J = I + (c - 1) (e_p e_p^T + e_q e_q^T) + s (e_p e_q^T -
-            # e_q e_p^T); A <- J^T A J, V <- V J
-            diag, off = _rotation_masks(p, q, dt, dev)
-            J = eye + (c - 1.0)[..., None, None] * diag \
-                + s[..., None, None] * off
-            A = J.transpose(-1, -2) @ A @ J
-            V = V @ J
-    top = torch.diagonal(A, dim1=-2, dim2=-1).argmax(-1)      # (...,)
-    return torch.gather(V, -1, top[..., None, None].expand(
-        V.shape[:-1] + (1,)))[..., 0]
+    blocks (..., 4, 4), by cyclic Jacobi rotations
+    (:func:`jacobi.sym_eigh`): (..., 4), of either sign.  The last
+    column of ``eigh``'s eigenvectors, where the largest eigenvalue is
+    simple."""
+    return jacobi.sym_eigh(N, sweeps)[1][..., -1]
 
 
 def top_eigvec(N: torch.Tensor) -> torch.Tensor:

@@ -12,21 +12,39 @@ barycentric coordinates (:311-333), the M matrix (:335-355), beta
 approximations (:455-527), Gauss-Newton on betas (:571-613), pose
 recovery by absolute orientation (:357-453).  Every function takes a
 leading batch axis.  Eigenvectors come ascending by eigenvalue, as
-from ``jnp.linalg.eigh``; their signs may differ between LAPACK and
-cuSOLVER, which moves the intermediate control points but not the pose.
+from ``jnp.linalg.eigh``.
+
+A call reads nothing back to the host, so ``pnp_ransac`` replays from a
+CUDA graph on the card (``pipeline.relocalization``): the symmetric
+eigendecompositions are float64 Jacobi sweeps in tensor operations
+there (:func:`_eigh`; LAPACK on the CPU, the JAX package's own routine
+there), the 3x3 barycentric solve is the closed-form adjugate and the
+normal equations of the beta fits a Cholesky solve
+(``geom.smallsolve``).  Eigenvector signs, and the basis Jacobi and
+LAPACK choose for a minimal set's 4-dimensional null space, move the
+intermediate control points and betas but not the pose.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import functools
+
 import torch
 
-from ..geom import horn, sim3
+from ..geom import horn, jacobi, sim3, smallsolve
 
 _PAIRS = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
 # beta monomials [b11, b12, b22, b13, b23, b33, b14, b24, b34, b44]
 _MONO = [(0, 0), (0, 1), (1, 1), (0, 2), (1, 2), (2, 2),
          (0, 3), (1, 3), (2, 3), (3, 3)]
+# Jacobi sweeps (float64) that hold the eigenvalues to eigh's within
+# 1e-6 relative and the eigenvectors (the 12x12 blocks: the projector on
+# their 4-dimensional null space) within 1e-6, with a margin of at least
+# 1e-7, on tests/test_torch_estimated_graphs.py's minimal sets: the 3x3
+# covariances settle after 3 sweeps, the 12x12 M^T M after 7
+SWEEPS_COV = 4
+SWEEPS_M = 8
 
 
 class PnPResult(NamedTuple):
@@ -43,9 +61,15 @@ def _project(pc, fx, fy, cx, cy):
                         fy * pc[..., 1] / z + cy], -1)
 
 
-def _solve(A, b):
-    """Batched solve without the error check (no host read)."""
-    return torch.linalg.solve_ex(A, b, check_errors=False).result
+def _eigh(A, sweeps: int):
+    """Ascending eigenvalues and eigenvectors of symmetric blocks
+    (..., n, n).  On the card: ``sweeps`` Jacobi sweeps in float64
+    (cuSOLVER's ``eigh`` checks its result on the host, which a CUDA
+    graph cannot hold).  On the CPU: LAPACK's ``eigh``."""
+    if A.is_cuda:
+        w, v = jacobi.sym_eigh(A.double(), sweeps)
+        return w.to(A.dtype), v.to(A.dtype)
+    return torch.linalg.eigh(A)
 
 
 def _control_points(pts):
@@ -54,7 +78,7 @@ def _control_points(pts):
     c0 = pts.mean(dim=-2)
     d = pts - c0[..., None, :]
     cov = d.transpose(-1, -2) @ d / pts.shape[-2]
-    w, v = torch.linalg.eigh(cov)          # ascending
+    w, v = _eigh(cov, SWEEPS_COV)          # ascending
     # degenerate (planar/linear) sets: keep a tiny extent so the
     # barycentric solve stays invertible; RANSAC scoring rejects junk
     s = torch.sqrt(torch.clamp(w, min=1e-12)).clamp(min=1e-6)
@@ -66,9 +90,9 @@ def _barycentric(pts, cw):
     """alphas with p = sum_j alpha_j c_j and sum alpha = 1
     (src/PnPsolver.cc:311-333).  (B, n, 3), (B, 4, 3) -> (B, n, 4)."""
     CC = (cw[..., 1:, :] - cw[..., :1, :]).transpose(-1, -2)     # (B, 3, 3)
-    rhs = (pts - cw[..., :1, :]).transpose(-1, -2)               # (B, 3, n)
     eye = torch.eye(3, dtype=pts.dtype, device=pts.device)
-    a123 = _solve(CC + 1e-12 * eye, rhs).transpose(-1, -2)       # (B, n, 3)
+    a123 = smallsolve.solve3x3((CC + 1e-12 * eye)[..., None, :, :],
+                               pts - cw[..., :1, :])             # (B, n, 3)
     a0 = 1.0 - a123.sum(-1, keepdim=True)
     return torch.cat([a0, a123], dim=-1)
 
@@ -108,9 +132,11 @@ def _L6x10(V):
 
 
 def _lstsq(A, b):
+    """Least squares by the damped normal equations (SPD)."""
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     At = A.transpose(-1, -2)
-    return _solve(At @ A + 1e-9 * eye, (At @ b[..., None]))[..., 0]
+    return smallsolve.spd_solve(At @ A + 1e-9 * eye,
+                                (At @ b[..., None])[..., 0])
 
 
 def _sgn_neg(x):
@@ -119,7 +145,8 @@ def _sgn_neg(x):
 
 def _betas_approx_1(L, rho):
     """N=4 start: unknowns [b11, b12, b13, b14] (src/PnPsolver.cc:455-478)."""
-    x = _lstsq(L[..., [0, 1, 3, 6]], rho)
+    x = _lstsq(torch.stack([L[..., 0], L[..., 1], L[..., 3], L[..., 6]],
+                           -1), rho)
     b1 = torch.sqrt(x[:, 0].abs())
     d = torch.clamp(b1, min=1e-12)
     sgn = _sgn_neg(x[:, 0])
@@ -129,7 +156,7 @@ def _betas_approx_1(L, rho):
 
 def _betas_approx_2(L, rho):
     """N=2 start: [b11, b12, b22] (src/PnPsolver.cc:480-501)."""
-    x = _lstsq(L[..., [0, 1, 2]], rho)
+    x = _lstsq(L[..., :3], rho)
     b1 = torch.sqrt(x[:, 0].abs())
     b2 = torch.sqrt(x[:, 2].abs()) * _sgn_neg(x[:, 1])
     zero = torch.zeros_like(b1)
@@ -138,18 +165,25 @@ def _betas_approx_2(L, rho):
 
 def _betas_approx_3(L, rho):
     """N=3 start: [b11, b12, b22, b13, b23] (src/PnPsolver.cc:503-527)."""
-    x = _lstsq(L[..., [0, 1, 2, 3, 4]], rho)
+    x = _lstsq(L[..., :5], rho)
     b1 = torch.sqrt(x[:, 0].abs())
     b2 = torch.sqrt(x[:, 2].abs()) * _sgn_neg(x[:, 1])
     b3 = x[:, 3] / torch.clamp(b1, min=1e-12)
     return torch.stack([b1, b2, b3, torch.zeros_like(b1)], dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _mono_index(device):
+    """The beta monomials' two factor indices (10,) each, made once per
+    device (a CUDA graph replays the cached tensors)."""
+    return (torch.tensor([a for a, _ in _MONO]).to(device),
+            torch.tensor([b for _, b in _MONO]).to(device))
+
+
 def _gauss_newton_betas(L, rho, betas, iters: int = 5):
     """Refine betas on the 6 distance constraints
     (src/PnPsolver.cc:571-613)."""
-    i0 = torch.tensor([a for a, _ in _MONO], device=L.device)
-    i1 = torch.tensor([b for _, b in _MONO], device=L.device)
+    i0, i1 = _mono_index(L.device)
     e = torch.eye(4, dtype=L.dtype, device=L.device)
     for _ in range(iters):
         mono = betas[:, i0] * betas[:, i1]                          # (B, 10)
@@ -178,7 +212,7 @@ def _epnp_batch(pts_w, uv, fx, fy, cx, cy):
     cw = _control_points(pts_w)
     alphas = _barycentric(pts_w, cw)
     M = _build_M(alphas, uv, fx, fy, cx, cy)
-    _, vecs = torch.linalg.eigh(M.transpose(-1, -2) @ M)   # ascending
+    _, vecs = _eigh(M.transpose(-1, -2) @ M, SWEEPS_M)     # ascending
     V = vecs[..., :4]                                      # null-space basis
     L = _L6x10(V)
     rho = _rho(cw)
@@ -223,8 +257,9 @@ def pnp_ransac(pts_w: torch.Tensor, uv: torch.Tensor,
     inl = valid[None] & (c2 <= chi2) & (pc[..., 2] > 0)
     counts = torch.where(hyp_ok, inl.sum(-1), torch.full_like(hyp_ok, -1,
                                                              dtype=torch.long))
-    best = torch.argmax(counts)
-    n_best = counts[best]
-    return PnPResult(Tcw=Ts[best], inliers=inl[best],
+    # a (1,) index: a 0-d index tensor would be read back to the host
+    best = torch.argmax(counts, dim=0, keepdim=True)
+    n_best = counts[best][0]
+    return PnPResult(Tcw=Ts[best][0], inliers=inl[best][0],
                      n_inliers=torch.clamp(n_best, min=0),
                      ok=n_best >= min_inliers)

@@ -5,10 +5,13 @@ Optimizer::PoseOptimization, which the reference fork deleted): 4 rounds
 of 10 LM iterations, Huber(sqrt(5.991)) in the first two rounds, chi2
 reclassification of inliers and outliers between rounds.
 
-The accept and damping decisions stay on the device (``torch.where``)
-and the 6x6 solve is ``solve_ex`` without its error check, so a call
-reads nothing back to the host: on the card the 40 iterations queue
-without a synchronization.
+The accept and damping decisions stay on the device (``torch.where``),
+the damping starts from a fill (no copy of host data) and the damped
+6x6 system, symmetric positive definite, is solved by a Cholesky
+factorization in tensor operations (``geom.smallsolve.spd_solve``), so
+a call reads nothing back to the host: on the card the 40 iterations
+are one program, replayed from a CUDA graph by the tracker and the
+relocalizer (``pipeline.tracking._pose_opt_fused``).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..geom import se3
+from ..geom import se3, smallsolve
 from . import reproj
 
 CHI2_MONO = 5.991
@@ -52,7 +55,8 @@ def optimize_pose(Tcw0: torch.Tensor, pts_w: torch.Tensor, uv: torch.Tensor,
     for rd in range(n_rounds):
         use_huber = rd < 2  # upstream drops the robust kernel after 2 rounds
         live = inlier & valid
-        lam = torch.tensor(1e-3, dtype=pts_w.dtype, device=pts_w.device)
+        lam = torch.full((), 1e-3, dtype=pts_w.dtype,
+                         device=pts_w.device)
         for _ in range(iters_per_round):
             res = reproj.project_jacobians(Tcw, pts_w, uv, fx, fy, cx, cy)
             c2 = reproj.chi2(res.r, inv_sigma2)
@@ -63,7 +67,7 @@ def optimize_pose(Tcw0: torch.Tensor, pts_w: torch.Tensor, uv: torch.Tensor,
             H = torch.einsum("nia,nib->ab", Jw, res.J_pose)
             g = torch.einsum("nia,ni->a", Jw, res.r)
             Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-9 * eye6
-            delta = -torch.linalg.solve_ex(Hd, g, check_errors=False).result
+            delta = -smallsolve.spd_solve(Hd, g)
             T_new = se3.exp(delta) @ Tcw
             # accept iff the cost decreased (simple LM; adjust damping)
             new = reproj.project_jacobians(T_new, pts_w, uv, fx, fy, cx, cy)

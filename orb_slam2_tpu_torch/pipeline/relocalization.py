@@ -14,24 +14,41 @@ Per candidate a BoW descriptor match (>= 15), then verification:
   when the inliers land in [10, 50), success at >= 50 inliers.  The
   RANSAC samples are drawn on the host from ``default_rng(1)``, as the
   JAX package draws them, so both packages see the same.
+
+The device programs replay CUDA graphs on the card: the BoW match and
+the pose optimization share the tracker's (``tracking.descriptors_graph``,
+``tracking.pose_opt_graph``), the EPnP RANSAC and the projection search
+have their own.  Every upload goes through pinned memory
+(``graphs.upload``) and each program's results come back through one
+``graphs.Readback``, so nothing waits for the card but those reads.
 """
 from __future__ import annotations
 
 from typing import List
 
 import numpy as np
-import torch
 
+from .. import graphs
 from ..matching import search
 from ..models.frame import Frame
 from ..models.mapstore import MapStore
-from ..optim import pnp, pose_opt
+from ..optim import pnp
+from . import tracking
 from .config import SlamConfig
 from .place_recognition import PlaceRecognition
 from .tracking import pad_bucket
 from ..utils.logging import get_logger
 
 log = get_logger("relocalization")
+
+
+# the relocalizer's own programs as CUDA graphs (the JAX package's
+# jitted pnp_ransac and SearchByProjection(CurrentFrame, KF)); each
+# looks its function up at each call
+pnp_graph = graphs.graphed(lambda *a: pnp.pnp_ransac(*a), "pnp_ransac")
+kf_projection_graph = graphs.graphed(
+    lambda *a: search.search_by_projection_last_frame(*a),
+    "kf_projection_search")
 
 
 class Relocalizer:
@@ -48,6 +65,16 @@ class Relocalizer:
         self.scale_factors = pyramid.scale_factors(
             cfg.orb.n_levels, cfg.orb.scale_factor)[0].astype(np.float32)
         self._rng = np.random.default_rng(1)
+        self._dev = {}      # device -> (inv_sigma2, scale_factors) there
+
+    def _tables(self, device):
+        """The levels' inverse sigma^2 and scale factors on ``device``,
+        uploaded once."""
+        key = str(device)
+        if key not in self._dev:
+            self._dev[key] = (graphs.upload(self.inv_sigma2, device),
+                              graphs.upload(self.scale_factors, device))
+        return self._dev[key]
 
     # ------------------------------------------------------------------
     def _candidates(self, frame: Frame) -> List[int]:
@@ -78,23 +105,23 @@ class Relocalizer:
         v = np.zeros(n, bool)
         v[:len(ids)] = True
         dev = frame.device
+        t = lambda a: graphs.upload(a, dev)  # noqa: E731
         # FeatureVector-style node blocking (src/ORBmatcher.cc:222-392)
         # when both sides have vocabulary node ids
         nk = self.pr.compute_nodes(fk)
         nf = self.pr.compute_nodes(frame) if nk is not None else None
-        node1 = (torch.as_tensor(np.pad(nk[ids], (0, pad), constant_values=-1),
-                                 device=dev) if nf is not None else None)
-        node2 = torch.as_tensor(nf, device=dev) if nf is not None else None
-        res = search.search_descriptors(
-            torch.as_tensor(np.pad(fk.desc[ids], ((0, pad), (0, 0)))
-                            .view(np.int32), device=dev),
-            torch.as_tensor(v, device=dev),
-            torch.as_tensor(np.pad(fk.angle[ids], (0, pad)), device=dev),
-            node1,
+        node1 = (t(np.pad(nk[ids], (0, pad), constant_values=-1))
+                 if nf is not None else None)
+        node2 = t(nf) if nf is not None else None
+        res = tracking.descriptors_graph(
+            t(np.pad(fk.desc[ids], ((0, pad), (0, 0))).view(np.int32)),
+            t(v), t(np.pad(fk.angle[ids], (0, pad))), node1,
             frame.dev("desc"), frame.dev("valid"), frame.dev("angle"), node2,
-            ratio=0.75).host()
-        rows = np.where(res.valid[:len(ids)])[0]
-        return ids[rows], res.idx[:len(ids)][rows]
+            0.75)
+        valid, idx = (a[:len(ids)] for a in graphs.Readback(
+            (res.valid, res.idx)).arrays())
+        rows = np.where(valid)[0]
+        return ids[rows], idx[rows]
 
     # ------------------------------------------------------------------
     def __call__(self, frame: Frame) -> bool:
@@ -131,17 +158,21 @@ class Relocalizer:
             samples = self._rng.integers(0, len(pids), (128, 4)).astype(
                 np.int32)
             dev = frame.device
-            t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-            rr = pnp.pnp_ransac(
+            t = lambda a: graphs.upload(a, dev)  # noqa: E731
+            # the samples are a tensor input of the graph, not a
+            # constant of its capture
+            rr = pnp_graph(
                 t(np.pad(pts_w, ((0, padn), (0, 0)))),
                 t(np.pad(uv, ((0, padn), (0, 0)))),
                 t(np.pad(isig, (0, padn))),
                 t(np.pad(np.ones(len(pids), bool), (0, padn))),
-                t(samples), fx, fy, cx, cy, min_inliers=10)
-            if not bool(rr.ok):
+                t(samples), fx, fy, cx, cy, 10)
+            ok, Tcw, inl = graphs.Readback(
+                (rr.ok, rr.Tcw, rr.inliers)).arrays()
+            if not ok:
                 continue
-            frame.Tcw = rr.Tcw.cpu().numpy()
-            inl = rr.inliers.cpu().numpy()[:len(pids)]
+            frame.Tcw = np.array(Tcw)  # owned: no pinned block stays held
+            inl = inl[:len(pids)]
             frame.mp_ids[:] = -1
             frame.mp_ids[feat_fr[inl]] = pids[inl]
             good = self._pose_optimize(frame)
@@ -160,8 +191,10 @@ class Relocalizer:
 
     # ------------------------------------------------------------------
     def _pose_optimize(self, frame: Frame) -> int:
-        """Motion-only LM over the frame's bindings; unbinds outliers.
-        Returns the inlier count."""
+        """Motion-only LM over the frame's bindings, the keypoints
+        gathered on the device (the tracker's graph of
+        ``tracking._pose_opt_fused``); unbinds outliers.  Returns the
+        inlier count."""
         bound = np.where(frame.mp_ids >= 0)[0]
         if len(bound) < 3:
             return 0
@@ -169,15 +202,16 @@ class Relocalizer:
         pad = pad_bucket(len(bound)) - len(bound)
         fx, fy, cx, cy = self._cam_tuple
         dev = frame.device
-        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-        res = pose_opt.optimize_pose(
+        t = lambda a: graphs.upload(a, dev)  # noqa: E731
+        res = tracking.pose_opt_graph(
             t(frame.Tcw), t(np.pad(pos, ((0, pad), (0, 0)))),
-            t(np.pad(frame.xy[bound], ((0, pad), (0, 0)))),
-            t(np.pad(self.inv_sigma2[frame.octave[bound]], (0, pad))),
+            t(np.pad(bound, (0, pad))),
+            frame.dev("xy"), frame.dev("octave"), self._tables(dev)[0],
             t(np.pad(np.ones(len(bound), bool), (0, pad))),
             fx, fy, cx, cy)
-        frame.Tcw = res.Tcw.cpu().numpy()
-        inl = res.inliers.cpu().numpy()[:len(bound)]
+        Tcw, inl = graphs.Readback((res.Tcw, res.inliers)).arrays()
+        frame.Tcw = np.array(Tcw)      # owned: no pinned block stays held
+        inl = inl[:len(bound)]
         frame.mp_ids[bound[~inl]] = -1
         return int(inl.sum())
 
@@ -203,17 +237,17 @@ class Relocalizer:
         mp_valid = np.zeros(len(ids) + pad, bool)
         mp_valid[:len(ids)] = z > 0
         dev = frame.device
-        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-        res = search.search_by_projection_last_frame(
+        t = lambda a: graphs.upload(a, dev)  # noqa: E731
+        res = kf_projection_graph(
             t(np.pad(uv.astype(np.float32), ((0, pad), (0, 0)))),
-            t(np.pad(fk.octave[ids], (0, pad))).long(),
+            t(np.pad(fk.octave[ids], (0, pad)).astype(np.int64)),
             t(np.pad(fk.desc[ids], ((0, pad), (0, 0))).view(np.int32)),
             t(mp_valid),
             t(np.pad(fk.angle[ids], (0, pad))),
             frame.dev("xy"), frame.dev("octave"), frame.dev("desc"),
-            t(frame.valid & (frame.mp_ids < 0)), frame.dev("angle"),
-            t(self.scale_factors), th=th).host()
-        rvalid = res.valid[:len(ids)]
-        ridx = res.idx[:len(ids)]
+            frame.dev("valid") & t(frame.mp_ids < 0), frame.dev("angle"),
+            self._tables(dev)[1], float(th))
+        rvalid, ridx = (a[:len(ids)] for a in graphs.Readback(
+            (res.valid, res.idx)).arrays())
         for j in np.where(rvalid)[0]:
             frame.mp_ids[ridx[j]] = fk.mp_ids[ids[j]]

@@ -16,7 +16,16 @@ tracking modes:
 - ``pose_prior=False``: upstream ORB-SLAM2.  The H/F-model two-view
   initializer with a median-depth gauge, the constant-velocity motion
   model and the motion-only LM pose optimization
-  (``optim/pose_opt.py``).
+  (``optim/pose_opt.py``).  Its per-frame programs (the last-frame
+  search :func:`_match_last`, the local-map search
+  :func:`_frustum_search`, the pose optimization :func:`_pose_opt_fused`,
+  and off the fused step the chi2 gate :func:`_reproj_chi2_gate` and the
+  reference-keyframe descriptor search) replay CUDA graphs shared with
+  the relocalizer, on rows padded to ``pad_bucket``, and each stage reads
+  its results through one ``graphs.Readback``: a steady frame that maps
+  no keyframe waits for the card only at those reads.  The two-view
+  bootstrap runs once per map and stays eager (a graph's first call is
+  an eager call and a capture).
 
 ``cfg.pipelined_tracking`` (pose-prior mode) keeps up to
 ``cfg.pipeline_depth`` fused steps in flight: each step's bound set is
@@ -276,6 +285,45 @@ def _track_prior_chain(Tcw,
         scale_factors, inv_sigma2,
         fx, fy, cx, cy, bounds, n_levels, log_scale,
         th_last, th_local, chi2)
+
+
+def _pose_opt_fused(Tcw0, pos, bound_idx, kp_xy, kp_octave,
+                    inv_sigma2_lvl, valid, fx, fy, cx, cy):
+    """Motion-only pose LM (``optim/pose_opt.py``) with the bound
+    keypoints and their level's inverse sigma^2 gathered on the device
+    by ``bound_idx`` from the frame's resident arrays."""
+    bound_idx = bound_idx.long()
+    return pose_opt.optimize_pose(
+        Tcw0, pos, kp_xy[bound_idx],
+        inv_sigma2_lvl[kp_octave[bound_idx].long()], valid,
+        fx, fy, cx, cy)
+
+
+def _reproj_chi2_gate(Tcw, pos, bound_idx, kp_xy, kp_octave, inv_sigma2,
+                      valid, fx, fy, cx, cy, chi2):
+    """CheckMatchesByProjection (src/Tracking.cc:1108-1142): the
+    bindings whose reprojection error under the (trusted) pose passes
+    the chi-squared gate, the keypoints gathered on the device by
+    ``bound_idx``."""
+    bound_idx = bound_idx.long()
+    uv, z = _project_points(Tcw, pos, fx, fy, cx, cy)
+    c2 = _chi2(uv, kp_xy, kp_octave, inv_sigma2, bound_idx)
+    return valid & (z > 0) & (c2 <= chi2)
+
+
+# the tracking stages' programs outside the fused step, as CUDA graphs
+# (the JAX package's jitted _match_last_fused, _frustum_search_fused,
+# _pose_opt_fused, _reproj_chi2_gate and search_descriptors), shared by
+# every Tracker and Relocalizer so that they share captures; each looks
+# its function up at each call
+match_last_graph = graphs.graphed(lambda *a: _match_last(*a), "match_last")
+frustum_graph = graphs.graphed(lambda *a: _frustum_search(*a),
+                               "frustum_search")
+pose_opt_graph = graphs.graphed(lambda *a: _pose_opt_fused(*a), "pose_opt")
+chi2_gate_graph = graphs.graphed(lambda *a: _reproj_chi2_gate(*a),
+                                 "reproj_chi2_gate")
+descriptors_graph = graphs.graphed(
+    lambda *a: search.search_descriptors(*a), "search_descriptors")
 
 
 class Tracker:
@@ -876,7 +924,7 @@ class Tracker:
         mp_valid = np.zeros(n, bool)
         mp_valid[:len(ids)] = True
         fx, fy, cx, cy = self._cam_tuple
-        res, gate = _match_last(
+        res, gate = match_last_graph(
             self._t(Tcw_pred), self._t(np.pad(pos, ((0, pad), (0, 0)))),
             self._t(mp_valid), self._t(np.pad(ids, (0, pad))),
             last.dev("octave"), last.dev("desc"), last.dev("angle"),
@@ -884,47 +932,50 @@ class Tracker:
             frame.dev("valid"), frame.dev("angle"),
             self._t_scales, self._t_inv_sigma2,
             fx, fy, cx, cy, self.bounds, th, chi2)
-        rvalid = res.valid.cpu().numpy()[:len(ids)]
-        ridx = res.idx.cpu().numpy()[:len(ids)]
-        ggate = gate.cpu().numpy()[:len(ids)]
+        rvalid, ridx, ggate = (a[:len(ids)] for a in graphs.Readback(
+            (res.valid, res.idx, gate)).arrays())
         sel = np.where(ggate)[0]
         frame.mp_ids[ridx[sel]] = last.mp_ids[ids[sel]]
         return int(rvalid.sum()), len(sel)
 
     def _pose_chi2_filter(self, frame: Frame) -> int:
         """Gate current bindings by reprojection chi2 under the trusted
-        pose; returns the surviving count."""
+        pose, the rows padded to ``pad_bucket`` as the JAX package pads
+        them; returns the surviving count."""
         bound = np.where(frame.mp_ids >= 0)[0]
         if len(bound) == 0:
             return 0
-        pos = self._t(np.asarray(self.store.mp_pos[frame.mp_ids[bound]]))
+        pos = np.asarray(self.store.mp_pos[frame.mp_ids[bound]])
+        pad = pad_bucket(len(bound)) - len(bound)
         fx, fy, cx, cy = self._cam_tuple
-        uv, z = _project_points(self._t(frame.Tcw), pos, fx, fy, cx, cy)
-        c2 = _chi2(uv, frame.dev("xy"), frame.dev("octave"),
-                   self._t_inv_sigma2, self._t(bound).long())
-        ok = ((z > 0) & (c2 <= self.cfg.chi2_mono)).cpu().numpy()
+        ok = graphs.Readback((chi2_gate_graph(
+            self._t(frame.Tcw), self._t(np.pad(pos, ((0, pad), (0, 0)))),
+            self._t(np.pad(bound, (0, pad))),
+            frame.dev("xy"), frame.dev("octave"), self._t_inv_sigma2,
+            self._t(np.pad(np.ones(len(bound), bool), (0, pad))),
+            fx, fy, cx, cy, self.cfg.chi2_mono),)).arrays()[0][:len(bound)]
         frame.mp_ids[bound[~ok]] = -1
         return int(ok.sum())
 
     def _optimize_frame_pose(self, frame: Frame) -> int:
         """Motion-only LM over the current bindings, the keypoints
-        gathered on the device; flags outliers (upstream
-        PoseOptimization).  Returns the inlier count."""
+        gathered on the device (:func:`_pose_opt_fused`); flags outliers
+        (upstream PoseOptimization).  Returns the inlier count."""
         bound = np.where(frame.mp_ids >= 0)[0]
         if len(bound) < 3:
             return 0
         pos = np.asarray(self.store.mp_pos[frame.mp_ids[bound]])
         pad = pad_bucket(len(bound)) - len(bound)
-        rows = self._t(np.pad(bound, (0, pad))).long()
         fx, fy, cx, cy = self._cam_tuple
-        res = pose_opt.optimize_pose(
+        res = pose_opt_graph(
             self._t(frame.Tcw), self._t(np.pad(pos, ((0, pad), (0, 0)))),
-            frame.dev("xy")[rows],
-            self._t_inv_sigma2[frame.dev("octave")[rows].long()],
+            self._t(np.pad(bound, (0, pad))),
+            frame.dev("xy"), frame.dev("octave"), self._t_inv_sigma2,
             self._t(np.pad(np.ones(len(bound), bool), (0, pad))),
             fx, fy, cx, cy)
-        frame.Tcw = res.Tcw.cpu().numpy()
-        inl = res.inliers.cpu().numpy()[:len(bound)]
+        Tcw, inl = graphs.Readback((res.Tcw, res.inliers)).arrays()
+        frame.Tcw = np.array(Tcw)      # owned: no pinned block stays held
+        inl = inl[:len(bound)]
         frame.mp_outlier[:] = False
         frame.mp_outlier[bound[~inl]] = True
         return int(inl.sum())
@@ -1170,14 +1221,14 @@ class Tracker:
         node1 = (self._t(np.pad(nk[ids], (0, pad), constant_values=-1))
                  if nf is not None else None)
         node2 = self._t(nf) if nf is not None else None
-        res = search.search_descriptors(
+        res = descriptors_graph(
             self._t(np.pad(kf.desc[ids], ((0, pad), (0, 0))).view(np.int32)),
             self._t(valid_rows),
             self._t(np.pad(kf.angle[ids], (0, pad))), node1,
             frame.dev("desc"), frame.dev("valid"), frame.dev("angle"), node2,
-            ratio=0.7).host()
-        rvalid = res.valid[:len(ids)]
-        ridx = res.idx[:len(ids)]
+            0.7)
+        rvalid, ridx = (a[:len(ids)] for a in graphs.Readback(
+            (res.valid, res.idx)).arrays())
         n = 0
         for j in np.where(rvalid)[0]:
             frame.mp_ids[ridx[j]] = kf.mp_ids[ids[j]]
@@ -1285,7 +1336,7 @@ class Tracker:
             fx, fy, cx, cy = self._cam_tuple
             th = 3.0 if (frame.frame_id - self.last_reloc_frame_id
                          < self.cfg.max_frames_between_kf) else 1.0
-            vis_dev, res, new_gate, old_gate = _frustum_search(
+            vis_dev, res, new_gate, old_gate = frustum_graph(
                 self._t(np.pad(soa["pos"], ((0, pad), (0, 0)))),
                 self._t(np.pad(soa["normal"], ((0, pad), (0, 0)))),
                 self._t(np.pad(soa["min_dist"], (0, pad))),
@@ -1304,9 +1355,8 @@ class Tracker:
                 fx, fy, cx, cy, self.bounds,
                 self.cfg.orb.n_levels, self.log_scale, th,
                 self.cfg.chi2_mono if prior else 0.0)
-            visible, ridx, rvalid, g_new, g_old = (
-                t.cpu().numpy() for t in
-                (vis_dev, res.idx, res.valid, new_gate, old_gate))
+            visible, ridx, rvalid, g_new, g_old = graphs.Readback(
+                (vis_dev, res.idx, res.valid, new_gate, old_gate)).arrays()
             vis_pids = np.asarray(cand, np.int64)[visible[:len(cand)]]
             if len(vis_pids):
                 self.store.mp_n_visible[vis_pids] = \

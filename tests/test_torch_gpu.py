@@ -1684,3 +1684,275 @@ def test_loop_capture_beside_tracker_replays(loop_run, cuda):
     for out, eager in got:
         for a, b in zip(_leaves_all(out), _leaves_all(eager)):
             assert torch.equal(a, b)
+
+
+# ----------------------------------------------------------------------
+# estimated-pose mode's CUDA graphs (pipeline/tracking.py,
+# pipeline/relocalization.py) against their eager calls
+# ----------------------------------------------------------------------
+# (module, attribute) of each graph the tracker and the relocalizer call
+ESTIMATED_GRAPHS = (
+    ("tracking", "match_last_graph"), ("tracking", "frustum_graph"),
+    ("tracking", "pose_opt_graph"), ("tracking", "chi2_gate_graph"),
+    ("tracking", "descriptors_graph"), ("relocalization", "pnp_graph"),
+    ("relocalization", "kf_projection_graph"))
+
+
+def _estimated_modules():
+    from orb_slam2_tpu_torch.pipeline import relocalization, tracking
+    return dict(tracking=tracking, relocalization=relocalization)
+
+
+def _signature(args):
+    """What a graph keys its captures by (graphs.Graphed)."""
+    return tuple((tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor)
+                 else a for a in args)
+
+
+@pytest.fixture(scope="module")
+def estimated_run():
+    """tests/test_torch_estimated.py's sweep on the card (640x480, 800
+    features, 4 levels, 30 frames, ``track_monocular`` with no pose,
+    sequential mapping; the last frame and velocity kept), then a noise
+    frame and the image of a mapped
+    frame again (an EPnP relocalization), then the pose-prior chi2 gate
+    and the relocalizer's projection search once on the relocalized
+    frame; every call of the estimated-mode graphs recorded, and the
+    tracker in its final state."""
+    import copy
+    cuda = cuda_device()
+    from orb_slam2_tpu_torch.pipeline.tracking import TrackState
+    cam = Intrinsics(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640,
+                     height=480)
+    cfg = SlamConfig(cam=cam, orb=OrbParams(n_features=800, n_levels=4),
+                     fps=10.0, pose_prior=False, init_min_matches=60,
+                     init_min_triangulated=40, init_min_tracked_after_ba=60)
+    world = synth.make_world(seed=3, device=cuda)
+    poses = synth.aerial_trajectory(31, speed=0.3)
+    images = [synth.render(world, cam, T) for T in poses]
+    system = System(cfg, enable_loop_closing=False, device=cuda)
+    from orb_slam2_tpu_torch import graphs
+    mods = _estimated_modules()
+    rec = {}
+    for mod, name in ESTIMATED_GRAPHS:
+        rec[name] = _Recorder(getattr(mods[mod], name))
+        setattr(mods[mod], name, rec[name])
+
+    def captures():
+        # the graphs are module-level: earlier tests' captures count too
+        return {name: graphs.STATS.get(r.graph.name, {}).get("captures", 0)
+                for name, r in rec.items()}
+    before = captures()
+    try:
+        states = []
+        for i, img in enumerate(images[:30]):
+            system.track_monocular(img, i * 0.1)
+            states.append(system.state)
+        steady = dict(last=system.tracker.last_frame,
+                      velocity=system.tracker.velocity)
+        noise = torch.rand(480, 640, device=cuda) * 255
+        system.track_monocular(noise, 3.0)
+        lost = system.state
+        frame = system.track_monocular(images[20], 3.1)
+        relocalized = system.tracker.last_reloc_frame_id == frame.frame_id
+        tr = system.tracker
+        fcopy = copy.copy(tr.last_frame)
+        fcopy.mp_ids = tr.last_frame.mp_ids.copy()
+        tr._pose_chi2_filter(fcopy)
+        fcopy.mp_ids[:] = -1
+        system.relocalizer._project_kf_points(
+            system.store.valid_kf_ids()[-1], fcopy, th=10.0)
+        torch.cuda.synchronize()
+        after = captures()
+        new_captures = {k: after[k] - before[k] for k in rec}
+    finally:
+        for mod, name in ESTIMATED_GRAPHS:
+            setattr(mods[mod], name, rec[name].graph)
+    out = dict(rec=rec, states=states, lost=lost, relocalized=relocalized,
+               system=system, images=images, steady=steady,
+               new_captures=new_captures, TrackState=TrackState)
+    yield out
+    system.shutdown()
+
+
+@pytest.mark.gpu
+def test_graphed_estimated_programs_equal_eager_on_card(estimated_run):
+    """The sweep tracks and relocalizes; every call the tracker and the
+    relocalizer made through a graph (the last-frame and local-map
+    searches, the pose optimization, the descriptor search, the EPnP
+    RANSAC, the projection search; the chi2 gate once) against the
+    eager function on the same arguments: bit for bit, at the call and
+    replayed once more; each graph captured at most once per signature
+    the run gave it (the run's captures: the graphs are module-level,
+    and earlier tests' captures stay in their counts)."""
+    TS = estimated_run["TrackState"]
+    states = estimated_run["states"]
+    assert states[-1] == TS.OK and states.count(TS.OK) >= 25
+    assert estimated_run["lost"] == TS.LOST
+    assert estimated_run["relocalized"]
+    for name, r in estimated_run["rec"].items():
+        assert r.calls, f"{name} was never called"
+        for k, (args, out) in enumerate(r.calls):
+            want = _leaves_all(r.graph.fn(*args))
+            again = _leaves_all(r.graph(*args))
+            for j, (a, b, c) in enumerate(zip(_leaves_all(out), want,
+                                              again)):
+                assert torch.equal(a, b), (name, k, j)
+                assert torch.equal(c, b), (name, k, j)
+        n_sig = len({_signature(args) for args, _ in r.calls})
+        assert estimated_run["new_captures"][name] <= n_sig, (name, n_sig)
+
+
+@pytest.mark.gpu
+def test_warm_estimated_programs_make_no_host_sync(estimated_run):
+    """A warm replay of each estimated-mode program queues its work
+    without waiting for the card: no host sync under
+    ``set_sync_debug_mode("error")``."""
+    for name, r in estimated_run["rec"].items():
+        args, _ = r.calls[-1]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            r.graph(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.gpu
+def test_warm_estimated_stages_make_no_host_sync(estimated_run):
+    """The tracker's per-frame stages of estimated mode (the motion
+    model with its last-frame search and pose optimization, then the
+    local-map search and pose optimization) on the sweep's next frame,
+    from its last frame and velocity, twice: the second call, its
+    programs captured, makes no host sync under
+    ``set_sync_debug_mode("error")`` (the host reads go through
+    ``graphs.Readback``'s pinned copies)."""
+    tr = estimated_run["system"].tracker
+    steady = estimated_run["steady"]
+    frame = tr.factory.make(estimated_run["images"][30], 3.2)
+    Tcw0 = frame.Tcw
+    for attempt in range(2):
+        frame.mp_ids[:] = -1
+        frame.mp_outlier[:] = False
+        frame.Tcw = Tcw0
+        tr.last_frame = steady["last"]
+        tr.velocity = steady["velocity"]
+        torch.cuda.synchronize()
+        if attempt:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ok = tr._track_motion_model(frame) and tr._track_local_map(frame)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert ok
+
+
+def _estimated_shapes(cuda):
+    """Synthetic inputs at path D's padded shapes (chip_smoke.py's
+    1920x1440 sweep, 4000 features = 4096 rows): a 4,096-feature frame
+    on 8 levels; 1,800 bound points (4,096 rows); 3,000 local-map
+    candidates (4,096 rows); 300 BoW-matched rows (1,024) and 300 EPnP
+    correspondences (1,024 rows) with 128 minimal sets."""
+    rng = np.random.default_rng(21)
+    m, levels = 4096, 8
+    fx, fy, cx, cy = 1350.0, 1350.0, 960.0, 720.0
+    P = _pose([0.1, -0.2, 0.05], [0.3, -0.2, 0.5])
+    sf = (1.2 ** np.arange(levels)).astype(np.float32)
+    isig = (1.0 / sf ** 2).astype(np.float32)
+
+    def scene(n):
+        pw = rng.uniform([-6, -5, 8], [6, 5, 14], (n, 3)).astype(np.float32)
+        pw = pw @ P[:3, :3] - (P[:3, 3] @ P[:3, :3])
+        pc = pw @ P[:3, :3].T + P[:3, 3]
+        uv = np.stack([fx * pc[:, 0] / pc[:, 2] + cx,
+                       fy * pc[:, 1] / pc[:, 2] + cy], -1).astype(np.float32)
+        return pw, uv
+
+    pw, uv = scene(m)
+    kp_xy = (uv + rng.normal(0, 0.7, uv.shape)).astype(np.float32)
+    kp_oct = rng.integers(0, levels, m).astype(np.int32)
+    kp_desc = _rand_desc(rng, m).view(np.int32)
+    kp_angle = rng.uniform(0, 360, m).astype(np.float32)
+    kp_valid = np.arange(m) < 4000
+    t = lambda a: torch.as_tensor(np.asarray(a)).to(cuda)   # noqa: E731
+    kp = [t(a) for a in (kp_xy, kp_oct, kp_desc, kp_valid, kp_angle)]
+    cam = (fx, fy, cx, cy)
+    bounds = (0.0, 1920.0, 0.0, 1440.0)
+
+    def rows(n, size):
+        ids = rng.permutation(4000)[:n]
+        return ids, np.arange(size) < n, np.pad(ids, (0, size - n))
+
+    ids, v, pad_ids = rows(1800, 4096)
+    P0 = P.copy()
+    P0[:3, 3] += [0.02, -0.01, 0.01]
+    pos = np.pad(pw[ids], ((0, 4096 - 1800), (0, 0)))
+    pose = [t(P0), t(pos), t(pad_ids), kp[0], kp[1], t(isig), t(v), *cam]
+    last = [t(np.pad(pad_ids[:1800], (0, 2296))), t(kp_oct), t(kp_desc),
+            t(kp_angle)]
+    match_last = [t(P0), t(pos), t(v), last[0], last[1], last[2], last[3],
+                  kp[0], kp[1], kp[2], kp[3], kp[4], t(sf), t(isig), *cam,
+                  bounds, 15.0, 0.0]
+    cids, cv, _ = rows(3000, 4096)
+    cpos = np.pad(pw[cids], ((0, 1096), (0, 0)))
+    center = -P0[:3, :3].T @ P0[:3, 3]
+    d = cpos - center
+    dist = np.linalg.norm(d, axis=1).astype(np.float32) + 1e-3
+    normal = (d / dist[:, None]).astype(np.float32)
+    max_d = dist * sf[np.pad(kp_oct[cids], (0, 1096))]
+    has = np.zeros(m, bool)
+    has[ids] = True
+    frustum = [t(cpos), t(normal), t(max_d / sf[-1]), t(max_d), t(cv),
+               t(np.pad(kp_desc[cids], ((0, 1096), (0, 0)))), t(P0),
+               kp[0], kp[1], kp[2], kp[3], t(has), t(pos), t(pad_ids), t(v),
+               t(sf), t(isig), *cam, bounds, levels, float(np.log(1.2)),
+               1.0, 0.0]
+    chi2 = [t(P0), t(pos), t(pad_ids), kp[0], kp[1], t(isig), t(v), *cam,
+            5.991]
+    bids, bv, bpad = rows(300, 1024)
+    nodes = rng.integers(0, 50, m).astype(np.int32)
+    desc = [t(np.pad(kp_desc[bids], ((0, 724), (0, 0)))), t(bv),
+            t(np.pad(kp_angle[bids], (0, 724)))]
+    bow = [*desc, t(np.pad(nodes[bids], (0, 724), constant_values=-1)),
+           kp[2], kp[3], kp[4], t(nodes), 0.75]
+    bow_free = [*desc, None, kp[2], kp[3], kp[4], None, 0.7]
+    out = np.arange(300) >= 240
+    uv_pnp = kp_xy[bids] + out[:, None] * rng.uniform(30, 120, (300, 2))
+    pnp_args = [t(np.pad(pw[bids], ((0, 724), (0, 0)))),
+                t(np.pad(uv_pnp.astype(np.float32), ((0, 724), (0, 0)))),
+                t(np.pad(isig[kp_oct[bids]], (0, 724))), t(bv),
+                t(rng.integers(0, 300, (128, 4)).astype(np.int32)), *cam, 10]
+    proj = [t(np.pad(uv[bids], ((0, 724), (0, 0)))),
+            t(np.pad(kp_oct[bids], (0, 724)).astype(np.int64)), desc[0],
+            t(bv), desc[2], kp[0], kp[1], kp[2], t(kp_valid & ~has), kp[4],
+            t(sf), 10.0]
+    return dict(pose_opt_graph=pose, match_last_graph=match_last,
+                frustum_graph=frustum, chi2_gate_graph=chi2,
+                descriptors_graph=[bow, bow_free], pnp_graph=pnp_args,
+                kf_projection_graph=proj)
+
+
+@pytest.mark.gpu
+def test_estimated_programs_at_path_d_shapes(cuda):
+    """At path D's padded shapes: each estimated-mode graph against the
+    same call run eagerly, bit for bit (the descriptor search with and
+    without BoW nodes, two signatures); a warm call of each makes no
+    host sync; each captured at most MAXSIZE times."""
+    from orb_slam2_tpu_torch import graphs
+    mods = _estimated_modules()
+    problems = _estimated_shapes(cuda)
+    for mod, name in ESTIMATED_GRAPHS:
+        g = getattr(mods[mod], name)
+        calls = problems[name]
+        for args in (calls if name == "descriptors_graph" else [calls]):
+            got = _leaves_all(g(*args))
+            want = _leaves_all(_eager_call(g, *args))
+            torch.cuda.synchronize()
+            for j, (a, b) in enumerate(zip(got, want)):
+                assert torch.equal(a, b), (name, j)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                g(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert g.n_captures() <= graphs.MAXSIZE
