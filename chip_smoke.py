@@ -106,7 +106,11 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      and by two processes on the card joined by gloo
      (``init_multihost`` + ``make_global_mesh``): the same cost on both
      ranks, within 1e-3 of the single device's; each solve's time
-     beside the single-device time.
+     beside the single-device time.  Each sharded solve replays its
+     shards' graph chains: held bit for bit to the eager one-call solve
+     on every shard (``eager=True``), first and warm, a warm solve with
+     no host sync on the local mesh and one a collective on gloo, at
+     most ``graphs.MAXSIZE`` captures a segment.
 Path A also holds a warm extraction to no host synchronization, and
 path D prints the model (H or F) of its two-view bootstrap, which must
 be H on the planar world.
@@ -115,7 +119,9 @@ counts set to 0 just before it.  The last three lines are a JSON object
 describing the kernels, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 
-Six diagnostics print no such lines: ``--repeat-d`` runs path D twice
+Seven diagnostics print no such lines: ``--repeat-f`` runs path B and
+then times path F's solves (with ``--tree DIR``: four processes, as
+``--repeat-d``), ``--repeat-d`` runs path D twice
 (with ``--tree DIR``: four processes, the port from DIR, this
 checkout, this checkout and DIR, so a parent and its change are
 measured on one card) with one summary line per run (its steady and
@@ -709,6 +715,7 @@ class SyncCounter:
         self._local = threading.local()
         self._lock = threading.Lock()
         self._active = 0
+        self._any = None        # the role of a call wrapped all_threads
 
     def __enter__(self):
         import warnings
@@ -724,18 +731,33 @@ class SyncCounter:
         torch.cuda.set_sync_debug_mode(0)
 
     def _show(self, message, category, filename, lineno, *rest):
-        role = getattr(self._local, "role", None)
+        role = getattr(self._local, "role", None) or self._any
         if "synchroniz" not in str(message):
             self._saved[0](message, category, filename, lineno, *rest)
         elif role is not None:
             self.counts[role] += 1
             self.sites[role][f"{os.path.relpath(filename)}:{lineno}"] += 1
 
-    def wrap(self, fn, role: str = "tracker", nested: bool = False):
+    def wrap(self, fn, role: str = "tracker", nested: bool = False,
+             all_threads: bool = False):
         """``fn`` with its syncs counted under ``role``.  Inside another
         wrapped call the outer role keeps them, unless ``nested``: then
-        this role takes them for the call's length."""
+        this role takes them for the call's length.  With
+        ``all_threads`` the syncs of threads that no wrapped call holds
+        (a local mesh's shards) count under ``role`` too while ``fn``
+        runs."""
         import torch
+
+        if all_threads:
+            inner = self.wrap(fn, role, nested)
+
+            def counted_all(*args, **kwargs):
+                self._any = role
+                try:
+                    return inner(*args, **kwargs)
+                finally:
+                    self._any = None
+            return counted_all
 
         def counted(*args, **kwargs):
             outer = getattr(self._local, "role", None)
@@ -938,6 +960,49 @@ def check_mapper_graphs(calls: dict, n_frames: int, system) -> None:
         f"the keyframe mapped last after {n_frames} frames ({n_kf} "
         f"keyframes), and a warm replay of each with no host sync; calls "
         f"and first shapes {json.dumps(shapes)}")
+    check_fuse_both(calls)
+
+
+def check_fuse_both(calls: dict) -> int:
+    """Phase G's ``_fuse_both_directions`` (one graphed program: the
+    forward fuse into a chunk of targets and the reverse fuse, ungated)
+    on the last fuse calls' inputs at bench shape (the keyframe's point
+    rows into the chunk's FUSE_CHUNK targets; the neighbours' rows into
+    the keyframe): the capture and a replay against the eager function,
+    bit for bit; a warm replay under set_sync_debug_mode("error"); K2's
+    launches a replay (kernels.LAUNCHES).  Returns them."""
+    import torch
+    from orb_slam2_tpu_torch import kernels
+    from orb_slam2_tpu_torch.pipeline import local_mapping as lm
+    fa, ra = calls["_fuse_fwd"][-1][1], calls["_fuse_rev"][-1][1]
+    args = (*lm._gather_rows(*fa[:7]), *fa[7:12],
+            *lm._gather_rows(*ra[:7]), *ra[7:12], *fa[12:20])
+    th, ratio = fa[20], fa[21]
+    want = lm._fuse_both_impl(*args, th, ratio)
+    for k in range(2):
+        got = lm._fuse_both_directions(*args, th=th, ratio=ratio)
+        torch.cuda.synchronize()
+        for j, (a, b) in enumerate(zip((*got[0], *got[1]),
+                                       (*want[0], *want[1]))):
+            check(torch.equal(a, b), f"G: the graphed _fuse_both_directions "
+                  f"differs from its eager call in output {j} (call {k})")
+    before = kernels.LAUNCHES["masked_top2_mutual"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lm._fuse_both_directions(*args, th=th, ratio=ratio)
+    except RuntimeError as e:
+        raise SmokeFailure(f"G: a warm _fuse_both_directions replay "
+                           f"synchronizes with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    k2 = kernels.LAUNCHES["masked_top2_mutual"] - before
+    check(k2 > 0, "G: _fuse_both_directions launched no K2")
+    log(f"G: _fuse_both_directions ({fa[7].shape[0]} targets of "
+        f"{fa[8].shape[1]} rows, {fa[6].shape[0]} own and {ra[6].shape[0]} "
+        f"candidate point rows) bit-exact against its eager call, twice; a "
+        f"warm replay with no host sync launches K2 {k2} times; "
+        f"{lm._fuse_both_graph.n_captures()} capture")
+    return k2
 
 
 # the mapper's graphs by their graphs.STATS names
@@ -1848,23 +1913,198 @@ def _within(g: dict, bars: dict) -> bool:
 def gloo_worker(addr: str, rank: int, problem: str) -> int:
     """``--gloo-worker``: one rank of path F's process group (gloo, the
     ranks share the card): init_multihost + make_global_mesh +
-    distributed_bundle_adjust on the saved problem; prints its cost."""
+    distributed_bundle_adjust on the saved problem, eagerly (the one-call
+    core), then graphed twice (the first call captures the chain); the
+    warm call's collectives and host syncs (SyncCounter: those inside
+    ProcessGroupMesh.psum, and the rest) against the collective count's
+    formula.  Prints its cost, times and whether the graphed solve equals
+    the eager one bit for bit."""
     import torch
     from orb_slam2_tpu_torch import parallel
+    from orb_slam2_tpu_torch.optim import ba
     parallel.init_multihost(coordinator=addr, num_processes=F_SHARDS,
                             process_id=rank)
     import torch.distributed as dist
     mesh = parallel.make_global_mesh()
     p = np.load(problem)
     args = [p[f"a{i}"] for i in range(8)]
-    res, ms = _timed(lambda: parallel.distributed_bundle_adjust(
-        mesh, *args, *p["cam"].tolist(), iters=int(p["iters"]),
-        cg_iters=int(p["cg_iters"]), use_huber=bool(p["use_huber"])))
+    kw = dict(iters=int(p["iters"]), cg_iters=int(p["cg_iters"]),
+              use_huber=bool(p["use_huber"]),
+              longest_cam=int(p["longest"][0]),
+              longest_pt=int(p["longest"][1]))
+
+    def solve(eager=False):
+        return parallel.distributed_bundle_adjust(
+            mesh, *args, *p["cam"].tolist(), eager=eager, **kw)
+    eager, eager_ms = _timed(lambda: solve(True))
+    _, first_ms = _timed(solve)
+    psum, calls = mesh.psum, [0]
+
+    def counted(x):
+        calls[0] += 1
+        return psum(x)
+    with SyncCounter() as syncs:
+        # the collectives' syncs under their own role
+        mesh.psum = syncs.wrap(counted, "psum", nested=True)
+        res, ms = _timed(syncs.wrap(solve, "gloo"))
+    equal = all(torch.equal(a, b) for a, b in zip(res, eager))
     np.save(f"{problem}.rank{rank}.npy", res.cam_Tcw.cpu().numpy())
     print(f"GLOO rank={rank} backend={dist.get_backend()} "
           f"device={mesh.device} cost={float(res.final_cost)!r} "
-          f"ms={ms:.1f}", flush=True)
+          f"ms={ms:.1f} first_ms={first_ms:.1f} eager_ms={eager_ms:.1f} "
+          f"syncs={syncs.counts['gloo'] + syncs.counts['psum']} "
+          f"psum_syncs={syncs.counts['psum']} collectives={calls[0]} "
+          f"formula={ba.collectives(kw['iters'], kw['cg_iters'], False)} "
+          f"equal={equal} other_sites="
+          f"{json.dumps(dict(syncs.sites['gloo']))}", flush=True)
     dist.destroy_process_group()
+    return 0
+
+
+def _graph_chain_checks(name, run, mesh_cls, devs) -> dict:
+    """One sharded solve on a local mesh of ``devs``: the eager call
+    (``run(mesh, True)``, the one-call core on every shard), the graphed
+    call's first run (it captures every shard's chain) and a warm run,
+    each shard's every result of both graphed runs against the eager
+    call's, bit for bit; the warm run's host syncs on every thread
+    (SyncCounter, bar 0) and a further warm run's CUDA runtime calls
+    (torch.profiler).  Returns the graphed result (first run), the mesh
+    and the numbers."""
+    import torch
+    from orb_slam2_tpu_torch import graphs
+
+    def shards(mesh):
+        return {d: tuple(r) for d, r in mesh.results.items()}
+    mesh_e = mesh_cls(devs)
+    eager, eager_ms = _timed(lambda: run(mesh_e, True))
+    mesh_g = mesh_cls(devs)
+    before = {k: dict(v) for k, v in graphs.STATS.items()}
+    res, first_ms = _timed(lambda: run(mesh_g, False))
+    mesh_w = mesh_cls(devs)
+    with SyncCounter() as syncs:
+        warm, warm_ms = _timed(syncs.wrap(lambda: run(mesh_w, False),
+                                          "dist", all_threads=True))
+    for label, mesh, out in (("first", mesh_g, res), ("warm", mesh_w, warm)):
+        want = shards(mesh_e)
+        for d, got in shards(mesh).items():
+            for j, (a, b) in enumerate(zip(got, want[d])):
+                check(torch.equal(a, b), f"F: {name}'s graphed {label} run "
+                      f"differs from its eager call on shard {d} in result "
+                      f"{j}")
+        for j, (a, b) in enumerate(zip(out, eager)):
+            check(torch.equal(a, b), f"F: {name}'s graphed {label} result "
+                  f"differs from its eager call in field {j}")
+    n_sync = syncs.counts["dist"]
+    check(n_sync == 0, f"F: a warm graphed {name} synchronizes with the "
+          f"host {n_sync} times: {dict(syncs.sites['dist'])}")
+    runtime = runtime_counts(lambda: run(mesh_cls(devs), False))
+    new = {k: {f: v[f] - before.get(k, {}).get(f, 0)
+               for f in ("captures", "warmup_ms", "capture_ms")}
+           for k, v in graphs.STATS.items()
+           if v["captures"] > before.get(k, {}).get("captures", 0)}
+    segs = {k: v["captures"] for k, v in new.items()}
+    setup = {f: round(sum(v[f] for v in new.values()), 1)
+             for f in ("warmup_ms", "capture_ms")}
+    log(f"F: {name} graphed on {len(devs)} shards: first {first_ms:.1f} ms "
+        f"(captures: warm-up and capture {json.dumps(setup)}), warm "
+        f"{warm_ms:.1f} ms, eager {eager_ms:.1f} ms; bit-exact against the "
+        f"eager call on every shard (first and warm); a warm call's host "
+        f"syncs {n_sync}, CUDA runtime calls {json.dumps(runtime)}; "
+        f"captures by segment {json.dumps(segs)}")
+    return res, mesh_g, dict(first_ms=first_ms, warm_ms=warm_ms,
+                             eager_ms=eager_ms, warm_syncs=n_sync,
+                             runtime=runtime, captures=segs, **setup)
+
+
+def f_problems(record: dict):
+    """Path F's problems from path B's record: the global BA's without
+    run_global_ba's padding (observations past the valid ones, points no
+    observation reaches; the JAX package's sharded branch takes it so,
+    and padding would leave one shard with filler only) and the
+    essential graph's without its zero-weight filler edges, with their
+    keyword arguments (the host's longest-segment counts dropped: they
+    belong to the padded layouts, and the sharded solvers count their
+    own).  Returns (bargs, bkw, pargs, pkw)."""
+    bargs, bkw = record["ba"]
+    bkw = {k: v for k, v in bkw.items() if not k.startswith("longest")}
+    cams, pts, oc, op, ouv, isig, valid, fixed = bargs[:8]
+    n_obs = int(valid.sum())
+    check(bool(valid[:n_obs].all()), "F: padding inside the observations")
+    n_pts = int(op[:n_obs].max()) + 1
+    bargs = ([cams, pts[:n_pts]]
+             + [a[:n_obs] for a in (oc, op, ouv, isig, valid)] + [fixed]
+             + list(bargs[8:12]))
+    pargs, pkw = record["pose_graph"]
+    pkw = {k: v for k, v in pkw.items() if k != "longest"}
+    n_edges = int((pargs[4] > 0).sum())
+    check(bool((pargs[4][:n_edges] > 0).all()), "F: filler inside the edges")
+    pargs = [pargs[0]] + [a[:n_edges] for a in pargs[1:5]] + [pargs[5]]
+    return bargs, bkw, pargs, pkw
+
+
+def f_times(device, record: dict) -> dict:
+    """--repeat-f: path F's solves timed with only the API the parent
+    has too (no ``eager=``): the single-device BA and pose graph, first
+    and warm, and each sharded solve on a local mesh of F_SHARDS shards
+    of the card, first and two warm calls, a warm call's host syncs on
+    every thread (SyncCounter) and CUDA runtime calls (torch.profiler)."""
+    import torch
+    from orb_slam2_tpu_torch import parallel
+    from orb_slam2_tpu_torch.optim import ba, pose_graph
+    bargs, bkw, pargs, pkw = f_problems(record)
+    devs = [device] * F_SHARDS
+    out = {}
+    dev_b = [torch.as_tensor(a, device=device) for a in bargs[:8]]
+    dev_p = [torch.as_tensor(a, device=device) for a in pargs]
+    solves = (
+        ("single_ba", lambda: ba.bundle_adjust(*dev_b, *bargs[8:12], **bkw)),
+        ("single_pose_graph",
+         lambda: pose_graph.optimize_pose_graph(*dev_p, **pkw)),
+        ("ba_obs", lambda: parallel.distributed_bundle_adjust(
+            parallel.LocalMesh(devs), *bargs, **bkw)),
+        ("ba_points", lambda: parallel.distributed_bundle_adjust_sharded_points(
+            parallel.LocalMesh(devs), *bargs, **bkw)),
+        ("pose_graph", lambda: parallel.distributed_pose_graph(
+            parallel.LocalMesh(devs), *pargs, **pkw)))
+    for name, fn in solves:
+        times = [_timed(fn)[1] for _ in range(3)]
+        with SyncCounter() as syncs:
+            _timed(syncs.wrap(fn, "f", all_threads=True))
+        out[name] = dict(first_ms=times[0], warm_ms=times[1:],
+                         warm_syncs=syncs.counts["f"],
+                         runtime=runtime_counts(fn))
+        log(f"F times {name}: {json.dumps(out[name])}")
+    return out
+
+
+def repeat_dist_trees(tree: str) -> int:
+    """--repeat-f --tree DIR: path B (for its record) and f_times in
+    four processes, the port imported from DIR, this checkout, this
+    checkout and DIR (parent, change, change, parent on one card); their
+    output passes through, and their summaries are printed side by
+    side."""
+    here = os.path.abspath(__file__)
+    runs = []
+    for which in ("tree", "here", "here", "tree"):
+        cmd = [sys.executable, here, "--repeat-f", "--f-once"]
+        if which == "tree":
+            cmd += ["--tree", tree]
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=900)
+        sys.stdout.write(out.stdout)
+        sys.stderr.write(out.stderr[-4000:])
+        summary = [ln for ln in out.stdout.splitlines()
+                   if ln.startswith("F summary ")]
+        if out.returncode != 0 or not summary:
+            log(f"F repeat ({which}): exit {out.returncode}")
+            return 1
+        runs.append((which, json.loads(summary[-1][len("F summary "):])))
+    for which, r in runs:
+        log(f"repeat F {'parent' if which == 'tree' else 'change'}: " + "; ".join(
+            f"{k} first {v['first_ms']:.1f} warm "
+            f"{'/'.join(f'{t:.1f}' for t in v['warm_ms'])} ms, syncs "
+            f"{v['warm_syncs']}, {json.dumps(v['runtime'])}"
+            for k, v in r.items()))
     return 0
 
 
@@ -1874,19 +2114,25 @@ def phase_dist(device, record: dict) -> dict:
     distributed_bundle_adjust and distributed_bundle_adjust_sharded_points
     on the global BA's problem, distributed_pose_graph on the essential
     graph, and LoopCloser.run_global_ba's sharded branch on a copy of
-    the map; each against the single-device solve on the same inputs
-    (poses and Sim3 within F_POSE_TOL, points F_POINT_TOL, inliers equal,
-    cost within F_COST_RTOL), the cameras bitwise equal on every shard.
-    Then F_SHARDS processes joined by gloo on the card (init_multihost,
-    make_global_mesh) run distributed_bundle_adjust on the same problem:
-    the same cost on both ranks, within F_COST_RTOL of the
-    single-device cost.  Each solve's time beside the single-device
-    time; the gap between the card's and the CPU's single-device solve
-    (sums in another order) for scale."""
+    the map.  Each sharded solve runs as its graph chains (first and
+    warm) and eagerly (the one-call core on every shard), the graphed
+    runs bit for bit equal to the eager one on every shard, a warm run
+    with no host sync (_graph_chain_checks); each against the
+    single-device solve on the same inputs (poses and Sim3 within
+    F_POSE_TOL, points F_POINT_TOL, inliers equal, cost within
+    F_COST_RTOL), the cameras bitwise equal on every shard; the chains'
+    captures at most graphs.MAXSIZE a segment.  Then F_SHARDS processes
+    joined by gloo on the card (init_multihost, make_global_mesh) run
+    distributed_bundle_adjust on the same problem, eagerly and graphed:
+    the graphed solve equal to the eager one, the same cost and cameras
+    on both ranks, within F_COST_RTOL of the single-device cost, one
+    host sync a collective.  Each solve's time beside the single-device
+    time (first and warm); the gap between the card's and the CPU's
+    single-device solve (sums in another order) for scale."""
     import tempfile
     import torch
-    from orb_slam2_tpu_torch import interop, parallel
-    from orb_slam2_tpu_torch.optim import ba, pose_graph
+    from orb_slam2_tpu_torch import graphs, interop, parallel
+    from orb_slam2_tpu_torch.optim import ba, pose_graph, segment
     from orb_slam2_tpu_torch.pipeline.loop_closing import LoopCloser
     check(all(k in record for k in ("ba", "pose_graph", "store")),
           f"F: path B recorded only {sorted(record)}")
@@ -1903,86 +2149,89 @@ def phase_dist(device, record: dict) -> dict:
 
     devs = [device] * F_SHARDS
     out = {}
-    bargs, bkw = record["ba"]
-    # the host's longest-segment counts belong to the padded layout that
-    # run_global_ba gave; the problem below is cut, and the sharded
-    # solvers count their own
-    bkw = {k: v for k, v in bkw.items() if not k.startswith("longest")}
+    bargs, bkw, pargs, pkw = f_problems(record)
     cams, pts, oc, op, ouv, isig, valid, fixed = bargs[:8]
     fx, fy, cx, cy = bargs[8:12]
-    # the problem without run_global_ba's padding (observations past the
-    # valid ones, points no observation reaches): the JAX package's
-    # sharded branch takes it so, and padding would leave one shard with
-    # filler only
-    n_obs = int(valid.sum())
-    check(bool(valid[:n_obs].all()), "F: padding inside the observations")
-    n_pts = int(op[:n_obs].max()) + 1
-    bargs = [cams, pts[:n_pts]] + [a[:n_obs] for a in
-                                   (oc, op, ouv, isig, valid)] + [fixed]
-    bargs += [fx, fy, cx, cy]
+    n_pts, n_obs = len(pts), len(oc)
+    rpts, roc = record["ba"][0][1], record["ba"][0][2]
     log(f"F: global BA problem: {len(cams)} cameras ({int(fixed.sum())} "
         f"fixed), {n_pts} points and {n_obs} observations (padded to "
-        f"{len(pts)} and {len(oc)} by run_global_ba), {bkw}")
+        f"{len(rpts)} and {len(roc)} by run_global_ba), {bkw}; collectives "
+        f"a sharded solve: {ba.collectives(bkw['iters'], bkw['cg_iters'], True)}"
+        f" with the points sharded, "
+        f"{ba.collectives(bkw['iters'], bkw['cg_iters'], False)} with the "
+        f"observations")
     dev_args = [torch.as_tensor(a, device=device) for a in bargs[:8]]
     single, single_ms = _timed(lambda: ba.bundle_adjust(
+        *dev_args, fx, fy, cx, cy, **bkw))
+    _, single_warm_ms = _timed(lambda: ba.bundle_adjust(
         *dev_args, fx, fy, cx, cy, **bkw))
     cpu = ba.bundle_adjust(*[torch.as_tensor(a) for a in bargs[:8]],
                            fx, fy, cx, cy, **bkw)
     sum_order = _gaps(cpu, single)
     bars = _bars(sum_order)
-    log(f"F: single-device BA {single_ms:.1f} ms; the CPU's solve against "
-        f"the card's (another sum order): {json.dumps(sum_order)}; bars "
-        f"{json.dumps(bars)}")
+    log(f"F: single-device BA {single_ms:.1f} ms first, {single_warm_ms:.1f}"
+        f" ms warm; the CPU's solve against the card's (another sum "
+        f"order): {json.dumps(sum_order)}; bars {json.dumps(bars)}")
+    # the sharded solves take the single-device solve's reductions: its
+    # layout's longest runs, from the host
+    skw = dict(bkw, longest_cam=segment.longest_segment(oc, len(cams)),
+               longest_pt=segment.longest_segment(op, len(pts)))
     for name, fn in (("distributed_bundle_adjust",
                       parallel.distributed_bundle_adjust),
                      ("distributed_bundle_adjust_sharded_points",
                       parallel.distributed_bundle_adjust_sharded_points)):
-        mesh = Mesh(devs)
-        res, ms = _timed(lambda: fn(mesh, *bargs[:8], fx, fy, cx, cy,
-                                    **bkw))
+        res, mesh, nums = _graph_chain_checks(
+            name, lambda m, eager: fn(m, *bargs[:8], fx, fy, cx, cy,
+                                      eager=eager, **skw), Mesh, devs)
         g = _gaps(res, single)
         rep = replicated(mesh, "cam_Tcw") and replicated(mesh, "final_cost")
-        log(f"F: {name} on {F_SHARDS} shards of {device}: {ms:.1f} ms "
-            f"(single device {single_ms:.1f} ms); against the single "
+        log(f"F: {name} on {F_SHARDS} shards of {device}: "
+            f"{nums['warm_ms']:.1f} ms warm (single device "
+            f"{single_warm_ms:.1f} ms warm); against the single "
             f"device {json.dumps(g)}; cameras bitwise equal on every "
             f"shard: {rep}")
         check(rep, f"F: {name}: the shards' cameras differ")
         check(_within(g, bars), f"F: {name} misses the bars "
               f"{json.dumps(bars)}: {json.dumps(g)}")
-        out[name] = dict(ms=ms, single_ms=single_ms, **g)
+        out[name] = dict(single_ms=single_ms, single_warm_ms=single_warm_ms,
+                         **nums, **g)
 
-    pargs, pkw = record["pose_graph"]
-    pkw = {k: v for k, v in pkw.items() if k != "longest"}
-    # without the zero-weight filler edges at the end
-    n_edges = int((pargs[4] > 0).sum())
-    check(bool((pargs[4][:n_edges] > 0).all()), "F: filler inside the edges")
-    pargs = [pargs[0]] + [a[:n_edges] for a in pargs[1:5]] + [pargs[5]]
     log(f"F: essential graph: {len(pargs[0])} Sim3 vertices "
-        f"({int(pargs[5].sum())} fixed), {len(pargs[1])} edges, {pkw}")
+        f"({int(pargs[5].sum())} fixed), {len(pargs[1])} edges, {pkw}; "
+        f"collectives a sharded solve: "
+        f"{pose_graph.collectives(pkw['iters'], pkw['cg_iters'])}")
     pg_dev = [torch.as_tensor(a, device=device) for a in pargs]
     psingle, p_ms = _timed(lambda: pose_graph.optimize_pose_graph(
+        *pg_dev, **pkw))
+    _, p_warm_ms = _timed(lambda: pose_graph.optimize_pose_graph(
         *pg_dev, **pkw))
     pcpu = pose_graph.optimize_pose_graph(
         *[torch.as_tensor(a) for a in pargs], **pkw)
     psum_order = _gaps(pcpu, psingle)
     pbars = _bars(psum_order)
-    mesh = Mesh(devs)
-    pres, pd_ms = _timed(lambda: parallel.distributed_pose_graph(
-        mesh, *pargs, **pkw))
+    pres, mesh, nums = _graph_chain_checks(
+        "distributed_pose_graph",
+        lambda m, eager: parallel.distributed_pose_graph(
+            m, *pargs, eager=eager, **pkw), Mesh, devs)
     g = _gaps(pres, psingle)
     rep = replicated(mesh, "sims")
-    log(f"F: distributed_pose_graph on {F_SHARDS} shards: {pd_ms:.1f} ms "
-        f"(single device {p_ms:.1f} ms); against the single device "
+    log(f"F: distributed_pose_graph on {F_SHARDS} shards: "
+        f"{nums['warm_ms']:.1f} ms warm (single device {p_ms:.1f} ms "
+        f"first, {p_warm_ms:.1f} ms warm); against the single device "
         f"{json.dumps(g)}; the CPU's single solve against the card's "
         f"{json.dumps(psum_order)}; bars {json.dumps(pbars)}; Sim3 bitwise "
         f"equal on every shard: {rep}")
     check(rep, "F: distributed_pose_graph: the shards' vertices differ")
     check(_within(g, pbars), f"F: distributed_pose_graph misses the bars "
           f"{json.dumps(pbars)}: {json.dumps(g)}")
-    out["distributed_pose_graph"] = dict(ms=pd_ms, single_ms=p_ms, **g)
+    out["distributed_pose_graph"] = dict(single_ms=p_ms,
+                                         single_warm_ms=p_warm_ms,
+                                         **nums, **g)
 
     # LoopCloser.run_global_ba on two copies of the map: one device, and
-    # the sharded branch (local_devices says there are F_SHARDS)
+    # the sharded branch (local_devices says there are F_SHARDS), which
+    # must replay the point-sharded chains
     def gba(devices):
         store = interop.mapstore_from_numpy(**record["store"],
                                             device=device)
@@ -1997,16 +2246,28 @@ def phase_dist(device, record: dict) -> dict:
         return (np.stack([store.kfs[k].Tcw for k in kids]),
                 np.asarray(store.mp_pos)[np.asarray(store.mp_valid, bool)],
                 ms)
+
+    def chain_replays():
+        return sum(v["replays"] for k, v in graphs.STATS.items()
+                   if k.startswith("ba:"))
     t1, p1, ms1 = gba(None)
+    r0 = chain_replays()
     t2, p2, ms2 = gba(devs)
+    replays = chain_replays() - r0
     g = dict(poses=float(np.abs(t1 - t2).max()),
              points=float(np.abs(p1 - p2).max()), cost_rel=0.0)
     log(f"F: LoopCloser.run_global_ba sharded over {F_SHARDS} shards: "
-        f"{ms2:.1f} ms against {ms1:.1f} ms on one device; keyframe "
-        f"poses within {g['poses']:.2e}, points within {g['points']:.2e}")
+        f"{ms2:.1f} ms against {ms1:.1f} ms on one device, {replays} "
+        f"graph-chain replays; keyframe poses within {g['poses']:.2e}, "
+        f"points within {g['points']:.2e}")
+    check(replays > 0, "F: run_global_ba's sharded branch replayed no "
+          "graph chain")
     check(_within(g, bars), f"F: run_global_ba's sharded branch misses "
           f"the bars {json.dumps(bars)}: {g}")
-    out["run_global_ba"] = dict(ms=ms2, single_ms=ms1, **g)
+    out["run_global_ba"] = dict(ms=ms2, single_ms=ms1, replays=replays, **g)
+    over = {k: v["captures"] for k, v in graphs.STATS.items()
+            if v["captures"] > graphs.MAXSIZE}
+    check(not over, f"F: captures past graphs.MAXSIZE: {over}")
 
     # the process-group mesh: F_SHARDS processes on the card, gloo
     with tempfile.TemporaryDirectory() as root:
@@ -2014,6 +2275,7 @@ def phase_dist(device, record: dict) -> dict:
         np.savez(problem, cam=np.array([fx, fy, cx, cy]),
                  iters=bkw.get("iters", 10), cg_iters=bkw.get("cg_iters", 20),
                  use_huber=bkw.get("use_huber", True),
+                 longest=np.array([skw["longest_cam"], skw["longest_pt"]]),
                  **{f"a{i}": a for i, a in enumerate(bargs[:8])})
         import socket
         sock = socket.socket()
@@ -2043,6 +2305,9 @@ def phase_dist(device, record: dict) -> dict:
                  for o in outs]
         costs = [float(ln.split("cost=")[1].split()[0]) for ln in lines]
         cams_r = [np.load(f"{problem}.rank{r}.npy") for r in range(F_SHARDS)]
+
+    def field(ln, key):
+        return ln.split(f" {key}=")[1].split()[0]
     ref_cost = float(single.final_cost)
     rel = abs(costs[0] - ref_cost) / max(abs(ref_cost), 1e-12)
     log("F: process group: " + "; ".join(lines) + f"; {wall:.1f} s with "
@@ -2054,9 +2319,17 @@ def phase_dist(device, record: dict) -> dict:
     check(rel < bars["cost_rel"], f"F: the gloo cost is {rel:.2e} from the "
           f"single device's (bar {bars['cost_rel']:.2e})")
     check("backend=gloo" in lines[0], f"F: {lines[0]}")
+    for ln in lines:
+        check(field(ln, "equal") == "True", f"F: a gloo rank's graphed "
+              f"solve differs from its eager one: {ln}")
+        check(field(ln, "psum_syncs") == field(ln, "collectives")
+              == field(ln, "formula"), f"F: a gloo rank's collectives, "
+              f"their count by formula and its syncs at psum differ: {ln}")
     out["process_group"] = dict(
-        cost_rel=rel, rank_ms=[float(ln.split("ms=")[1].split()[0])
-                               for ln in lines], wall_s=wall)
+        cost_rel=rel, wall_s=wall,
+        **{k: [float(field(ln, k)) for ln in lines]
+           for k in ("ms", "first_ms", "eager_ms", "syncs", "psum_syncs",
+                     "collectives", "formula")})
     return out
 
 
@@ -2977,6 +3250,14 @@ def main() -> int:
     ap.add_argument("--d-once", action="store_true",
                     help="with --repeat-d: path D once (a process of "
                          "--repeat-d --tree)")
+    ap.add_argument("--repeat-f", action="store_true",
+                    help="run only path B (for its record) and path F's "
+                         "solves, timed (see f_times); with --tree DIR, "
+                         "in four processes: DIR, this checkout, this "
+                         "checkout, DIR")
+    ap.add_argument("--f-once", action="store_true",
+                    help="with --repeat-f: once (a process of --repeat-f "
+                         "--tree)")
     ap.add_argument("--gloo-worker", nargs=3,
                     metavar=("HOST:PORT", "RANK", "PROBLEM"),
                     help="path F's process-group rank (started by path F)")
@@ -2993,9 +3274,9 @@ def main() -> int:
                          "so both run under this script")
     args = ap.parse_args()
     if args.tree and not (args.repeat_a or args.profile or args.loop_split
-                          or args.repeat_d):
-        ap.error("--tree goes with --repeat-a, --repeat-d, --profile or "
-                 "--loop-split")
+                          or args.repeat_d or args.repeat_f):
+        ap.error("--tree goes with --repeat-a, --repeat-d, --repeat-f, "
+                 "--profile or --loop-split")
     try:
         import torch
     except ImportError:
@@ -3008,6 +3289,8 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if args.repeat_d and args.tree and not args.d_once:
         return repeat_estimated_trees(os.path.abspath(args.tree))
+    if args.repeat_f and args.tree and not args.f_once:
+        return repeat_dist_trees(os.path.abspath(args.tree))
     root = os.path.abspath(args.kernels_from or args.tree or here)
     if not os.path.isdir(os.path.join(root, "orb_slam2_tpu_torch")):
         print(f"chip_smoke: orb_slam2_tpu_torch/ is not in {root}",
@@ -3045,6 +3328,15 @@ def main() -> int:
         except SmokeFailure as e:
             print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
             return 1
+    if args.repeat_f:
+        try:
+            record = {}
+            phase_loop(device, cfg, record=record)
+            log("F summary " + json.dumps(f_times(device, record)))
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        return 0
     if args.repeat_d:
         if not args.d_once:
             return repeat_estimated(device, world, cfg)

@@ -40,12 +40,21 @@ such work is not replayed.
 Launch counts (``kernels.LAUNCHES``, ``kernels.SHAPES``) count a replay
 as the launches its capture recorded; the warm-up calls are not
 counted.
+
+The sharded solvers are ``jax.jit(shard_map(...))`` in the JAX package:
+one program per shard, its collectives inside.  Here each shard's
+solver is a phased program (steps cut by :class:`Collective` items)
+replayed as a :class:`Chain` of graphs, one a segment between two
+collectives, with the collective run eagerly between two replays; the
+steps read and write the chain's own buffers in place, so a replay
+copies nothing in or out.
 """
 from __future__ import annotations
 
 import collections
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -77,6 +86,15 @@ def _count(name: str, what: str, n=1) -> None:
         s = STATS.setdefault(name, dict(captures=0, replays=0,
                                         warmup_ms=0.0, capture_ms=0.0))
         s[what] += n
+
+
+def pad_bucket(n: int, minimum: int = 256) -> int:
+    """Round up to a power-of-4 bucket: every size that rounds up to one
+    bucket shares a capture."""
+    m = minimum
+    while m < n:
+        m *= 4
+    return m
 
 
 def upload(a, device, dtype=None) -> torch.Tensor:
@@ -234,3 +252,213 @@ def graphed(fn, name: str) -> Graphed:
     dtypes, and the device; ``name`` keys its :data:`STATS`.  On the
     CPU, ``fn`` itself."""
     return Graphed(fn, name)
+
+
+# ----------------------------------------------------------------------
+# Phased programs: a sharded solver as steps cut at its collectives
+# ----------------------------------------------------------------------
+
+class Collective(NamedTuple):
+    """A sum over the shards inside a phased program: the hook named
+    ``kind`` ("cam", "pt", ...) replaces the state entries ``names`` by
+    their sums.  A hook takes and returns a tuple of tensors; ``None``
+    is the identity (a shard that holds the whole sum)."""
+    kind: str
+    names: tuple
+
+
+def _dense(out: dict) -> dict:
+    """State entries in one memory layout, contiguous: a reduction's
+    order, and so its rounding, can follow its operand's strides, and a
+    chain's buffers are contiguous, so every form hands every step the
+    same layout."""
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+def run_eager(program, st: dict, cfg, hooks: dict) -> dict:
+    """Run a phased program eagerly: ``program`` yields steps ``fn(st,
+    cfg) -> {name: tensor}``, each of whose results updates ``st``, and
+    :class:`Collective` items; returns ``st``.  The single-device graphs
+    run their programs so, inside one capture each, with identity
+    hooks."""
+    st.update(_dense(st))
+    for item in program:
+        if isinstance(item, Collective):
+            hook = hooks[item.kind]
+            if hook is not None:
+                st.update(_dense(dict(zip(
+                    item.names, hook(tuple(st[n] for n in item.names))))))
+        else:
+            st.update(_dense(item(st, cfg)))
+    return st
+
+
+def _apply(steps, bufs: dict, cfg) -> dict:
+    """The entries that ``steps`` write, run on a view of ``bufs``."""
+    st, out = dict(bufs), {}
+    for fn in steps:
+        new = _dense(fn(st, cfg))
+        st.update(new)
+        out.update(new)
+    return out
+
+
+def _commit(bufs: dict, out: dict) -> None:
+    """Write a segment's results into the chain's buffers in place.  An
+    output that is another entry's buffer is copied first, so no write
+    lands before a read of it; an entry seen for the first time gets a
+    buffer of its own (a step may return one tensor under two names)."""
+    held = {id(b) for b in bufs.values()}
+    out = {k: v.clone() if id(v) in held and bufs.get(k) is not v else v
+           for k, v in out.items()}
+    for k, v in out.items():
+        if k not in bufs:
+            bufs[k] = v.clone()
+        elif bufs[k] is not v:
+            bufs[k].copy_(v)
+
+
+class _Segment:
+    """The steps between two collectives of a :class:`Chain`, captured
+    once as a CUDA graph that reads the chain's buffers and writes its
+    results into them in place."""
+
+    def __init__(self, chain: "Chain", steps: tuple, cfg):
+        self.name = chain.name + ":" + "+".join(
+            fn.__name__.lstrip("_") for fn in steps)
+        cur = torch.cuda.current_stream(chain.device)
+        side = torch.cuda.Stream(chain.device)
+        side.wait_stream(cur)
+        t0 = time.perf_counter()
+        # the warm-up's results are dropped; only their shapes are kept,
+        # as the buffers of the entries this segment writes first
+        with kernels.recording(), torch.cuda.stream(side):
+            for _ in range(WARMUP):
+                out = _apply(steps, chain.bufs, cfg)
+        cur.wait_stream(side)
+        for k, v in out.items():
+            if k not in chain.bufs:
+                chain.bufs[k] = torch.empty(v.shape, dtype=v.dtype,
+                                            device=v.device)
+        del out
+        t1 = time.perf_counter()
+        if chain.pool is None:
+            chain.pool = torch.cuda.graph_pool_handle()
+        self.graph = torch.cuda.CUDAGraph()
+        with kernels.recording() as rec, torch.cuda.stream(side):
+            self.graph.capture_begin(pool=chain.pool,
+                                     capture_error_mode="thread_local")
+            try:
+                _commit(chain.bufs, _apply(steps, chain.bufs, cfg))
+            finally:
+                self.graph.capture_end()
+        self.launches = dict(rec)
+        _count(self.name, "captures")
+        _count(self.name, "warmup_ms", (t1 - t0) * 1e3)
+        _count(self.name, "capture_ms", (time.perf_counter() - t1) * 1e3)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        kernels.add_launches(self.launches)
+        _count(self.name, "replays")
+
+
+class Chain:
+    """One shard's phased program (see :func:`run_eager`) as a chain of
+    CUDA graphs cut at its collectives: the port's counterpart of
+    ``jax.jit(shard_map(...))``.
+
+    The chain owns its state as named buffers (``bufs``).  The steps
+    between two collectives form a segment, captured the first time it
+    appears (after ``WARMUP`` eager calls on a side stream) and replayed
+    whenever the same steps appear again: a solver's PCG iterations
+    replay one segment.  A segment reads the buffers and writes its
+    results into them in place, so no replay copies an input in or an
+    output out; a collective sums its buffers over the shards, eagerly
+    between two replays, and copies the sums back into them.  The
+    collectives of an identity hook are no cut.  A warm run launches
+    only replays, the collectives' sums and their copies, and waits for
+    nothing.  The segments of one chain share one memory pool and
+    replay in one order on one stream.
+
+    Every shard has chains of its own: two shards on one card with
+    equal shapes must not share buffers.  On the CPU the segments run
+    eagerly on the same buffers, in place."""
+
+    def __init__(self, name: str, device):
+        self.name = name
+        self.device = torch.device(device)
+        self.bufs = {}
+        self.pool = None
+        self._segments = {}
+
+    def load(self, **arrays) -> None:
+        """Host arrays into the buffers of their names (on the card
+        through pinned memory, without a wait)."""
+        for k, a in arrays.items():
+            host = torch.from_numpy(np.array(a))      # a copy of its own
+            if self.device.type != "cuda":
+                self.bufs[k] = host
+                continue
+            buf = self.bufs.get(k)
+            if buf is None:
+                buf = self.bufs[k] = torch.empty(
+                    host.shape, dtype=host.dtype, device=self.device)
+            buf.copy_(host.pin_memory(), non_blocking=True)
+
+    def run(self, program, cfg, hooks: dict) -> dict:
+        """Run ``program`` on the buffers; returns them."""
+        steps = []
+        for item in program:
+            if not isinstance(item, Collective):
+                steps.append(item)
+                continue
+            hook = hooks[item.kind]
+            if hook is None:
+                continue
+            self._run_steps(tuple(steps), cfg)
+            steps = []
+            sums = hook(tuple(self.bufs[n] for n in item.names))
+            for n, s in zip(item.names, sums):
+                self.bufs[n].copy_(s)
+        self._run_steps(tuple(steps), cfg)
+        return self.bufs
+
+    def _run_steps(self, steps: tuple, cfg) -> None:
+        if not steps:
+            return
+        if self.device.type != "cuda":
+            _commit(self.bufs, _apply(steps, self.bufs, cfg))
+            return
+        seg = self._segments.get(steps)
+        if seg is None:
+            with torch.cuda.device(self.device):
+                seg = self._segments[steps] = _Segment(self, steps, cfg)
+        seg.replay()
+
+
+class ChainCache:
+    """The chains of one solver, keyed by the caller (shard, device,
+    static arguments and shapes), at most ``MAXSIZE`` of them, least
+    recently used first out.  The CPU keeps none: a CPU chain has
+    nothing to keep."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._chains = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, key, device) -> Chain:
+        device = torch.device(device)
+        if device.type != "cuda":
+            return Chain(self.name, device)
+        key = (device, key)
+        with self._lock:
+            chain = self._chains.get(key)
+            if chain is None:
+                chain = self._chains[key] = Chain(self.name, device)
+                if len(self._chains) > MAXSIZE:
+                    self._chains.popitem(last=False)
+            else:
+                self._chains.move_to_end(key)
+        return chain

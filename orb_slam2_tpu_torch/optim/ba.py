@@ -27,20 +27,28 @@ blocks are inverted by a Cholesky factorization in tensor operations
 (``geom/smallsolve.py``), and ``IndexSum`` takes its longest segments
 from the caller's host layout, so nothing in a step waits for the card.
 
-:func:`bundle_adjust_core` takes the JAX package's collective hooks:
-``psum`` closes every camera-indexed sum and the cost over the shards of
-an observation-sharded problem, ``psum_pt`` every point-indexed one
-(``parallel/dist_ba.py``).  A hook takes a tensor or a tuple of tensors
-and returns the same structure summed over the shards.
+The solver is written once, as a phased program (:func:`_program`):
+steps on a dict of named tensors, cut by ``graphs.Collective`` items
+where the JAX package's ``psum`` closes a camera-indexed sum or a cost
+and its ``psum_pt`` a point-indexed sum.  Every form runs those steps in
+that order: :func:`bundle_adjust_core` eagerly in one call with the
+caller's hooks (a hook takes a tuple of tensors and returns their sums
+over the shards), the single-device programs with the identity inside
+one graph each, and :func:`bundle_adjust_shard` as one shard's chain of
+CUDA graphs cut at the collectives (``parallel/dist_ba.py``), so all
+three agree bit for bit where their sums do.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from .. import graphs
 from ..geom import se3, smallsolve
+from ..graphs import Collective
 from . import reproj, segment
 from .segment import IndexSum
 
@@ -62,13 +70,18 @@ def _identity_psum(x):
     return x
 
 
-class _Linearized(NamedTuple):
-    hcc: torch.Tensor   # (K, 6, 6)
-    gc: torch.Tensor    # (K, 6)
-    hpp: torch.Tensor   # (P, 3, 3)
-    gp: torch.Tensor    # (P, 3)
-    W: torch.Tensor     # (O, 6, 3)
-    cost: torch.Tensor
+# the linearization's entries, in the JAX package's _Linearized order
+LIN = ("hcc", "gc", "hpp", "gp", "W", "cost")
+
+
+class _Cfg(NamedTuple):
+    """A phased BA's static arguments."""
+    n_cams: int
+    n_pts: int
+    cam: tuple              # (fx, fy, cx, cy)
+    use_huber: bool
+    longest_cam: int | None
+    longest_pt: int | None
 
 
 def _rho(c2, z, obs_wf, use_huber):
@@ -79,33 +92,6 @@ def _rho(c2, z, obs_wf, use_huber):
                        torch.where(z > 0, rho,
                                    torch.full_like(rho, INVALID_DEPTH_PENALTY)),
                        torch.zeros_like(rho))
-
-
-def _linearize(cam, pts, per_cam, per_pt, obs_uv, obs_isig2, obs_wf,
-               fx, fy, cx, cy, use_huber, psum, psum_pt):
-    """``per_cam``, ``per_pt``: IndexSum over the observations' camera
-    and point rows; ``psum`` / ``psum_pt`` close them over the shards."""
-    obs_cam, obs_pt = per_cam.idx, per_pt.idx
-    res = reproj.project_jacobians(cam[obs_cam], pts[obs_pt], obs_uv,
-                                   fx, fy, cx, cy)
-    r, z = res.r, res.depth
-    c2 = reproj.chi2(r, obs_isig2)
-    w = obs_isig2 * (reproj.huber_weight(c2, CHI2_MONO) if use_huber
-                     else 1.0)
-    w = w * obs_wf * (z > 0)
-    Jc, Jp = res.J_pose, res.J_point
-    JcT_w = Jc.transpose(1, 2) * w[:, None, None]          # (O, 6, 2)
-    JpT_w = Jp.transpose(1, 2) * w[:, None, None]          # (O, 3, 2)
-    # the cost is closed with the camera blocks, before any accept test
-    # reads it: a shard deciding on its own cost would let the
-    # replicated cameras diverge
-    hcc, gc, cost = psum((per_cam(JcT_w @ Jc),
-                          per_cam((JcT_w @ r[..., None])[..., 0]),
-                          _rho(c2, z, obs_wf, use_huber).sum()))
-    hpp, gp = psum_pt((per_pt(JpT_w @ Jp),
-                       per_pt((JpT_w @ r[..., None])[..., 0])))
-    return _Linearized(hcc=hcc, gc=gc, hpp=hpp, gp=gp, W=JcT_w @ Jp,
-                       cost=cost)
 
 
 def _inv3_sym(h):
@@ -127,135 +113,277 @@ def _inv3_sym(h):
         torch.stack([c02, c12, c22], -1)], -2) * idet[:, None, None]
 
 
-def _solve_step(lin: _Linearized, per_cam, per_pt, lam, fixed_cam,
-                cg_iters, psum, psum_pt):
-    """One damped Schur + PCG solve -> (delta_c (K, 6), delta_p (P, 3))."""
-    K = lin.hcc.shape[0]
-    free = ~fixed_cam
-    eye6 = torch.eye(6, dtype=lin.hcc.dtype, device=lin.hcc.device)
-    eye3 = torch.eye(3, dtype=lin.hcc.dtype, device=lin.hcc.device)
-
-    # trace-scaled damping
-    tr6 = torch.diagonal(lin.hcc, dim1=-2, dim2=-1).sum(-1)
-    hcc_d = lin.hcc + (lam * torch.clamp(tr6 / 6.0, min=1e-6)
-                       + 1e-8)[:, None, None] * eye6
-    tr3 = torch.diagonal(lin.hpp, dim1=-2, dim2=-1).sum(-1)
-    hpp_d = lin.hpp + (lam * torch.clamp(tr3 / 3.0, min=1e-6)
-                       + 1e-8)[:, None, None] * eye3
-    hpp_inv = _inv3_sym(hpp_d)
-    W = lin.W
-
-    obs_cam, obs_pt = per_cam.idx, per_pt.idx
-
-    def W_x(x):        # per obs W^T x(cam) -> scatter to points
-        return psum_pt(per_pt(
-            (W.transpose(1, 2) @ x[obs_cam][..., None])[..., 0]))
-
-    def Wt_z(z):       # per obs W z(point) -> scatter to cameras
-        return psum(per_cam((W @ z[obs_pt][..., None])[..., 0]))
-
-    def hinv(v):
-        return (hpp_inv @ v[..., None])[..., 0]
-
-    b = -(lin.gc - Wt_z(hinv(lin.gp))) * free[:, None]
-
-    def S_matvec(x):
-        out = (hcc_d @ x[..., None])[..., 0] - Wt_z(hinv(W_x(x)))
-        return torch.where(free[:, None], out, x)
-
-    # block-Jacobi preconditioner: the exact Schur diagonal blocks
-    whw = psum(per_cam(W @ hpp_inv[obs_pt] @ W.transpose(1, 2)))
-    S_diag = torch.where(free[:, None, None], hcc_d - whw,
-                         eye6.expand(K, 6, 6))
-    M_inv = smallsolve.spd_inverse(S_diag + 1e-8 * eye6)
-
-    def precond(r):
-        return (M_inv @ r[..., None])[..., 0]
-
-    x = torch.zeros_like(b)
-    r = b - S_matvec(x)
-    z = precond(r)
-    p = z
-    for _ in range(cg_iters):
-        Sp = S_matvec(p)
-        rz = (r * z).sum()
-        alpha = rz / torch.clamp((p * Sp).sum(), min=1e-20)
-        x = x + alpha * p
-        r = r - alpha * Sp
-        z = precond(r)
-        beta = (r * z).sum() / torch.clamp(rz, min=1e-20)
-        p = z + beta * p
-    delta_c = torch.where(free[:, None], x, torch.zeros_like(x))
-    delta_p = hinv(-(lin.gp + W_x(delta_c)))
-    return delta_c, delta_p
-
-
-class _Problem(NamedTuple):
-    """What every LM iteration reads besides the state."""
-    per_cam: IndexSum
-    per_pt: IndexSum
-    obs_uv: torch.Tensor
-    obs_isig2: torch.Tensor
-    obs_valid: torch.Tensor
-    obs_wf: torch.Tensor
-    fixed_cam: torch.Tensor
-    cam: tuple              # (fx, fy, cx, cy)
-    cg_iters: int
-    use_huber: bool
-    psum: Callable
-    psum_pt: Callable
-
-
-def _problem(n_cams, n_pts, obs_cam, obs_pt, obs_uv, obs_isig2, obs_valid,
-             fixed_cam, fx, fy, cx, cy, cg_iters, use_huber, psum, psum_pt,
-             longest_cam=None, longest_pt=None) -> _Problem:
-    return _Problem(
-        per_cam=IndexSum(obs_cam.long(), n_cams, longest=longest_cam),
-        per_pt=IndexSum(obs_pt.long(), n_pts, longest=longest_pt),
-        obs_uv=obs_uv, obs_isig2=obs_isig2, obs_valid=obs_valid,
-        obs_wf=obs_valid.to(obs_uv.dtype), fixed_cam=fixed_cam,
-        cam=(fx, fy, cx, cy), cg_iters=cg_iters, use_huber=use_huber,
-        psum=psum, psum_pt=psum_pt if psum_pt is not None else psum)
-
-
-def _lin_at(prob: _Problem, cam, pts) -> _Linearized:
-    return _linearize(cam, pts, prob.per_cam, prob.per_pt, prob.obs_uv,
-                      prob.obs_isig2, prob.obs_wf, *prob.cam,
-                      prob.use_huber, prob.psum, prob.psum_pt)
-
-
-def _lm_iteration(prob: _Problem, cam, pts, lin: _Linearized, lam):
-    """One LM iteration (the body of the JAX package's ``fori_loop``):
-    (cam, pts, lin, lam) -> the same, accepted or rejected."""
-    dc, dp = _solve_step(lin, prob.per_cam, prob.per_pt, lam, prob.fixed_cam,
-                         prob.cg_iters, prob.psum, prob.psum_pt)
-    cam_new = se3.exp(dc) @ cam
-    pts_new = pts + dp
-    lin_new = _lin_at(prob, cam_new, pts_new)
-    accept = lin_new.cost < lin.cost
-    cam = torch.where(accept, cam_new, cam)
-    pts = torch.where(accept, pts_new, pts)
-    lin = _Linearized(*(torch.where(accept, a, b)
-                        for a, b in zip(lin_new, lin)))
-    lam = torch.where(accept, lam * 0.5, lam * 4.0)
-    return cam, pts, lin, lam
-
-
-def _finish(prob: _Problem, cam, pts) -> BAResult:
-    """The final classification at the solution."""
-    res = reproj.project_jacobians(cam[prob.per_cam.idx],
-                                   pts[prob.per_pt.idx], prob.obs_uv,
-                                   *prob.cam)
-    c2 = reproj.chi2(res.r, prob.obs_isig2)
-    inlier = prob.obs_valid & (c2 <= CHI2_MONO) & (res.depth > 0)
-    return BAResult(cam_Tcw=cam, points=pts, obs_inlier=inlier,
-                    final_cost=prob.psum(_rho(c2, res.depth, prob.obs_wf,
-                                              prob.use_huber).sum()))
-
-
 def _lam0(points):
     # a fill, not a copy of host data: a CUDA graph replays it
     return torch.full((), 1e-4, dtype=points.dtype, device=points.device)
+
+
+# ----------------------------------------------------------------------
+# The solver as a phased program (graphs.run_eager / graphs.Chain): steps
+# st, cfg -> {entry: tensor} on the state ``st``, cut by the collectives
+# where the JAX package's psum ("cam": camera-indexed sums and costs)
+# and psum_pt ("pt": point-indexed sums) close a sum over the shards.
+# Every form runs these steps in this order: the one-call core, the
+# single-device graphs and the sharded chains.
+# ----------------------------------------------------------------------
+
+def _sums(st, cfg):
+    """The observations' sums over cameras and over points."""
+    lay_c, lay_p = st.get("cam_order"), st.get("pt_order")
+    return (IndexSum(st["oc"], cfg.n_cams, cfg.longest_cam,
+                     None if lay_c is None else (lay_c, st["cam_starts"])),
+            IndexSum(st["op"], cfg.n_pts, cfg.longest_pt,
+                     None if lay_p is None else (lay_p, st["pt_starts"])))
+
+
+def _hinv(hpp_inv, v):
+    return (hpp_inv @ v[..., None])[..., 0]
+
+
+def _free(st):
+    return ~st["fixed_cam"]
+
+
+def _setup(st, cfg):
+    """The observation rows as long indices, their weights and (on the
+    card) the sort layouts of every sum."""
+    oc, op = st["obs_cam"].long(), st["obs_pt"].long()
+    out = dict(oc=oc, op=op, wf=st["obs_valid"].to(st["obs_uv"].dtype))
+    if oc.is_cuda:
+        out["cam_order"], out["cam_starts"] = segment.sort_layout(
+            oc, cfg.n_cams)
+        out["pt_order"], out["pt_starts"] = segment.sort_layout(
+            op, cfg.n_pts)
+    return out
+
+
+def _linearize(cam, pts, st, cfg):
+    """This shard's part of the normal equations at (cam, pts): the
+    camera and point blocks and the cost, each still to be summed over
+    the shards, and the local W blocks."""
+    per_cam, per_pt = _sums(st, cfg)
+    obs_isig2, obs_wf = st["obs_isig2"], st["wf"]
+    res = reproj.project_jacobians(cam[st["oc"]], pts[st["op"]],
+                                   st["obs_uv"], *cfg.cam)
+    r, z = res.r, res.depth
+    c2 = reproj.chi2(r, obs_isig2)
+    w = obs_isig2 * (reproj.huber_weight(c2, CHI2_MONO) if cfg.use_huber
+                     else 1.0)
+    w = w * obs_wf * (z > 0)
+    Jc, Jp = res.J_pose, res.J_point
+    JcT_w = Jc.transpose(1, 2) * w[:, None, None]          # (O, 6, 2)
+    JpT_w = Jp.transpose(1, 2) * w[:, None, None]          # (O, 3, 2)
+    # the cost is closed with the camera blocks, before any accept test
+    # reads it: a shard deciding on its own cost would let the
+    # replicated cameras diverge
+    return dict(hcc=per_cam(JcT_w @ Jc),
+                gc=per_cam((JcT_w @ r[..., None])[..., 0]),
+                cost=_rho(c2, z, obs_wf, cfg.use_huber).sum(),
+                hpp=per_pt(JpT_w @ Jp),
+                gp=per_pt((JpT_w @ r[..., None])[..., 0]),
+                W=JcT_w @ Jp)
+
+
+def _begin_lin(st, cfg):
+    """The first linearization and damping."""
+    return dict(_linearize(st["cam"], st["pts"], st, cfg),
+                lam=_lam0(st["pts"]))
+
+
+def _damp(st, cfg):
+    """The damped blocks, Hpp^-1, and the partials of W Hpp^-1 gp (the
+    right-hand side) and of the exact Schur diagonal."""
+    hcc, hpp, W, lam = st["hcc"], st["hpp"], st["W"], st["lam"]
+    eye6 = torch.eye(6, dtype=hcc.dtype, device=hcc.device)
+    eye3 = torch.eye(3, dtype=hcc.dtype, device=hcc.device)
+    # trace-scaled damping
+    tr6 = torch.diagonal(hcc, dim1=-2, dim2=-1).sum(-1)
+    hcc_d = hcc + (lam * torch.clamp(tr6 / 6.0, min=1e-6)
+                   + 1e-8)[:, None, None] * eye6
+    tr3 = torch.diagonal(hpp, dim1=-2, dim2=-1).sum(-1)
+    hpp_d = hpp + (lam * torch.clamp(tr3 / 3.0, min=1e-6)
+                   + 1e-8)[:, None, None] * eye3
+    hpp_inv = _inv3_sym(hpp_d)
+    per_cam, _ = _sums(st, cfg)
+    op = st["op"]
+    return dict(hcc_d=hcc_d, hpp_inv=hpp_inv,
+                wtz=per_cam((W @ _hinv(hpp_inv, st["gp"])[op][..., None])
+                            [..., 0]),
+                whw=per_cam(W @ hpp_inv[op] @ W.transpose(1, 2)))
+
+
+def _precond(st, cfg):
+    """The reduced right-hand side and the block-Jacobi preconditioner
+    (the exact Schur diagonal blocks); PCG starts at x = 0."""
+    hcc_d = st["hcc_d"]
+    K = hcc_d.shape[0]
+    free = _free(st)
+    eye6 = torch.eye(6, dtype=hcc_d.dtype, device=hcc_d.device)
+    b = -(st["gc"] - st["wtz"]) * free[:, None]
+    S_diag = torch.where(free[:, None, None], hcc_d - st["whw"],
+                         eye6.expand(K, 6, 6))
+    x = torch.zeros_like(b)
+    return dict(b=b, M_inv=smallsolve.spd_inverse(S_diag + 1e-8 * eye6),
+                x=x, v=x)
+
+
+def _mv_start(st, cfg):
+    """The matvec S v, first half: W^T v, scattered to the points."""
+    _, per_pt = _sums(st, cfg)
+    return dict(wx=per_pt((st["W"].transpose(1, 2)
+                           @ st["v"][st["oc"]][..., None])[..., 0]))
+
+
+def _mv_mid(st, cfg):
+    """The matvec's second half: W Hpp^-1 (W^T v), scattered to the
+    cameras."""
+    per_cam, _ = _sums(st, cfg)
+    return dict(wtz=per_cam((st["W"] @ _hinv(st["hpp_inv"], st["wx"])
+                             [st["op"]][..., None])[..., 0]))
+
+
+def _s_matvec(st, v):
+    """S v from the summed second half (``wtz``)."""
+    out = (st["hcc_d"] @ v[..., None])[..., 0] - st["wtz"]
+    return torch.where(_free(st)[:, None], out, v)
+
+
+def _precondition(st, r):
+    return (st["M_inv"] @ r[..., None])[..., 0]
+
+
+def _cg_init(st, cfg):
+    r = st["b"] - _s_matvec(st, st["x"])
+    z = _precondition(st, r)
+    return dict(r=r, z=z, p=z, v=z)
+
+
+def _cg_update(st, cfg):
+    """One PCG step, from the matvec S p."""
+    x, r, z, p = st["x"], st["r"], st["z"], st["p"]
+    Sp = _s_matvec(st, p)
+    rz = (r * z).sum()
+    alpha = rz / torch.clamp((p * Sp).sum(), min=1e-20)
+    x = x + alpha * p
+    r = r - alpha * Sp
+    z = _precondition(st, r)
+    beta = (r * z).sum() / torch.clamp(rz, min=1e-20)
+    p = z + beta * p
+    return dict(x=x, r=r, z=z, p=p, v=p)
+
+
+def _delta(st, cfg):
+    """The camera step and the partial of W^T delta_c at the points."""
+    x = st["x"]
+    dc = torch.where(_free(st)[:, None], x, torch.zeros_like(x))
+    _, per_pt = _sums(st, cfg)
+    return dict(dc=dc, wx=per_pt((st["W"].transpose(1, 2)
+                                  @ dc[st["oc"]][..., None])[..., 0]))
+
+
+def _try_step(st, cfg):
+    """The point step, the candidate state and its linearization."""
+    dp = _hinv(st["hpp_inv"], -(st["gp"] + st["wx"]))
+    cam_new = se3.exp(st["dc"]) @ st["cam"]
+    pts_new = st["pts"] + dp
+    lin = _linearize(cam_new, pts_new, st, cfg)
+    return dict(cam_new=cam_new, pts_new=pts_new,
+                **{"n_" + k: v for k, v in lin.items()})
+
+
+def _accept(st, cfg):
+    """Keep the candidate where its (summed) cost is lower; damp."""
+    accept = st["n_cost"] < st["cost"]
+    out = dict(cam=torch.where(accept, st["cam_new"], st["cam"]),
+               pts=torch.where(accept, st["pts_new"], st["pts"]))
+    out.update({k: torch.where(accept, st["n_" + k], st[k]) for k in LIN})
+    lam = st["lam"]
+    out["lam"] = torch.where(accept, lam * 0.5, lam * 4.0)
+    return out
+
+
+def _finish(st, cfg):
+    """The classification at the solution and its cost's partial."""
+    res = reproj.project_jacobians(st["cam"][st["oc"]], st["pts"][st["op"]],
+                                   st["obs_uv"], *cfg.cam)
+    c2 = reproj.chi2(res.r, st["obs_isig2"])
+    return dict(inlier=st["obs_valid"] & (c2 <= CHI2_MONO) & (res.depth > 0),
+                final_cost=_rho(c2, res.depth, st["wf"],
+                                cfg.use_huber).sum())
+
+
+def _begin_program():
+    yield _setup
+    yield _begin_lin
+    yield Collective("cam", ("hcc", "gc", "cost"))
+    yield Collective("pt", ("hpp", "gp"))
+
+
+def _matvec():
+    yield _mv_start
+    yield Collective("pt", ("wx",))
+    yield _mv_mid
+    yield Collective("cam", ("wtz",))
+
+
+def _iteration_program(cg_iters: int):
+    """One LM iteration (the body of the JAX package's ``fori_loop``):
+    a damped Schur + PCG solve, the candidate's linearization, the
+    accept test.  A rejected step keeps the carried system and damps
+    more."""
+    yield _damp
+    yield Collective("cam", ("wtz",))
+    yield Collective("cam", ("whw",))
+    yield _precond
+    yield from _matvec()
+    yield _cg_init
+    for _ in range(cg_iters):
+        yield from _matvec()
+        yield _cg_update
+    yield _delta
+    yield Collective("pt", ("wx",))
+    yield _try_step
+    yield Collective("cam", ("n_hcc", "n_gc", "n_cost"))
+    yield Collective("pt", ("n_hpp", "n_gp"))
+    yield _accept
+
+
+def _finish_program():
+    yield _finish
+    yield Collective("cam", ("final_cost",))
+
+
+def _program(iters: int, cg_iters: int):
+    yield from _begin_program()
+    for _ in range(iters):
+        yield from _iteration_program(cg_iters)
+    yield from _finish_program()
+
+
+def collectives(iters: int, cg_iters: int, shard_points: bool) -> int:
+    """The collectives of a sharded solve: ``1 + iters (cg_iters + 4) +
+    1`` with the points sharded (the point sums are the identity), ``2 +
+    iters (2 cg_iters + 7) + 1`` with the observations sharded."""
+    return sum(isinstance(item, Collective)
+               and not (shard_points and item.kind == "pt")
+               for item in _program(iters, cg_iters))
+
+
+_IDENTITY = {"cam": None, "pt": None}
+
+
+def _inputs(cam, pts, obs_cam, obs_pt, obs_uv, obs_isig2, obs_valid,
+            fixed_cam=None) -> dict:
+    st = dict(cam=cam, pts=pts, obs_cam=obs_cam, obs_pt=obs_pt,
+              obs_uv=obs_uv, obs_isig2=obs_isig2, obs_valid=obs_valid)
+    if fixed_cam is not None:
+        st["fixed_cam"] = fixed_cam
+    return st
+
+
+def _result(st) -> BAResult:
+    return BAResult(cam_Tcw=st["cam"], points=st["pts"],
+                    obs_inlier=st["inlier"], final_cost=st["final_cost"])
 
 
 def bundle_adjust_core(cam_Tcw, points, obs_cam, obs_pt, obs_uv,
@@ -263,24 +391,29 @@ def bundle_adjust_core(cam_Tcw, points, obs_cam, obs_pt, obs_uv,
                        fy: float, cx: float, cy: float, iters: int = 10,
                        cg_iters: int = 20, use_huber: bool = True,
                        psum: Callable = _identity_psum,
-                       psum_pt: Callable | None = None) -> BAResult:
+                       psum_pt: Callable | None = None,
+                       longest_cam: int | None = None,
+                       longest_pt: int | None = None) -> BAResult:
     """LM iteration loop shared by the single-device and the sharded BA,
-    in one call.
+    in one eager call: the phased program with ``psum`` at its
+    collectives.
 
     ``psum`` closes the camera-indexed sums and the cost over the shards
     of an observation-sharded problem; ``psum_pt`` the point-indexed
     ones: the identity when each shard holds its points' whole state
     (``distributed_bundle_adjust_sharded_points``); defaults to
-    ``psum``."""
-    prob = _problem(cam_Tcw.shape[0], points.shape[0], obs_cam, obs_pt,
-                    obs_uv, obs_isig2, obs_valid, fixed_cam, fx, fy, cx, cy,
-                    cg_iters, use_huber, psum, psum_pt)
-    cam, pts = cam_Tcw, points
-    lin = _lin_at(prob, cam, pts)
-    lam = _lam0(points)
-    for _ in range(iters):
-        cam, pts, lin, lam = _lm_iteration(prob, cam, pts, lin, lam)
-    return _finish(prob, cam, pts)
+    ``psum``.  ``longest_cam`` / ``longest_pt``: as
+    :func:`bundle_adjust_shard`'s; read back once where not given."""
+    K, P = cam_Tcw.shape[0], points.shape[0]
+    cfg = _Cfg(K, P, (fx, fy, cx, cy), use_huber,
+               _longest(longest_cam, obs_cam, K),
+               _longest(longest_pt, obs_pt, P))
+    st = graphs.run_eager(
+        _program(iters, cg_iters),
+        _inputs(cam_Tcw, points, obs_cam, obs_pt, obs_uv, obs_isig2,
+                obs_valid, fixed_cam), cfg,
+        {"cam": psum, "pt": psum if psum_pt is None else psum_pt})
+    return _result(st)
 
 
 # LM iterations per replay of the step program.  The loop-closing and
@@ -296,11 +429,12 @@ def _ba_begin(cam, pts, obs_cam, obs_pt, obs_uv, obs_isig2, obs_valid,
               fixed_cam, fx, fy, cx, cy, use_huber, longest_cam,
               longest_pt):
     """The first linearization and damping: (lam, *lin)."""
-    prob = _problem(cam.shape[0], pts.shape[0], obs_cam, obs_pt, obs_uv,
-                    obs_isig2, obs_valid, fixed_cam, fx, fy, cx, cy, 0,
-                    use_huber, _identity_psum, None, longest_cam,
-                    longest_pt)
-    return (_lam0(pts), *_lin_at(prob, cam, pts))
+    cfg = _Cfg(cam.shape[0], pts.shape[0], (fx, fy, cx, cy), use_huber,
+               longest_cam, longest_pt)
+    st = graphs.run_eager(_begin_program(), _inputs(
+        cam, pts, obs_cam, obs_pt, obs_uv, obs_isig2, obs_valid, fixed_cam),
+        cfg, _IDENTITY)
+    return (st["lam"], *(st[k] for k in LIN))
 
 
 def _ba_step(cam, pts, lam, hcc, gc, hpp, gp, W, cost, obs_cam, obs_pt,
@@ -308,25 +442,26 @@ def _ba_step(cam, pts, lam, hcc, gc, hpp, gp, W, cost, obs_cam, obs_pt,
              iters, cg_iters, use_huber, longest_cam, longest_pt):
     """``iters`` LM iterations from a threaded state: (cam, pts, lam,
     *lin)."""
-    prob = _problem(cam.shape[0], pts.shape[0], obs_cam, obs_pt, obs_uv,
-                    obs_isig2, obs_valid, fixed_cam, fx, fy, cx, cy,
-                    cg_iters, use_huber, _identity_psum, None, longest_cam,
-                    longest_pt)
-    lin = _Linearized(hcc, gc, hpp, gp, W, cost)
-    for _ in range(iters):
-        cam, pts, lin, lam = _lm_iteration(prob, cam, pts, lin, lam)
-    return (cam, pts, lam, *lin)
+    cfg = _Cfg(cam.shape[0], pts.shape[0], (fx, fy, cx, cy), use_huber,
+               longest_cam, longest_pt)
+    st = _inputs(cam, pts, obs_cam, obs_pt, obs_uv, obs_isig2, obs_valid,
+                 fixed_cam)
+    st.update(lam=lam, hcc=hcc, gc=gc, hpp=hpp, gp=gp, W=W, cost=cost)
+    st = graphs.run_eager(itertools.chain(
+        [_setup], *(_iteration_program(cg_iters) for _ in range(iters))),
+        st, cfg, _IDENTITY)
+    return (st["cam"], st["pts"], st["lam"], *(st[k] for k in LIN))
 
 
 def _ba_finish(cam, pts, obs_cam, obs_pt, obs_uv, obs_isig2, obs_valid,
                fx, fy, cx, cy, use_huber, longest_cam, longest_pt):
     """The classification at the solution: (obs_inlier, final_cost)."""
-    prob = _problem(cam.shape[0], pts.shape[0], obs_cam, obs_pt, obs_uv,
-                    obs_isig2, obs_valid, None, fx, fy, cx, cy, 0,
-                    use_huber, _identity_psum, None, longest_cam,
-                    longest_pt)
-    res = _finish(prob, cam, pts)
-    return res.obs_inlier, res.final_cost
+    cfg = _Cfg(cam.shape[0], pts.shape[0], (fx, fy, cx, cy), use_huber,
+               longest_cam, longest_pt)
+    st = graphs.run_eager(itertools.chain([_setup], _finish_program()),
+                          _inputs(cam, pts, obs_cam, obs_pt, obs_uv,
+                                  obs_isig2, obs_valid), cfg, _IDENTITY)
+    return st["inlier"], st["final_cost"]
 
 
 # the JAX package's jitted bundle_adjust, as three programs replayed from
@@ -336,11 +471,60 @@ _begin_graph = graphs.graphed(lambda *a: _ba_begin(*a), "ba_begin")
 _step_graph = graphs.graphed(lambda *a: _ba_step(*a), "ba_step")
 _finish_graph = graphs.graphed(lambda *a: _ba_finish(*a), "ba_finish")
 
+# the sharded solvers' chains (parallel/dist_ba.py): one per shard and
+# signature
+_CHAINS = graphs.ChainCache("ba")
+
+
+def bundle_adjust_shard(shard: int, device, arrays: dict, fx: float,
+                        fy: float, cx: float, cy: float, iters: int,
+                        cg_iters: int, use_huber: bool, psum: Callable,
+                        shard_points: bool, longest_cam: int | None = None,
+                        longest_pt: int | None = None) -> BAResult:
+    """One shard's part of a sharded BA, replayed as a chain of CUDA
+    graphs cut at its collectives (``graphs.Chain``; on the CPU the
+    same steps run eagerly in place): the port's ``jax.jit`` of the
+    JAX package's ``shard_map``.  ``arrays``: this shard's host arrays
+    (``cam``, ``pts``, ``obs_cam``, ``obs_pt``, ``obs_uv``,
+    ``obs_isig2``, ``obs_valid``, ``fixed_cam``), uploaded outside the
+    graphs; their longest segments are counted on the host.  ``psum``
+    closes the camera sums and the costs; the point sums too unless
+    ``shard_points`` (each shard holds its points' observations).
+    ``longest_cam`` / ``longest_pt``: the most observations of one
+    camera / point in the caller's single-device layout of the whole
+    problem; given, the shard's sums take the reductions of the
+    single-device solve of that layout (``IndexSum`` chooses by the
+    longest run), else those of its own rows.  The result's tensors are
+    this shard's own."""
+    K, P = len(arrays["cam"]), len(arrays["pts"])
+    cfg = _Cfg(K, P, (float(fx), float(fy), float(cx), float(cy)),
+               bool(use_huber),
+               _longest(longest_cam, arrays["obs_cam"], K),
+               _longest(longest_pt, arrays["obs_pt"], P))
+    key = (shard, cfg, int(iters), int(cg_iters), bool(shard_points),
+           *((k, np.shape(a)) for k, a in sorted(arrays.items())))
+    chain = _CHAINS.get(key, device)
+    chain.load(**arrays)
+    st = chain.run(_program(iters, cg_iters), cfg,
+                   {"cam": psum, "pt": None if shard_points else psum})
+    return BAResult(*(t.clone() for t in _result(st)))
+
 
 def _longest_of(idx, n: int) -> int:
     """``segment.longest_segment`` of a device index vector: read back
     once, outside the graphs, where the caller gives no host count."""
     return segment.longest_segment(idx.cpu().numpy(), n)
+
+
+def _longest(given, idx, n: int) -> int:
+    """The caller's longest-run count, clamped as ``longest_segment``
+    clamps, else the count of ``idx`` (a host array, or a tensor read
+    back once)."""
+    if given is not None:
+        return min(int(given), segment.LONG_SEGMENTS + 1)
+    if isinstance(idx, torch.Tensor):
+        return _longest_of(idx, n)
+    return segment.longest_segment(idx, n)
 
 
 def bundle_adjust(cam_Tcw, points, obs_cam, obs_pt, obs_uv, obs_isig2,
@@ -362,12 +546,8 @@ def bundle_adjust(cam_Tcw, points, obs_cam, obs_pt, obs_uv, obs_isig2,
     :func:`bundle_adjust_core`'s and nothing waits for the card until
     the caller reads the result."""
     K, P = cam_Tcw.shape[0], points.shape[0]
-    if longest_cam is None:
-        longest_cam = _longest_of(obs_cam, K)
-    if longest_pt is None:
-        longest_pt = _longest_of(obs_pt, P)
-    longest_cam = min(int(longest_cam), segment.LONG_SEGMENTS + 1)
-    longest_pt = min(int(longest_pt), segment.LONG_SEGMENTS + 1)
+    longest_cam = _longest(longest_cam, obs_cam, K)
+    longest_pt = _longest(longest_pt, obs_pt, P)
     fx, fy, cx, cy = float(fx), float(fy), float(cx), float(cy)
     use_huber = bool(use_huber)
     obs = (obs_cam, obs_pt, obs_uv, obs_isig2, obs_valid)

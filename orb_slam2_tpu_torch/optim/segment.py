@@ -32,6 +32,16 @@ def longest_segment(idx, n: int) -> int:
                                minlength=n).max()), LONG_SEGMENTS + 1)
 
 
+def sort_layout(idx: torch.Tensor, n: int):
+    """``IndexSum``'s layout of a long index vector on the card: the
+    stable sort of the rows by target and each target's first row in
+    it, (order, starts (n + 1,)).  A phased solver makes it once, in its
+    first captured step, and every later step sums with it."""
+    order = torch.argsort(idx, stable=True)
+    return order, torch.searchsorted(
+        idx[order], torch.arange(n + 1, device=idx.device))
+
+
 class IndexSum:
     """``IndexSum(idx, n)(vals)`` is ``zeros(n, ...).index_add_(0, idx,
     vals)`` computed the same way on every run; the sort of ``idx`` is
@@ -49,16 +59,16 @@ class IndexSum:
     knows it (a layout built on the host); otherwise choosing reads it
     back from the card once, when the sum is made.  Given, nothing here
     waits for the card, so the sum can be captured in a CUDA graph (the
-    choice is then the caller's static argument)."""
+    choice is then the caller's static argument).  ``layout``: the
+    :func:`sort_layout` of ``idx`` where the caller made it already."""
 
-    def __init__(self, idx: torch.Tensor, n: int, longest: int | None = None):
+    def __init__(self, idx: torch.Tensor, n: int, longest: int | None = None,
+                 layout=None):
         self.idx = idx.long()
         self.n = int(n)
         if self.idx.is_cuda:
-            self.order = torch.argsort(self.idx, stable=True)
-            self.starts = torch.searchsorted(
-                self.idx[self.order],
-                torch.arange(self.n + 1, device=self.idx.device))
+            self.order, self.starts = layout if layout is not None \
+                else sort_layout(self.idx, self.n)
             self.lengths = self.starts.diff()
             if longest is None:
                 longest = int(self.lengths.max()) if self.n > 0 else 0

@@ -6,13 +6,14 @@ tree, covisibility and loop edges over a long trajectory); the Sim3
 vertices are replicated.  The gradient, block-diagonal and Hessian
 matvec sums of ``optim.pose_graph`` are closed with the mesh's ``psum``,
 so every shard solves the same reduced system (the pattern of
-``dist_ba``).
+``dist_ba``), and each shard replays the solver as a chain of CUDA
+graphs cut at its collectives (``pose_graph.pose_graph_shard``).
 """
 from __future__ import annotations
 
 import numpy as np
-import torch
 
+from .. import graphs
 from ..geom import sim3 as sim3_mod
 from ..optim import pose_graph
 from .dist_ba import _first_device, make_mesh, pad_obs_to  # noqa: F401 (re-export mesh helper)
@@ -28,15 +29,18 @@ def distributed_pose_graph(
     fixed: np.ndarray,       # (K,) bool
     iters: int = 20,
     cg_iters: int = 30,
+    eager: bool = False,
 ) -> pose_graph.PoseGraphResult:
     """Same contract as ``optim.pose_graph.optimize_pose_graph``, edges
     sharded over the mesh (padded with identity measurements of weight
-    0).  The result's tensors are on the mesh's first local device."""
+    0 to the mesh size times a power-of-4 bucket, as the single-device
+    solve pads its edges).  ``eager=True`` runs the one-call
+    ``optimize_pose_graph_core`` on every shard instead.  The result's
+    tensors are on the mesh's first local device."""
     n_dev = mesh.size
     E = len(edge_i)
-    Epad = pad_obs_to(max(E, n_dev), n_dev)
-    pad = Epad - E
-    per = Epad // n_dev
+    per = graphs.pad_bucket(-(-max(E, n_dev) // n_dev), 16)
+    pad = per * n_dev - E
 
     ident = sim3_mod.identity().numpy()
     edge_i = np.pad(np.asarray(edge_i, np.int32), (0, pad))
@@ -50,12 +54,16 @@ def distributed_pose_graph(
 
     def body(d, dev, psum):
         sl = slice(d * per, (d + 1) * per)
-
-        def t(a):
-            return torch.tensor(np.asarray(a), device=dev)
+        arrays = dict(sims=sims0, edge_i=edge_i[sl], edge_j=edge_j[sl],
+                      edge_meas=edge_meas[sl], edge_weight=edge_weight[sl],
+                      fixed=fixed)
+        if not eager:
+            return pose_graph.pose_graph_shard(d, dev, arrays, iters,
+                                               cg_iters, psum)
+        t = {k: graphs.upload(a, dev) for k, a in arrays.items()}
         return pose_graph.optimize_pose_graph_core(
-            t(sims0), t(edge_i[sl]), t(edge_j[sl]), t(edge_meas[sl]),
-            t(edge_weight[sl]), t(fixed), iters=iters, cg_iters=cg_iters,
+            t["sims"], t["edge_i"], t["edge_j"], t["edge_meas"],
+            t["edge_weight"], t["fixed"], iters=iters, cg_iters=cg_iters,
             psum=psum)
 
     res = mesh.run(body)

@@ -8,9 +8,9 @@ counterparts:
   may repeat: two shards on one card, or N shards on the CPU).  Each
   shard's body runs on its own thread with its arrays on its own
   device; ``psum`` is a barrier at which every shard deposits its
-  partial, then each shard sums the partials in shard order on its own
-  device (so every shard gets the same bits, and runs repeat) and
-  carries on.  A shard that raises aborts the barrier, so the others
+  partial (a copy), then each shard sums the partials in shard order on
+  its own device (so every shard gets the same bits, and runs repeat)
+  and carries on.  A shard that raises aborts the barrier, so the others
   fail instead of waiting; every wait has a timeout.
 
   The shards take turns, in shard order, between two collectives: a
@@ -20,7 +20,7 @@ counterparts:
   device work each turn enqueues still runs asynchronously.
 - :class:`ProcessGroupMesh`, one shard per process of a
   ``torch.distributed`` group (``parallel/multihost.py``): ``psum`` is
-  ``all_reduce`` on a copy.
+  ``all_reduce`` on a copy (through the host under gloo).
 
 A ``psum`` takes a tensor or a tuple of tensors (as ``jax.lax.psum``
 takes a pytree) and returns the same structure.
@@ -32,6 +32,8 @@ import time
 from typing import Callable, Dict, List, Sequence
 
 import torch
+
+from .. import graphs
 
 # seconds a shard waits at a collective, or a caller for a shard thread,
 # before the call fails
@@ -121,7 +123,10 @@ class LocalMesh:
                 leaves, seq = _leaves(x)
                 buf = bufs[rounds[0] % 2]
                 rounds[0] += 1
-                buf[d] = leaves
+                # a copy: a graph chain writes the sums back over its
+                # partials, and replays write the next ones there,
+                # before the shards after this one have read them
+                buf[d] = [leaf.clone() for leaf in leaves]
                 pass_turn(d)
                 wait_turn(d)        # every shard has deposited
                 out = []
@@ -192,10 +197,18 @@ class ProcessGroupMesh:
 
     def psum(self, x):
         """One ``all_reduce`` for the whole structure (its tensors share
-        one dtype, as the solvers' do)."""
+        one dtype, as the solvers' do).  Gloo reduces host memory: a
+        card's partials go down to the host (a wait for the card, one a
+        collective) and the sums come back up without one; NCCL reduces
+        on the card."""
         leaves, seq = _leaves(x)
         buf = torch.cat([leaf.reshape(-1) for leaf in leaves])
-        self.dist.all_reduce(buf)
+        if buf.is_cuda and self.dist.get_backend() != "nccl":
+            host = buf.cpu()
+            self.dist.all_reduce(host)
+            buf = graphs.upload(host, buf.device)
+        else:
+            self.dist.all_reduce(buf)
         out = [part.reshape(leaf.shape) for part, leaf in zip(
             buf.split([leaf.numel() for leaf in leaves]), leaves)]
         return tuple(out) if seq else out[0]

@@ -86,13 +86,13 @@ def compute_F12(T1: np.ndarray, T2: np.ndarray, K: np.ndarray) -> np.ndarray:
     return (Kinv.T @ tx @ R12 @ Kinv).astype(np.float32)
 
 
-def _fuse_one(pos, normal, min_d, max_d, pvalid, desc,
-              Tcw, kxy, koct, kdesc, kvalid,
-              scale_factors, fx, fy, cx, cy, bounds,
-              n_levels, log_scale, th, ratio):
+def _fuse_one_raw(pos, normal, min_d, max_d, pvalid, desc,
+                  Tcw, kxy, koct, kdesc, kvalid,
+                  scale_factors, fx, fy, cx, cy, bounds,
+                  n_levels, log_scale, th, ratio):
     """Project a point set into one keyframe and search it (kernel K2);
-    returns the matched feature per point, or -1, with the TH_LOW
-    merge gate applied, as int16."""
+    returns the search's (idx, dist, valid) per point, ungated (the JAX
+    package's ``_fuse_one``)."""
     fr = frustum.is_in_frustum(
         pos, normal, min_d, max_d, pvalid, Tcw,
         fx, fy, cx, cy, bounds, n_levels, log_scale)
@@ -100,8 +100,76 @@ def _fuse_one(pos, normal, min_d, max_d, pvalid, desc,
         fr.uv, fr.pred_level, fr.view_cos, desc, fr.visible,
         kxy, koct, kdesc, kvalid, torch.zeros_like(kvalid),
         scale_factors, th=th, ratio=ratio)
-    return torch.where(r.valid & (r.dist <= 50), r.idx,
-                       torch.full_like(r.idx, -1)).to(torch.int16)
+    return r.idx, r.dist, r.valid
+
+
+def _fuse_one(*args):
+    """:func:`_fuse_one_raw` with the TH_LOW merge gate applied: the
+    matched feature per point, or -1, as int16."""
+    idx, dist, valid = _fuse_one_raw(*args)
+    return torch.where(valid & (dist <= 50), idx,
+                       torch.full_like(idx, -1)).to(torch.int16)
+
+
+def _fuse_stack_impl(pos, normal, min_d, max_d, pvalid, desc,
+                     Tcw_s, kxy_s, koct_s, kdesc_s, kvalid_s,
+                     scale_factors, fx, fy, cx, cy, bounds,
+                     n_levels, log_scale, th, ratio):
+    """A point set into each of a stack of keyframes: (idx, dist, valid),
+    each stacked (B, P), ungated (the JAX ``lax.map`` of ``_fuse_one``)."""
+    per = [_fuse_one_raw(pos, normal, min_d, max_d, pvalid, desc,
+                         Tcw_s[b], kxy_s[b], koct_s[b], kdesc_s[b],
+                         kvalid_s[b], scale_factors, fx, fy, cx, cy, bounds,
+                         n_levels, log_scale, th, ratio)
+           for b in range(Tcw_s.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*per))
+
+
+def _fuse_both_impl(own_pos, own_normal, own_min, own_max, own_valid,
+                    own_desc, Tcw_s, kxy_s, koct_s, kdesc_s, kvalid_s,
+                    cand_pos, cand_normal, cand_min, cand_max, cand_valid,
+                    cand_desc, Tcw0, kxy0, koct0, kdesc0, kvalid0,
+                    scale_factors, fx, fy, cx, cy, bounds,
+                    n_levels, log_scale, th, ratio):
+    fwd = _fuse_stack_impl(
+        own_pos, own_normal, own_min, own_max, own_valid, own_desc,
+        Tcw_s, kxy_s, koct_s, kdesc_s, kvalid_s,
+        scale_factors, fx, fy, cx, cy, bounds,
+        n_levels, log_scale, th, ratio)
+    rev = _fuse_one_raw(cand_pos, cand_normal, cand_min, cand_max,
+                        cand_valid, cand_desc,
+                        Tcw0, kxy0, koct0, kdesc0, kvalid0,
+                        scale_factors, fx, fy, cx, cy, bounds,
+                        n_levels, log_scale, th, ratio)
+    return fwd, rev
+
+
+_fuse_both_graph = graphs.graphed(lambda *a: _fuse_both_impl(*a),
+                                  "fuse_both")
+
+
+def _fuse_both_directions(
+        own_pos, own_normal, own_min, own_max, own_valid, own_desc,
+        Tcw_s, kxy_s, koct_s, kdesc_s, kvalid_s,
+        cand_pos, cand_normal, cand_min, cand_max, cand_valid, cand_desc,
+        Tcw0, kxy0, koct0, kdesc0, kvalid0,
+        scale_factors, fx, fy, cx, cy, bounds,
+        n_levels, log_scale, th=3.0, ratio=1.0):
+    """Forward fuse (this keyframe's points into every target) and
+    reverse fuse (the targets' points into this keyframe) in one program
+    (src/LocalMapping.cc:548-586 runs them as 20 + 1 calls), replayed
+    from a CUDA graph on the card: ((idx, dist, valid) stacked over the
+    targets, (idx, dist, valid) for the one keyframe), ungated.  The JAX
+    package's function, which its pipeline does not call either (the
+    mapper runs the gated, chunked :func:`_fuse_stack_rows` and
+    :func:`_fuse_reverse_rows`)."""
+    return _fuse_both_graph(
+        own_pos, own_normal, own_min, own_max, own_valid, own_desc,
+        Tcw_s, kxy_s, koct_s, kdesc_s, kvalid_s,
+        cand_pos, cand_normal, cand_min, cand_max, cand_valid, cand_desc,
+        Tcw0, kxy0, koct0, kdesc0, kvalid0,
+        scale_factors, fx, fy, cx, cy, bounds, n_levels, log_scale,
+        float(th), float(ratio))
 
 
 def _gather_rows(pt_pos, pt_desc, pt_normal, pt_min, pt_max, pt_alive,

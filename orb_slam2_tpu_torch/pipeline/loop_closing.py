@@ -711,20 +711,26 @@ class LoopCloser:
         eye = np.broadcast_to(np.eye(4, dtype=np.float32),
                               (Kp - len(kids), 4, 4))
         devices = parallel.local_devices(store.device)
+        obs_kf_p = np.pad(obs_kf, (0, O - no))
+        obs_pt_p = np.pad(obs_pt, (0, O - no))
+        # the single-device layout's longest runs, from the host: the
+        # sharded branch's sums take the reductions that solve takes
+        longest = dict(longest_cam=segment.longest_segment(obs_kf_p, Kp),
+                       longest_pt=segment.longest_segment(obs_pt_p, P))
         if len(devices) > 1:
             # memory-scaling variant: the POINT state (and Hpp, gp, the
             # deltas) sharded over the devices with the observations
-            # colocated, so the map can outgrow one device
+            # colocated, so the map can outgrow one device; each shard
+            # replays its graph chain (parallel/dist_ba.py)
             res = parallel.distributed_bundle_adjust_sharded_points(
                 parallel.make_mesh(devices),
                 np.concatenate([poses, eye]).astype(np.float32),
                 points0, obs_kf, obs_pt, obs_uv, obs_sig,
                 np.ones(no, bool),
                 np.pad(fixed, (0, Kp - len(kids)), constant_values=True),
-                fx, fy, cx, cy, iters=iters, cg_iters=30, use_huber=True)
+                fx, fy, cx, cy, iters=iters, cg_iters=30, use_huber=True,
+                **longest)
         else:
-            obs_kf_p = np.pad(obs_kf, (0, O - no))
-            obs_pt_p = np.pad(obs_pt, (0, O - no))
             res = ba.bundle_adjust(
                 self._t(np.concatenate([poses, eye]).astype(np.float32)),
                 self._t(np.pad(points0, ((0, P - len(pids)), (0, 0)))),
@@ -734,8 +740,7 @@ class LoopCloser:
                 self._t(np.pad(np.ones(no, bool), (0, O - no))),
                 self._t(np.pad(fixed, (0, Kp - len(kids)), constant_values=True)),
                 fx, fy, cx, cy, iters=iters, cg_iters=30, use_huber=True,
-                longest_cam=segment.longest_segment(obs_kf_p, Kp),
-                longest_pt=segment.longest_segment(obs_pt_p, P))
+                **longest)
         new_poses, new_pts = graphs.Readback(
             (res.cam_Tcw, res.points)).arrays()
         for i, k in enumerate(kids):

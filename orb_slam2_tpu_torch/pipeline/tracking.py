@@ -69,13 +69,9 @@ class TrackState(enum.Enum):
     LOST = 3
 
 
-def pad_bucket(n: int, minimum: int = 256) -> int:
-    """Round up to a power-of-4 bucket (the JAX package's padded row
-    counts, kept so both packages search the same padded operands)."""
-    m = minimum
-    while m < n:
-        m *= 4
-    return m
+# the JAX package's padded row counts, kept so both packages search the
+# same padded operands (defined beside the graphs it keeps few)
+pad_bucket = graphs.pad_bucket
 
 
 def _project_points(Tcw, pos, fx, fy, cx, cy):

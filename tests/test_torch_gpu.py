@@ -896,6 +896,59 @@ def test_distributed_solvers_two_shards_on_card(cuda):
 
 
 @pytest.mark.gpu
+def test_sharded_graph_chains_equal_the_eager_solves(cuda):
+    """The three sharded solvers' graph chains on two shards of the card
+    (first call: captures; second: warm) against the one-call cores
+    through the same mesh (``eager=True``): every shard's every result
+    equal bit for bit; a warm call waits for the card nowhere
+    (``set_sync_debug_mode("error")`` on every shard's thread)."""
+    from orb_slam2_tpu_torch import parallel
+
+    class Mesh(parallel.LocalMesh):
+        def run(self, body):
+            self.results = super().run(body)
+            return self.results
+
+    args = _ba_scene()
+    rng = np.random.default_rng(3)
+    K, E = 12, 40
+    sims = np.zeros((K, 8), np.float32)
+    sims[:, 3] = 1.0                      # unit quaternions
+    sims[:, 4:7] = rng.normal(0, 1, (K, 3))
+    sims[:, 7] = 1.0
+    ei = rng.integers(0, K, E).astype(np.int32)
+    ej = ((ei + rng.integers(1, K, E)) % K).astype(np.int32)
+    meas = np.tile(sims[:1], (E, 1))
+    meas[:, 4:7] += rng.normal(0, 0.1, (E, 3)).astype(np.float32)
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    cam = (500.0, 500.0, 320.0, 240.0)
+    solves = (
+        lambda m, eager: parallel.distributed_bundle_adjust(
+            m, *args, *cam, iters=3, cg_iters=8, eager=eager),
+        lambda m, eager: parallel.distributed_bundle_adjust_sharded_points(
+            m, *args, *cam, iters=3, cg_iters=8, eager=eager),
+        lambda m, eager: parallel.distributed_pose_graph(
+            m, sims, ei, ej, meas, np.ones(E, np.float32), fixed, iters=3,
+            cg_iters=8, eager=eager))
+    for solve in solves:
+        ref = Mesh([cuda, cuda])
+        solve(ref, True)
+        for warm in (False, True):
+            mesh = Mesh([cuda, cuda])
+            torch.cuda.synchronize()
+            if warm:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                solve(mesh, False)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            for d, res in mesh.results.items():
+                for a, b in zip(res, ref.results[d]):
+                    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 def test_viewer_png_of_a_card_frame(cuda):
     """draw_frame on a card image and frame (device tensors read back on
     the drawing thread) equals the drawing of their host copies, and the

@@ -312,3 +312,86 @@ def test_every_public_name_has_a_counterpart():
             gone = jn - _public_names(port)
             missing += [f"{rel}:{n}" for n in sorted(gone)]
     assert missing == []
+
+
+# functions the JAX package compiles whose port counterpart has another
+# name: (module, JAX name) -> (port name, why)
+JIT_RENAMED = {
+    ("pipeline/tracking.py", "_match_last_fused"): (
+        "_match_last", "replayed as tracking.match_last_graph"),
+    ("pipeline/tracking.py", "_frustum_search_fused"): (
+        "_frustum_search", "replayed as tracking.frustum_graph"),
+    ("pipeline/tracking.py", "_track_prior_step"): (
+        "_prior_step_core", "replayed as Tracker._prior_step"),
+    ("models/vocabulary.py", "_transform_device"): (
+        "transform_device", "replayed as vocabulary._transform_graph"),
+    ("utils/synth.py", "_render_plane_jit"): (
+        "render", "its jitted _warp is the body of the port's render"),
+    ("models/device_points.py", "_scatter_rows"): (
+        "DevicePoints", "kept eager by record: a graph would copy the six "
+        "columns in and clone them out on every replay; DevicePoints.sync "
+        "scatters them"),
+}
+# the Pallas kernels' module: its jitted wrappers live in the port's
+# matching/hamming_top2.py
+JIT_MODULE = {"matching/pallas_hamming.py": "matching/hamming_top2.py"}
+
+
+def _jitted(path):
+    """The functions of a module that ``jax.jit`` compiles (decorated,
+    also through ``functools.partial``, or passed to ``jax.jit``), each
+    by its own name where it is defined at the top of the module, else
+    by the name of the top-level function, class or assignment around
+    it."""
+    out = []
+    for top in ast.parse(open(path).read()).body:
+        name = getattr(top, "name", None)
+        if isinstance(top, ast.Assign):
+            name = ast.unparse(top.targets[0])
+        for node in ast.walk(top):
+            if isinstance(node, ast.FunctionDef) and any(
+                    "jax.jit" in ast.unparse(d) for d in node.decorator_list):
+                out.append(node.name if node is top else name)
+            elif isinstance(node, ast.Call) \
+                    and ast.unparse(node.func) == "jax.jit":
+                out.append(name)
+    return out
+
+
+def _defined_names(path):
+    """Every function and class a module defines, at any depth, and its
+    top-level assignments."""
+    tree = ast.parse(open(path).read())
+    names = {n.name for n in ast.walk(tree)
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    for n in tree.body:
+        if isinstance(n, ast.Assign):
+            names |= {t.id for t in n.targets if isinstance(t, ast.Name)}
+    return names
+
+
+def test_every_jitted_function_has_a_counterpart():
+    """Every function the JAX package compiles with ``jax.jit`` has a
+    counterpart of the same name in the port's module of the same path,
+    or the one ``JIT_RENAMED`` gives with its reason."""
+    jroot = os.path.join(ROOT, "orb_slam2_tpu")
+    missing, seen = [], 0
+    for d, _, files in os.walk(jroot):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(d, f), jroot).replace(
+                os.sep, "/")
+            port = os.path.join(ROOT, "orb_slam2_tpu_torch",
+                                JIT_MODULE.get(rel, rel))
+            for name in _jitted(os.path.join(d, f)):
+                seen += 1
+                want = JIT_RENAMED.get((rel, name), (name, ""))[0]
+                if not os.path.exists(port) \
+                        or want not in _defined_names(port):
+                    missing.append(f"{rel}:{name} -> {want}")
+    assert missing == []
+    assert seen >= 30
+    # every renamed entry still names a compiled JAX function
+    for rel, name in JIT_RENAMED:
+        assert name in _jitted(os.path.join(jroot, rel))

@@ -283,6 +283,52 @@ def test_fuse_forward_and_reverse():
     assert (out >= 0).sum() > 30
 
 
+def _point_set(store, rows):
+    """The columns (pos, normal, min_d, max_d, valid, desc) of the
+    store's rows (-1 = empty slot), gathered on the host."""
+    r = np.clip(rows, 0, None)
+    return (store["pos"][r], store["normal"][r], store["min_d"][r],
+            store["max_d"][r], (rows >= 0) & store["alive"][r],
+            store["desc"][r])
+
+
+def test_fuse_both_directions():
+    """``_fuse_both_directions`` (one program: the forward fuse of this
+    keyframe's points into 4 targets and the reverse fuse of other
+    points into this keyframe, ungated) against the JAX package's jitted
+    function.  Bar: indices, distances (Hamming, integer) and valid
+    flags equal, both directions."""
+    store, views, rows = _fuse_scene(3, 4)
+    rng = np.random.default_rng(33)
+    cand_rows = rng.permutation(rows)
+    tg = views[1:]
+    kvalid = np.stack([v["valid"] for v in tg])
+    stack = [np.stack([v[k] for v in tg]) for k in ("Tcw", "xy", "octave")]
+    kdesc = np.stack([v["desc"] for v in tg])
+    v = views[0]
+    own, cand = _point_set(store, rows), _point_set(store, cand_rows)
+    geo = (FX, FY, CX, CY, BOUNDS, 4, float(np.log(1.2)))
+    j = jnp.asarray
+    jf, jr = jlm._fuse_both_directions(
+        *map(j, own), *map(j, stack), j(kdesc), j(kvalid), *map(j, cand),
+        *map(j, (v["Tcw"], v["xy"], v["octave"], v["desc"], v["valid"], SF)),
+        *geo, th=3.0, ratio=1.0)
+
+    def t(a):
+        a = np.asarray(a)
+        return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                                else a)
+    tf, tr = tlm._fuse_both_directions(
+        *map(t, own), *map(t, stack), t(kdesc), t(kvalid), *map(t, cand),
+        *map(t, (v["Tcw"], v["xy"], v["octave"], v["desc"], v["valid"], SF)),
+        *geo, th=3.0, ratio=1.0)
+    for ours, ref in zip((*tf, *tr), (*jf, *jr)):
+        assert tuple(ours.shape) == tuple(np.shape(ref))
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    assert tf[2].shape == (4, 256) and int(tf[2].sum()) > 150
+    assert int(tr[2].sum()) > 30
+
+
 @pytest.mark.parametrize("cap", [2048, 16])
 def test_compact_matches(cap):
     """The compacted list of a (8, 256) int16 match matrix with ~10% of
