@@ -110,7 +110,14 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      shards' graph chains: held bit for bit to the eager one-call solve
      on every shard (``eager=True``), first and warm, a warm solve with
      no host sync on the local mesh and one a collective on gloo, at
-     most ``graphs.MAXSIZE`` captures a segment.
+     most ``graphs.MAXSIZE`` captures a segment.  Then the three solves
+     on a one-rank NCCL group of the card (``--nccl-worker``, a process
+     of its own): the captured form (every collective inside the
+     graphs, one replay an LM iteration) and the cut form, each bit for
+     bit the eager solve, a warm captured solve with no host sync and
+     no host launch but its replays, its inputs' uploads and its
+     result's gather; first and warm times, captures, syncs and
+     runtime calls of both forms side by side.
 Path A also holds a warm extraction to no host synchronization, and
 path D prints the model (H or F) of its two-view bootstrap, which must
 be H on the planar world.
@@ -142,7 +149,8 @@ imported from the checkout
 DIR: a parent and its change under one script), and ``--kernels-from
 DIR``
 runs phases 1 and 2 alone with the port imported from DIR
-(``--gloo-worker`` is path F's own subprocess).  To compare
+(``--gloo-worker`` and ``--nccl-worker`` are path F's own
+subprocesses).  To compare
 two commits on one card, unpack the other one (``git archive``) into a
 git-ignored directory and run, one after another on the same card,
 ``--kernels-from`` that directory, this checkout, this checkout and that
@@ -732,7 +740,10 @@ class SyncCounter:
 
     def _show(self, message, category, filename, lineno, *rest):
         role = getattr(self._local, "role", None) or self._any
-        if "synchroniz" not in str(message):
+        # the notice that the debug mode is a prototype, which PyTorch
+        # gives once a process when it is first set, is no sync
+        if ("synchroniz" not in str(message)
+                or "prototype feature" in str(message)):
             self._saved[0](message, category, filename, lineno, *rest)
         elif role is not None:
             self.counts[role] += 1
@@ -1863,6 +1874,13 @@ F_COST_RTOL = 1e-3
 # in another order only), measured in the same call
 F_SUM_ORDER_FACTOR = 4.0
 F_GLOO_TIMEOUT_S = 300
+# path F on a one-rank NCCL group (--nccl-worker): the process's time
+# limit, and the most kernel launches plus copies a warm captured solve
+# may make from the host (its inputs' uploads, its result's clones and
+# gather: none a collective's; the cut form makes one pack and one
+# write-back a collective, 342-701 a solve)
+F_NCCL_TIMEOUT_S = 420
+F_NCCL_HOST_BAR = 64
 
 
 def _timed(fn):
@@ -1959,6 +1977,165 @@ def gloo_worker(addr: str, rank: int, problem: str) -> int:
           f"{json.dumps(dict(syncs.sites['gloo']))}", flush=True)
     dist.destroy_process_group()
     return 0
+
+
+def nccl_worker(addr: str, problem: str) -> int:
+    """``--nccl-worker``: path F's three solves on a one-rank NCCL
+    process group (``init_multihost(num_processes=1)``, whose backend
+    is NCCL with a card, and ``make_global_mesh``): each solved eagerly
+    (``eager=True``, the one-call core), then in the captured form (the
+    mesh capturable: every collective inside the graphs, one replay an
+    LM iteration) and in the cut form (``mesh.capturable`` set False:
+    the chain cut at every collective, the all-reduce eager between
+    replays), each form's first call (its captures) and a warm call;
+    every result of both forms bit for bit the eager one (so the two
+    forms equal each other),
+    ``graphs.STATS`` saying which form ran; a warm call's host syncs
+    (SyncCounter), runtime calls (torch.profiler) and segments.  Checks:
+    the captured form ran, a warm captured solve makes no host sync,
+    its graph launches are its segments, its other host launches and
+    copies at most F_NCCL_HOST_BAR.  Prints one ``NCCL {...}`` JSON line
+    a solve and ``NCCL_OK``."""
+    import torch
+    import torch.distributed as dist
+    from orb_slam2_tpu_torch import graphs, parallel
+    parallel.init_multihost(coordinator=addr, num_processes=1, process_id=0)
+    mesh = parallel.make_global_mesh()
+    check(dist.get_backend() == "nccl" and mesh.capturable,
+          f"F/NCCL: backend {dist.get_backend()}, capturable "
+          f"{mesh.capturable}")
+    p = np.load(problem)
+    bargs = [p[f"b{i}"] for i in range(8)] + p["cam"].tolist()
+    bkw = dict(iters=int(p["iters"]), cg_iters=int(p["cg_iters"]),
+               use_huber=bool(p["use_huber"]),
+               longest_cam=int(p["longest"][0]),
+               longest_pt=int(p["longest"][1]))
+    pargs = [p[f"p{i}"] for i in range(6)]
+    pkw = dict(iters=int(p["p_iters"]), cg_iters=int(p["p_cg_iters"]))
+    solves = (
+        ("distributed_bundle_adjust", "ba", bkw["iters"],
+         lambda eager: parallel.distributed_bundle_adjust(
+             mesh, *bargs, eager=eager, **bkw)),
+        ("distributed_bundle_adjust_sharded_points", "ba", bkw["iters"],
+         lambda eager: parallel.distributed_bundle_adjust_sharded_points(
+             mesh, *bargs, eager=eager, **bkw)),
+        ("distributed_pose_graph", "pose_graph", pkw["iters"],
+         lambda eager: parallel.distributed_pose_graph(
+             mesh, *pargs, eager=eager, **pkw)))
+
+    def stats(chain):
+        st = {k: dict(v) for k, v in graphs.STATS.items()
+              if k == chain or k.startswith(chain + ":")}
+        return st
+
+    def diff(a, b, field):
+        return {k: v.get(field, 0) - a.get(k, {}).get(field, 0)
+                for k, v in b.items()
+                if v.get(field, 0) != a.get(k, {}).get(field, 0)}
+
+    for name, chain, iters, solve in solves:
+        eager, eager_ms = _timed(lambda: solve(True))
+        forms = {}
+        for form in ("captured", "cut"):
+            mesh.capturable = form == "captured"
+            s0 = stats(chain)
+            res, first_ms = _timed(lambda: solve(False))
+            s1 = stats(chain)
+            with SyncCounter() as syncs:
+                warm, warm_ms = _timed(syncs.wrap(lambda: solve(False),
+                                                  "nccl"))
+            s2 = stats(chain)
+            runtime = runtime_counts(lambda: solve(False))
+            for label, out in (("first", res), ("warm", warm)):
+                for j, (a, b) in enumerate(zip(out, eager)):
+                    check(torch.equal(a, b), f"F/NCCL: {name}'s {form} "
+                          f"{label} call differs from its eager call in "
+                          f"field {j}")
+            ran = diff(s0, s1, form).get(chain, 0)
+            other = diff(s0, s2, "cut" if form == "captured"
+                         else "captured").get(chain, 0)
+            check(ran == 1 and other == 0, f"F/NCCL: {name} asked for the "
+                  f"{form} form ran {ran} {form} and {other} other solves")
+            forms[form] = dict(
+                first_ms=first_ms, warm_ms=warm_ms,
+                warm_syncs=syncs.counts["nccl"],
+                sync_sites=dict(syncs.sites["nccl"]), runtime=runtime,
+                segments=diff(s1, s2, "segments").get(chain, 0),
+                captures=sum(diff(s0, s1, "captures").values()),
+                warmup_ms=sum(diff(s0, s1, "warmup_ms").values()),
+                capture_ms=sum(diff(s0, s1, "capture_ms").values()))
+        mesh.capturable = True
+        cap = forms["captured"]
+        check(cap["warm_syncs"] == 0, f"F/NCCL: a warm captured {name} "
+              f"synchronizes with the host: {cap['sync_sites']}")
+        check(cap["segments"] == iters + 2, f"F/NCCL: a captured {name} "
+              f"ran {cap['segments']} segments, not {iters + 2}")
+        rt = cap["runtime"]
+        check(rt["graph_launches"] == cap["segments"]
+              and rt["launches"] + rt["copies"] <= F_NCCL_HOST_BAR,
+              f"F/NCCL: a warm captured {name}'s host launches: {rt}")
+        print("NCCL " + json.dumps(dict(name=name, eager_ms=eager_ms,
+                                        **forms)), flush=True)
+    dist.destroy_process_group()
+    print("NCCL_OK", flush=True)
+    return 0
+
+
+def phase_nccl(bargs, bkw, pargs, pkw) -> dict:
+    """Path F on NCCL: ``--nccl-worker`` in a process of its own (a
+    one-rank NCCL group of the card) on path F's three problems; its
+    numbers, captured beside cut, printed here."""
+    import socket
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        problem = os.path.join(root, "problem.npz")
+        np.savez(problem, cam=np.array(bargs[8:12]),
+                 iters=bkw.get("iters", 10), cg_iters=bkw.get("cg_iters", 20),
+                 use_huber=bkw.get("use_huber", True),
+                 longest=np.array([bkw["longest_cam"], bkw["longest_pt"]]),
+                 p_iters=pkw.get("iters", 20), p_cg_iters=pkw.get("cg_iters",
+                                                                  30),
+                 **{f"b{i}": a for i, a in enumerate(bargs[:8])},
+                 **{f"p{i}": a for i, a in enumerate(pargs)})
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sock.getsockname()[1]}"
+        sock.close()
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--nccl-worker",
+             addr, problem], cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            out = proc.communicate(timeout=F_NCCL_TIMEOUT_S)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        wall = time.perf_counter() - t0
+    check(proc.returncode == 0 and "NCCL_OK" in out,
+          f"F: the NCCL worker failed ({proc.returncode}):\n{out[-3000:]}")
+    res = {}
+    for ln in out.splitlines():
+        if not ln.startswith("NCCL {"):
+            continue
+        r = json.loads(ln[len("NCCL "):])
+        res[r["name"]] = r
+        c, u = r["captured"], r["cut"]
+        log(f"F/NCCL {r['name']} on a one-rank NCCL group, captured "
+            f"against cut: first {c['first_ms']:.1f} / {u['first_ms']:.1f} "
+            f"ms (captures {c['captures']} / {u['captures']}; warm-up "
+            f"{c['warmup_ms']:.1f} / {u['warmup_ms']:.1f} ms, capture "
+            f"{c['capture_ms']:.1f} / {u['capture_ms']:.1f} ms), warm "
+            f"{c['warm_ms']:.1f} / {u['warm_ms']:.1f} ms, eager "
+            f"{r['eager_ms']:.1f} ms; a warm solve's host syncs "
+            f"{c['warm_syncs']} / {u['warm_syncs']}, segments "
+            f"{c['segments']} / {u['segments']}, runtime calls "
+            f"{json.dumps(c['runtime'])} / {json.dumps(u['runtime'])}; "
+            f"both forms bit for bit the eager solve")
+    check(len(res) == 3, f"F: the NCCL worker printed {sorted(res)}")
+    log(f"F/NCCL: {wall:.1f} s with the process's start")
+    return dict(wall_s=wall, **res)
 
 
 def _graph_chain_checks(name, run, mesh_cls, devs) -> dict:
@@ -2330,6 +2507,7 @@ def phase_dist(device, record: dict) -> dict:
         **{k: [float(field(ln, k)) for ln in lines]
            for k in ("ms", "first_ms", "eager_ms", "syncs", "psum_syncs",
                      "collectives", "formula")})
+    out["nccl"] = phase_nccl(bargs, skw, pargs, pkw)
     return out
 
 
@@ -3261,6 +3439,10 @@ def main() -> int:
     ap.add_argument("--gloo-worker", nargs=3,
                     metavar=("HOST:PORT", "RANK", "PROBLEM"),
                     help="path F's process-group rank (started by path F)")
+    ap.add_argument("--nccl-worker", nargs=2,
+                    metavar=("HOST:PORT", "PROBLEM"),
+                    help="path F's one-rank NCCL group, captured against "
+                         "cut (started by path F)")
     ap.add_argument("--kernels-from", metavar="DIR",
                     help="run only phases 1 and 2 (build, each kernel "
                          "against its plain version, timed) with "
@@ -3300,6 +3482,12 @@ def main() -> int:
     if args.gloo_worker:
         addr, rank, problem = args.gloo_worker
         return gloo_worker(addr, int(rank), problem)
+    if args.nccl_worker:
+        try:
+            return nccl_worker(*args.nccl_worker)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
     from orb_slam2_tpu_torch import kernels
 
     t_start = time.perf_counter()

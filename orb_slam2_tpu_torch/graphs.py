@@ -43,11 +43,14 @@ counted.
 
 The sharded solvers are ``jax.jit(shard_map(...))`` in the JAX package:
 one program per shard, its collectives inside.  Here each shard's
-solver is a phased program (steps cut by :class:`Collective` items)
-replayed as a :class:`Chain` of graphs, one a segment between two
-collectives, with the collective run eagerly between two replays; the
-steps read and write the chain's own buffers in place, so a replay
-copies nothing in or out.
+solver is a phased program (steps and :class:`Collective` items)
+replayed as a :class:`Chain` of graphs whose steps read and write the
+chain's own buffers in place, so a replay copies nothing in or out.
+Where the collective's hook can be captured (a NCCL process group:
+``capturable``), the sums are steps inside the graphs, as in the JAX
+package's program; elsewhere (gloo, whose sums go through host memory,
+and a local mesh, whose shards take turns on threads) the chain is cut
+at each collective, which runs eagerly between two replays.
 """
 from __future__ import annotations
 
@@ -85,7 +88,7 @@ def _count(name: str, what: str, n=1) -> None:
     with _stats_lock:
         s = STATS.setdefault(name, dict(captures=0, replays=0,
                                         warmup_ms=0.0, capture_ms=0.0))
-        s[what] += n
+        s[what] = s.get(what, 0) + n
 
 
 def pad_bucket(n: int, minimum: int = 256) -> int:
@@ -267,6 +270,43 @@ class Collective(NamedTuple):
     names: tuple
 
 
+def capturable(hook, key):
+    """``hook`` declared capturable: its sums launch on the current
+    stream and wait for nothing on the host, so a :class:`Chain` runs
+    them as steps inside its captures.  ``key`` names what a capture
+    holds of the hook (the process group): chains are keyed on it."""
+    def sums(x):
+        return hook(x)
+    sums.capture_key = key
+    return sums
+
+
+def capture_key(hook):
+    """The key of a hook declared :func:`capturable`, else ``None``."""
+    return getattr(hook, "capture_key", None)
+
+
+class _Sum:
+    """A collective as a step of a captured segment: the sums of its
+    entries, which the segment writes back over them.  Steps compare by
+    the collective alone, so every solve of a chain finds its segments
+    (the chain is keyed on the hook's :func:`capture_key`)."""
+
+    def __init__(self, item: Collective, hook):
+        self.item, self.hook = item, hook
+        self.__name__ = f"{item.kind}({','.join(item.names)})"
+
+    def __eq__(self, other):
+        return isinstance(other, _Sum) and self.item == other.item
+
+    def __hash__(self):
+        return hash(self.item)
+
+    def __call__(self, st, cfg):
+        return dict(zip(self.item.names,
+                        self.hook(tuple(st[n] for n in self.item.names))))
+
+
 def _dense(out: dict) -> dict:
     """State entries in one memory layout, contiguous: a reduction's
     order, and so its rounding, can follow its operand's strides, and a
@@ -324,8 +364,10 @@ class _Segment:
     results into them in place."""
 
     def __init__(self, chain: "Chain", steps: tuple, cfg):
-        self.name = chain.name + ":" + "+".join(
-            fn.__name__.lstrip("_") for fn in steps)
+        names = [fn.__name__.lstrip("_") for fn in steps]
+        if len(names) > 8:          # a captured LM iteration
+            names = [names[0], f"{len(names) - 2} steps", names[-1]]
+        self.name = chain.name + ":" + "+".join(names)
         cur = torch.cuda.current_stream(chain.device)
         side = torch.cuda.Stream(chain.device)
         side.wait_stream(cur)
@@ -365,25 +407,36 @@ class _Segment:
 
 class Chain:
     """One shard's phased program (see :func:`run_eager`) as a chain of
-    CUDA graphs cut at its collectives: the port's counterpart of
-    ``jax.jit(shard_map(...))``.
+    CUDA graphs: the port's counterpart of ``jax.jit(shard_map(...))``.
 
-    The chain owns its state as named buffers (``bufs``).  The steps
-    between two collectives form a segment, captured the first time it
-    appears (after ``WARMUP`` eager calls on a side stream) and replayed
-    whenever the same steps appear again: a solver's PCG iterations
-    replay one segment.  A segment reads the buffers and writes its
-    results into them in place, so no replay copies an input in or an
-    output out; a collective sums its buffers over the shards, eagerly
-    between two replays, and copies the sums back into them.  The
-    collectives of an identity hook are no cut.  A warm run launches
-    only replays, the collectives' sums and their copies, and waits for
-    nothing.  The segments of one chain share one memory pool and
-    replay in one order on one stream.
+    The chain owns its state as named buffers (``bufs``).  Its program
+    runs as segments of steps, each captured the first time it appears
+    (after ``WARMUP`` eager calls on a side stream) and replayed
+    whenever the same steps appear again.  A segment reads the buffers
+    and writes its results into them in place, so no replay copies an
+    input in or an output out.  A run takes one of two forms:
+
+    - captured, where every hook of the run is :func:`capturable` (a
+      NCCL process group): each collective is a step of its segment,
+      whose sums the segment writes back over the entries, inside the
+      capture.  Segments end only before the steps ``cut_before``
+      names (a solver's LM iteration and its finish): a solver replays
+      one graph an LM iteration.  A capture that fails raises;
+    - cut, for every other hook (gloo, a local mesh): a segment ends at
+      each collective, which sums its buffers eagerly between two
+      replays and copies the sums back into them; the solver's PCG
+      steps replay one segment.
+
+    The collectives of an identity hook are no step and no cut.  A warm
+    run launches only replays (and, cut, the collectives' sums and
+    their copies) and waits for nothing.  The segments of one chain
+    share one memory pool and replay in one order on one stream.
+    :data:`STATS` counts the runs of each form under the chain's name
+    ("captured", "cut") and the segments they ran ("segments").
 
     Every shard has chains of its own: two shards on one card with
     equal shapes must not share buffers.  On the CPU the segments run
-    eagerly on the same buffers, in place."""
+    eagerly on the same buffers, in place, in the form's order."""
 
     def __init__(self, name: str, device):
         self.name = name
@@ -406,15 +459,25 @@ class Chain:
                     host.shape, dtype=host.dtype, device=self.device)
             buf.copy_(host.pin_memory(), non_blocking=True)
 
-    def run(self, program, cfg, hooks: dict) -> dict:
+    def run(self, program, cfg, hooks: dict, cut_before=()) -> dict:
         """Run ``program`` on the buffers; returns them."""
+        live = [h for h in hooks.values() if h is not None]
+        captured = bool(live) and all(capture_key(h) is not None
+                                      for h in live)
+        _count(self.name, "captured" if captured else "cut")
         steps = []
         for item in program:
+            if captured and item in cut_before:
+                self._run_steps(tuple(steps), cfg)
+                steps = []
             if not isinstance(item, Collective):
                 steps.append(item)
                 continue
             hook = hooks[item.kind]
             if hook is None:
+                continue
+            if captured:
+                steps.append(_Sum(item, hook))
                 continue
             self._run_steps(tuple(steps), cfg)
             steps = []
@@ -427,6 +490,7 @@ class Chain:
     def _run_steps(self, steps: tuple, cfg) -> None:
         if not steps:
             return
+        _count(self.name, "segments")
         if self.device.type != "cuda":
             _commit(self.bufs, _apply(steps, self.bufs, cfg))
             return

@@ -482,9 +482,11 @@ def bundle_adjust_shard(shard: int, device, arrays: dict, fx: float,
                         shard_points: bool, longest_cam: int | None = None,
                         longest_pt: int | None = None) -> BAResult:
     """One shard's part of a sharded BA, replayed as a chain of CUDA
-    graphs cut at its collectives (``graphs.Chain``; on the CPU the
-    same steps run eagerly in place): the port's ``jax.jit`` of the
-    JAX package's ``shard_map``.  ``arrays``: this shard's host arrays
+    graphs (``graphs.Chain``; on the CPU the same steps run eagerly in
+    place): the port's ``jax.jit`` of the JAX package's ``shard_map``.
+    Where ``psum`` is capturable (NCCL) its sums run inside the graphs,
+    one replay an LM iteration; elsewhere the chain is cut at every
+    collective.  ``arrays``: this shard's host arrays
     (``cam``, ``pts``, ``obs_cam``, ``obs_pt``, ``obs_uv``,
     ``obs_isig2``, ``obs_valid``, ``fixed_cam``), uploaded outside the
     graphs; their longest segments are counted on the host.  ``psum``
@@ -502,11 +504,13 @@ def bundle_adjust_shard(shard: int, device, arrays: dict, fx: float,
                _longest(longest_cam, arrays["obs_cam"], K),
                _longest(longest_pt, arrays["obs_pt"], P))
     key = (shard, cfg, int(iters), int(cg_iters), bool(shard_points),
+           graphs.capture_key(psum),
            *((k, np.shape(a)) for k, a in sorted(arrays.items())))
     chain = _CHAINS.get(key, device)
     chain.load(**arrays)
     st = chain.run(_program(iters, cg_iters), cfg,
-                   {"cam": psum, "pt": None if shard_points else psum})
+                   {"cam": psum, "pt": None if shard_points else psum},
+                   cut_before=(_damp, _finish))
     return BAResult(*(t.clone() for t in _result(st)))
 
 

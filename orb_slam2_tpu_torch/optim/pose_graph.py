@@ -359,19 +359,22 @@ def _longest(given, edge_i, edge_j, K: int) -> int:
 def pose_graph_shard(shard: int, device, arrays: dict, iters: int,
                      cg_iters: int, psum) -> PoseGraphResult:
     """One shard's part of an edge-sharded pose graph, replayed as a
-    chain of CUDA graphs cut at its collectives (``graphs.Chain``; on
-    the CPU the same steps run eagerly in place).  ``arrays``: this
+    chain of CUDA graphs (``graphs.Chain``; on the CPU the same steps
+    run eagerly in place): with a capturable ``psum`` (NCCL) its sums
+    inside the graphs, one replay an LM iteration, else cut at every
+    collective.  ``arrays``: this
     shard's host arrays (``sims``, ``edge_i``, ``edge_j``,
     ``edge_meas``, ``edge_weight``, ``fixed``), uploaded outside the
     graphs; the longest segment is counted on the host.  The result's
     tensors are this shard's own."""
     K = len(arrays["sims"])
     cfg = _Cfg(K, _longest(None, arrays["edge_i"], arrays["edge_j"], K))
-    key = (shard, cfg, int(iters), int(cg_iters),
+    key = (shard, cfg, int(iters), int(cg_iters), graphs.capture_key(psum),
            *((k, np.shape(a)) for k, a in sorted(arrays.items())))
     chain = _CHAINS.get(key, device)
     chain.load(**arrays)
-    st = chain.run(_program(iters, cg_iters), cfg, {"psum": psum})
+    st = chain.run(_program(iters, cg_iters), cfg, {"psum": psum},
+                   cut_before=(_jacobians, _final_cost))
     return PoseGraphResult(sims=st["sims"].clone(),
                            final_cost=st["final_cost"].clone())
 

@@ -9,11 +9,13 @@ shard.  A mesh is a :class:`~.mesh.LocalMesh` of devices of this process
 or a :class:`~.mesh.ProcessGroupMesh` of ``torch.distributed`` ranks
 (``parallel/multihost.py``); the solvers take either.
 
-Each shard replays the solver as a chain of CUDA graphs cut at its
-collectives (``ba.bundle_adjust_shard``, ``graphs.Chain``), the port's
-``jax.jit`` of the JAX package's ``shard_map``: its inputs go up outside
-the graphs, and a warm solve on a local mesh launches only replays and
-the collectives' sums.  Each shard's rows are padded to a power-of-4
+Each shard replays the solver as a chain of CUDA graphs
+(``ba.bundle_adjust_shard``, ``graphs.Chain``), the port's ``jax.jit``
+of the JAX package's ``shard_map``: its inputs go up outside the
+graphs; on a NCCL process group every collective runs inside the graphs
+(a warm solve launches one replay an LM iteration), elsewhere the chain
+is cut at each collective (a warm solve on a local mesh launches only
+replays and the collectives' sums).  Each shard's rows are padded to a power-of-4
 bucket (``graphs.pad_bucket``), so problems of about one size share the
 shards' captures; the padding is observations of weight 0, spread over
 the point rows (``_spread``), and points that only those observations

@@ -7,7 +7,8 @@ vertices are replicated.  The gradient, block-diagonal and Hessian
 matvec sums of ``optim.pose_graph`` are closed with the mesh's ``psum``,
 so every shard solves the same reduced system (the pattern of
 ``dist_ba``), and each shard replays the solver as a chain of CUDA
-graphs cut at its collectives (``pose_graph.pose_graph_shard``).
+graphs (``pose_graph.pose_graph_shard``): on NCCL with every collective
+inside them, elsewhere cut at each collective.
 """
 from __future__ import annotations
 

@@ -20,7 +20,9 @@ counterparts:
   device work each turn enqueues still runs asynchronously.
 - :class:`ProcessGroupMesh`, one shard per process of a
   ``torch.distributed`` group (``parallel/multihost.py``): ``psum`` is
-  ``all_reduce`` on a copy (through the host under gloo).
+  ``all_reduce`` on a copy (through the host under gloo).  On NCCL
+  with a card the mesh's ``psum`` is capturable (``graphs.capturable``):
+  the graph chains run its sums inside their captures.
 
 A ``psum`` takes a tensor or a tuple of tensors (as ``jax.lax.psum``
 takes a pytree) and returns the same structure.
@@ -184,6 +186,11 @@ class ProcessGroupMesh:
         self.device = torch.device(device)
         self.axis_names = (axis,)
         self.rank = dist.get_rank()
+        # NCCL sums on the card, on the current stream, and waits for
+        # nothing on the host: a CUDA graph can hold the all-reduce.
+        # Gloo's sums go through host memory and cannot be captured.
+        self.capturable = (self.device.type == "cuda"
+                           and dist.get_backend() == "nccl")
 
     @property
     def size(self) -> int:
@@ -199,8 +206,9 @@ class ProcessGroupMesh:
         """One ``all_reduce`` for the whole structure (its tensors share
         one dtype, as the solvers' do).  Gloo reduces host memory: a
         card's partials go down to the host (a wait for the card, one a
-        collective) and the sums come back up without one; NCCL reduces
-        on the card."""
+        collective) and the sums come back up without one; NCCL packs,
+        reduces and unpacks on the card, on the current stream, with no
+        host read (inside a capture, on the capturing stream)."""
         leaves, seq = _leaves(x)
         buf = torch.cat([leaf.reshape(-1) for leaf in leaves])
         if buf.is_cuda and self.dist.get_backend() != "nccl":
@@ -214,7 +222,14 @@ class ProcessGroupMesh:
         return tuple(out) if seq else out[0]
 
     def run(self, body: Callable) -> Dict[int, object]:
-        return {self.rank: body(self.rank, self.device, self.psum)}
+        """``body(rank, device, psum)`` on this rank; ``psum`` is
+        declared capturable where the mesh is, keyed on the group whose
+        communicator a capture holds (a group made anew after
+        ``destroy_process_group`` gets chains of its own)."""
+        psum = self.psum
+        if self.capturable:
+            psum = graphs.capturable(self.psum, self.dist.group.WORLD)
+        return {self.rank: body(self.rank, self.device, psum)}
 
     def all_gather(self, parts: Dict[int, torch.Tensor],
                    device) -> List[torch.Tensor]:

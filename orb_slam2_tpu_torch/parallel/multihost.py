@@ -9,7 +9,11 @@ any scale, because every sum already closes with the mesh's ``psum``.
 
 Backend: NCCL when every rank of the host has a card of its own, gloo
 on the CPU and when ranks share a card (NCCL refuses two ranks on one
-GPU; gloo reduces CUDA tensors through the host).
+GPU; gloo reduces CUDA tensors through the host).  On NCCL the graph
+chains of the solvers capture the all-reduce (``graphs.Chain``), so
+``make_global_mesh`` creates the communicator with one eager collective:
+NCCL creates it lazily at a group's first collective, which must not
+happen inside a capture.
 
 One process needs nothing from here; call ``parallel.make_mesh()``.
 """
@@ -63,7 +67,9 @@ def make_global_mesh(axis: str = "obs", device=None) -> ProcessGroupMesh:
     """One mesh over every rank of the process group, each rank a shard
     on ``device``: by default the card at its local rank
     (``LOCAL_RANK``, else the rank modulo the visible cards), which must
-    exist; the CPU only when asked for (``device="cpu"``)."""
+    exist; the CPU only when asked for (``device="cpu"``).  Every rank
+    calls it: on NCCL with a card it runs one all-reduce, which creates
+    the communicator outside any capture."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_global_mesh: no CUDA device is "
@@ -72,4 +78,8 @@ def make_global_mesh(axis: str = "obs", device=None) -> ProcessGroupMesh:
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    return ProcessGroupMesh(device, axis)
+    mesh = ProcessGroupMesh(device, axis)
+    if mesh.capturable:
+        # the communicator, before any capture holds the all-reduce
+        mesh.psum(torch.zeros(1, device=device))
+    return mesh

@@ -895,20 +895,11 @@ def test_distributed_solvers_two_shards_on_card(cuda):
                                atol=1e-5)
 
 
-@pytest.mark.gpu
-def test_sharded_graph_chains_equal_the_eager_solves(cuda):
-    """The three sharded solvers' graph chains on two shards of the card
-    (first call: captures; second: warm) against the one-call cores
-    through the same mesh (``eager=True``): every shard's every result
-    equal bit for bit; a warm call waits for the card nowhere
-    (``set_sync_debug_mode("error")`` on every shard's thread)."""
+def _sharded_solves():
+    """The three sharded solves, ``solve(mesh, eager)``, on a small BA
+    scene (3 LM iterations of 8 PCG steps) and a random pose graph of 12
+    vertices and 40 edges."""
     from orb_slam2_tpu_torch import parallel
-
-    class Mesh(parallel.LocalMesh):
-        def run(self, body):
-            self.results = super().run(body)
-            return self.results
-
     args = _ba_scene()
     rng = np.random.default_rng(3)
     K, E = 12, 40
@@ -923,7 +914,7 @@ def test_sharded_graph_chains_equal_the_eager_solves(cuda):
     fixed = np.zeros(K, bool)
     fixed[0] = True
     cam = (500.0, 500.0, 320.0, 240.0)
-    solves = (
+    return (
         lambda m, eager: parallel.distributed_bundle_adjust(
             m, *args, *cam, iters=3, cg_iters=8, eager=eager),
         lambda m, eager: parallel.distributed_bundle_adjust_sharded_points(
@@ -931,7 +922,23 @@ def test_sharded_graph_chains_equal_the_eager_solves(cuda):
         lambda m, eager: parallel.distributed_pose_graph(
             m, sims, ei, ej, meas, np.ones(E, np.float32), fixed, iters=3,
             cg_iters=8, eager=eager))
-    for solve in solves:
+
+
+@pytest.mark.gpu
+def test_sharded_graph_chains_equal_the_eager_solves(cuda):
+    """The three sharded solvers' graph chains on two shards of the card
+    (first call: captures; second: warm) against the one-call cores
+    through the same mesh (``eager=True``): every shard's every result
+    equal bit for bit; a warm call waits for the card nowhere
+    (``set_sync_debug_mode("error")`` on every shard's thread)."""
+    from orb_slam2_tpu_torch import parallel
+
+    class Mesh(parallel.LocalMesh):
+        def run(self, body):
+            self.results = super().run(body)
+            return self.results
+
+    for solve in _sharded_solves():
         ref = Mesh([cuda, cuda])
         solve(ref, True)
         for warm in (False, True):
@@ -946,6 +953,51 @@ def test_sharded_graph_chains_equal_the_eager_solves(cuda):
             for d, res in mesh.results.items():
                 for a, b in zip(res, ref.results[d]):
                     assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_nccl_captured_solves_equal_the_eager_solves(cuda):
+    """A one-rank NCCL group (``init_multihost``, ``make_global_mesh``):
+    its mesh is capturable, and each of the three sharded solves runs
+    its collectives inside the graphs (``graphs.STATS``: the captured
+    form, one replay a segment, ``iters + 2`` segments), first call and
+    warm, bit for bit the one-call core on the same rank
+    (``eager=True``); a warm solve waits for the card nowhere
+    (``set_sync_debug_mode("error")``)."""
+    import socket
+    import torch.distributed as dist
+    from orb_slam2_tpu_torch import graphs, parallel
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    addr = f"127.0.0.1:{sock.getsockname()[1]}"
+    sock.close()
+    parallel.init_multihost(coordinator=addr, num_processes=1, process_id=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = parallel.make_global_mesh()
+        assert mesh.capturable and mesh.device.type == "cuda"
+        for solve, chain in zip(_sharded_solves(),
+                                ("ba", "ba", "pose_graph")):
+            ref = solve(mesh, True)
+            for warm in (False, True):
+                graphs.reset_stats()
+                torch.cuda.synchronize()
+                if warm:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    res = solve(mesh, False)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                ran = graphs.STATS[chain]
+                assert ran["captured"] == 1 and "cut" not in ran
+                assert ran["segments"] == 3 + 2
+                replays = sum(v["replays"] for k, v in graphs.STATS.items()
+                              if k.startswith(chain + ":"))
+                assert replays == ran["segments"]
+                for a, b in zip(res, ref):
+                    assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.gpu
