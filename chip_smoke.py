@@ -45,6 +45,18 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      frame (bar: none on a steady frame, one without a capture);
   4. path A-seq: path A with ``pipelined_tracking=False``, for its fps
      and frame times beside path A's on the same card;
+  H. bench.py's run at its full default length, in this process,
+     through the port's benchmark module (``orb_slam2_tpu_torch.bench``,
+     the run of ``python -m orb_slam2_tpu_torch.bench``): 16 warm-up
+     frames and two measured windows of 100 frames over one 1920x1440
+     sweep staged on the card, asynchronous mapping and live loop
+     detection, pipelined at depth 3.  Bars: every measured frame OK,
+     no loop closed, median |z| under 0.1, no host sync on a measured
+     frame without a capture, at most 8 captures a graph.  Prints
+     bench.py's JSON and, per window, p50 and p90 frame times, the
+     captures inside it by graph and bucket, the map and the mapper's
+     queue at its end and the tracker's map-lock wait; peak device
+     memory and the kernels' launches over the run;
   5. path C: K4 through its entry point ``hamming_top2`` at 4096x4096
      with 20% of the columns invalid;
   6. path B, a loop that closes at full width: a drifted circuit with
@@ -123,10 +135,12 @@ path D prints the model (H or F) of its two-view bootstrap, which must
 be H on the planar world.
 The kernel launch counts are read per path, each path driven with the
 counts set to 0 just before it.  The last three lines are a JSON object
-describing the kernels, the card's name and power limit, and
+describing the kernels (``launches``: path A's; ``launches_h``: path
+H's), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 
-Seven diagnostics print no such lines: ``--repeat-f`` runs path B and
+Eight diagnostics print no such lines: ``--path-h`` runs path H alone,
+``--repeat-f`` runs path B and
 then times path F's solves (with ``--tree DIR``: four processes, as
 ``--repeat-d``), ``--repeat-d`` runs path D twice
 (with ``--tree DIR``: four processes, the port from DIR, this
@@ -168,7 +182,6 @@ import time
 import numpy as np
 
 N_FRAMES = 40
-PIPELINE_DEPTH = 3      # bench.py's default BENCH_PIPELINE_DEPTH
 FLIGHT_HEIGHT = 12.0
 # map points lie on the plane z = 0; tests/test_pipeline.py holds the
 # median |z| under 0.08 at flight height 10, scaled here to height 12
@@ -305,19 +318,10 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
 # bench configuration (bench.py:43-96)
 # ----------------------------------------------------------------------
 def bench_config():
-    from orb_slam2_tpu_torch.geom.camera import Intrinsics
-    from orb_slam2_tpu_torch.ops.extractor import OrbParams
-    from orb_slam2_tpu_torch.pipeline.config import SlamConfig
-    cam = Intrinsics(fx=960.0, fy=960.0, cx=960.0, cy=720.0,
-                     width=1920, height=1440)
-    return SlamConfig(
-        cam=cam,
-        orb=OrbParams(n_features=4000, n_levels=8, scale_factor=1.2),
-        fps=10.0, pose_prior=True,
-        init_min_matches=80, init_min_triangulated=50,
-        init_min_tracked_after_ba=80,
-        pad_min_bound=4096, pad_min_cand=16384,
-        device_point_capacity=262144)
+    """bench.py's configuration, as the port's benchmark module defines
+    it (pipelined tracking at depth 3, the padded-size floors)."""
+    from orb_slam2_tpu_torch.bench import bench_config as config
+    return config()
 
 
 def bench_world(device):
@@ -807,7 +811,6 @@ def phase_graphs(device, world, cfg) -> dict:
     on that warm state both forms of the fused step (the device chain
     and the host-prepared step) replayed twice against their eager
     calls, bit for bit."""
-    import dataclasses
     import torch
     from orb_slam2_tpu_torch import graphs
     from orb_slam2_tpu_torch.models.frame import FrameFactory
@@ -844,8 +847,6 @@ def phase_graphs(device, world, cfg) -> dict:
         f"over {G_EXTRACT} frames ({factory._pipeline.n_captures()} "
         f"capture), earlier frames unchanged; make_extractor bit-exact")
 
-    cfg = dataclasses.replace(cfg, pipelined_tracking=True,
-                              pipeline_depth=PIPELINE_DEPTH)
     system = System(cfg, enable_loop_closing=True, async_mapping=False,
                     device=device)
     mapper_calls = record_mapper(system)
@@ -1130,7 +1131,7 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
                 profile: bool = False) -> dict:
     """Path A (``pipelined``): bench.py's configuration,
     System(enable_loop_closing=True, async_mapping=True) with
-    ``pipelined_tracking`` at depth PIPELINE_DEPTH, driven as bench.py
+    ``pipelined_tracking`` at its depth (3), driven as bench.py
     drives it (bench.py:118-186): WARM_FRAMES warm-up frames, each call
     with ``next_image`` and followed by ``flush_mapping``, then the
     measured frames: ``prefetch`` of the first, ``next_image`` with each
@@ -1157,8 +1158,7 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
     except ImportError:         # --tree: a checkout without graphs.py
         graphs = None
     name = "A" if pipelined else "A-seq"
-    cfg = dataclasses.replace(cfg, pipelined_tracking=pipelined,
-                              pipeline_depth=PIPELINE_DEPTH)
+    cfg = dataclasses.replace(cfg, pipelined_tracking=pipelined)
     _, poses = bench_world(device)
     # the frames are rendered on the card before the timed loop, as
     # bench.py stages its sequence
@@ -1385,6 +1385,176 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
     return dict(launches=launches, fps=fps, median_ms=float(
         np.median(steady)), max_ms=float(np.max(steady)), keyframes=n_kf,
         tracker_cpu_ms=cpu, tracker_ms=wall)
+
+
+def phase_h(device) -> dict:
+    """Path H: bench.py's run in this process, at its full default
+    length, through the port's benchmark module
+    (``orb_slam2_tpu_torch.bench``: ``bench_config``,
+    ``bench_sequence``, ``run_windows``, ``result_line``): 16 warm-up
+    frames and two measured windows of 100 over one 1920x1440 sweep
+    staged on the card, System(enable_loop_closing=True,
+    async_mapping=True), pipelined at depth 3.  Nothing is warmed that
+    bench.py does not warm: a capture inside a window is counted there.
+    Bars: every measured frame of every window OK; no loop closed on
+    the straight sweep; the valid map points' median |z| under
+    MEDIAN_Z_BAR; no host sync in the extractions and fused dispatches
+    of a measured frame that made no capture (SyncCounter); at most
+    graphs.MAXSIZE captures a graph; K1-K3 launched, K1 at least once a
+    frame.  Prints one ``H {json}`` line: bench.py's JSON; per window
+    its fps, p50 and p90 frame ms, the captures made inside it by
+    graph and bucket (the two largest argument shapes), the map at its
+    end (keyframes valid and inserted, valid and allocated points, the
+    mapper's queue), the tracker's map-lock wait and the mapping
+    thread's hold of the lock (LockWaitClock), syncs on its frames
+    without a capture; captures in the warm-up and between the
+    windows; the link probes unrounded (``rt_ms``, ``up_ms``); peak
+    device memory; the kernels' launches over the run."""
+    import torch
+    from orb_slam2_tpu_torch import bench, graphs, kernels
+    from orb_slam2_tpu_torch.pipeline.system import System
+    cfg = bench.bench_config()
+    n_warm, n_meas, n_windows = bench.bench_lengths()
+    n_total = n_warm + n_meas * n_windows
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    frames, poses = bench.bench_sequence(n_total, cfg.cam, device)
+    stage_s = time.perf_counter() - t0
+    system = System(cfg, enable_loop_closing=True, async_mapping=True,
+                    device=device)
+    clock = LockWaitClock(system.store.lock)
+    system.store.lock = clock
+    clock.holder = system.map_worker._thread
+    syncs = SyncCounter()
+    system.factory.start = syncs.wrap(system.factory.start)
+    system.tracker._fused_dispatch = syncs.wrap(
+        system.tracker._fused_dispatch)
+    # every capture, on either thread: (host time, graph, bucket)
+    caps = []
+    capture_init = graphs._Capture.__init__
+
+    def capture(self, fn, args, dev, name):
+        capture_init(self, fn, args, dev, name)
+        shapes = sorted({tuple(a.shape) for a in args
+                         if isinstance(a, torch.Tensor)},
+                        key=lambda s: -int(np.prod(s)))
+        caps.append((time.perf_counter(), name,
+                     " ".join("x".join(map(str, s)) for s in shapes[:2])))
+    per_frame = {}
+    track, flush = system.track_monocular_with_pose, system.flush_tracking
+
+    def tracked(image, timestamp, Tcw, next_image=None):
+        s0, c0 = syncs.counts["tracker"], len(caps)
+        w0, h0 = clock.wait_s, clock.hold_s
+        try:
+            return track(image, timestamp, Tcw, next_image=next_image)
+        finally:
+            per_frame[int(round(timestamp * 10))] = dict(
+                syncs=syncs.counts["tracker"] - s0, caps=len(caps) - c0,
+                wait=clock.wait_s - w0, held=clock.hold_s - h0)
+    flushes = []
+
+    def flushed():
+        w0, h0 = clock.wait_s, clock.hold_s
+        try:
+            return flush()
+        finally:
+            flushes.append(dict(wait=clock.wait_s - w0,
+                                held=clock.hold_s - h0))
+    system.track_monocular_with_pose = tracked
+    system.flush_tracking = flushed
+    kernels.reset_launch_counts()
+    graphs.reset_stats()
+    graphs._Capture.__init__ = capture
+    t0 = time.perf_counter()
+    try:
+        with syncs:
+            run = bench.run_windows(system, frames, poses, n_warm, n_meas,
+                                    n_windows)
+    finally:
+        graphs._Capture.__init__ = capture_init
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    line = bench.result_line(run)
+
+    wins = []
+    for w, win in enumerate(run["windows"]):
+        ids = range(n_warm + w * n_meas, n_warm + (w + 1) * n_meas)
+        inside = [(name, bucket) for t, name, bucket in caps
+                  if win["start"] <= t <= win["stop"]]
+        by = {}
+        for name, bucket in inside:
+            by.setdefault(name, {}).setdefault(bucket, 0)
+            by[name][bucket] += 1
+        quiet = [i for i in ids if per_frame[i]["caps"] == 0]
+        times = np.asarray(win["times"]) * 1e3
+        wins.append(dict(
+            fps=win["fps"], n_ok=win["n_ok"],
+            p50_ms=float(np.percentile(times, 50)),
+            p90_ms=float(np.percentile(times, 90)),
+            max_ms=float(times.max()), captures=by,
+            frames_with_capture=[i for i in ids if per_frame[i]["caps"]],
+            syncs_quiet=sum(per_frame[i]["syncs"] for i in quiet),
+            n_quiet=len(quiet),
+            lock_wait_ms=1e3 * (sum(per_frame[i]["wait"] for i in ids)
+                                + flushes[w]["wait"]),
+            mapper_lock_held_ms=1e3 * (sum(per_frame[i]["held"]
+                                           for i in ids)
+                                       + flushes[w]["held"]),
+            **win["end"]))
+    first = run["windows"][0]["start"]
+    last = run["windows"][-1]["stop"]
+    in_windows = sum(sum(sum(b.values()) for b in x["captures"].values())
+                     for x in wins)
+    pts = system.map_points()
+    med_z = float(np.median(np.abs(pts[:, 2]))) if len(pts) else None
+    loops = system.loop_closer.n_loops_closed
+    stats = {k: v["captures"] for k, v in graphs.STATS.items()}
+    out = dict(
+        bench=line, windows=wins, n_warm=n_warm, n_meas=n_meas,
+        captures_warm=sum(t < first for t, _, _ in caps),
+        captures_between=sum(first <= t <= last for t, _, _ in caps)
+        - in_windows,
+        captures_by_graph=stats, loops_closed=loops, median_z=med_z,
+        map_points=len(pts), peak_mib=peak / 2 ** 20,
+        allocated_before_mib=mem0 / 2 ** 20, staging_s=stage_s,
+        run_s=run_s, rt_ms=run["rt_ms"], up_ms=run["up_ms"],
+        launches={k: v for k, v in launches.items() if v})
+    log("H " + json.dumps(out))
+    for w, x in enumerate(wins):
+        log(f"H window {w}: {x['fps']:.2f} fps, {x['n_ok']}/{n_meas} OK, "
+            f"p50 {x['p50_ms']:.1f} ms, p90 {x['p90_ms']:.1f} ms, max "
+            f"{x['max_ms']:.1f} ms; captures inside it "
+            f"{json.dumps(x['captures'])} (frames "
+            f"{x['frames_with_capture']}); the tracker waited "
+            f"{x['lock_wait_ms']:.1f} ms on the map lock, the mapping "
+            f"thread held it {x['mapper_lock_held_ms']:.1f} ms; at its end "
+            f"{x['kfs']} keyframes ({x['inserted']} inserted), {x['pts']} "
+            f"valid of {x['alloc']} allocated points, queue {x['qd']}")
+    log(f"H: bench.py's line {json.dumps(line)}; staged in {stage_s:.1f} "
+        f"s, run {run_s:.1f} s; peak device memory {peak / 2 ** 20:.0f} "
+        f"MiB ({mem0 / 2 ** 20:.0f} MiB allocated before H)")
+
+    for w, x in enumerate(wins):
+        check(x["n_ok"] == n_meas, f"H: window {w} tracked {x['n_ok']}/"
+              f"{n_meas} frames OK")
+        check(x["syncs_quiet"] == 0, f"H: window {w}'s frames without a "
+              f"capture synchronize with the host {x['syncs_quiet']} "
+              f"times, sites {dict(syncs.sites['tracker'])}")
+    check(loops == 0, f"H: {loops} loops closed on a straight sweep")
+    check(med_z is not None and med_z < MEDIAN_Z_BAR,
+          f"H: map points off the plane: median |z| {med_z} >= "
+          f"{MEDIAN_Z_BAR}")
+    for k, n in stats.items():
+        check(n <= graphs.MAXSIZE, f"H: {k} captured {n} times, more than "
+              f"its {graphs.MAXSIZE} kept")
+    for k in ("fast_score", "masked_top2_mutual", "masked_top2_epi"):
+        check(launches[k] > 0, f"H: kernel {k} never launched")
+    check(launches["fast_score"] >= n_total, f"H: K1 launched "
+          f"{launches['fast_score']} times over {n_total} frames")
+    return out
 
 
 def phase_k4(device, expect):
@@ -1714,8 +1884,9 @@ class LoopWatch:
 
 def phase_loop(device, cfg, trail: list = None, record: dict = None,
                watch: bool = False, profile: bool = False):
-    """Path B: a drifted circuit at bench width, sequential mapping, so
-    that whether the loop fires does not depend on thread timing.
+    """Path B: a drifted circuit at bench width, bench.py's
+    configuration with sequential tracking and mapping, so that whether
+    the loop fires does not depend on thread timing or pipeline lag.
     ``trail`` collects record_trail's stage digests; ``record`` receives
     path F's problems from the first loop correction: the global BA's
     inputs (``ba``), the essential graph's (``pose_graph``) and the map
@@ -1740,7 +1911,8 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None,
                              tex_shape=(side, side), device=device)
     frames = [synth.render(world, cfg.cam, T) for T in true]
     torch.cuda.synchronize()
-    lcfg = dataclasses.replace(cfg, loop_min_kfs_since_last=6)
+    lcfg = dataclasses.replace(cfg, loop_min_kfs_since_last=6,
+                               pipelined_tracking=False)
     system = System(lcfg, enable_loop_closing=True, device=device)
     lc = system.loop_closer
     # keyframe ATE at each stage of the correction (the group correction
@@ -3415,6 +3587,8 @@ def main() -> int:
     ap.add_argument("--repeat-a", action="store_true",
                     help="run only paths A-seq, A, A, A-seq (see "
                          "repeat_bench)")
+    ap.add_argument("--path-h", action="store_true",
+                    help="run only path H, bench.py's run (see phase_h)")
     ap.add_argument("--repeat-b", action="store_true",
                     help="run only path B, four times (see repeat_loop)")
     ap.add_argument("--loop-split", action="store_true",
@@ -3540,9 +3714,11 @@ def main() -> int:
         except SmokeFailure as e:
             print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
             return 1
-    if args.profile or args.kernels_from:
+    if args.profile or args.kernels_from or args.path_h:
         try:
-            if args.profile:
+            if args.path_h:
+                phase_h(device)
+            elif args.profile:
                 phase_bench(device, world, cfg, profile=True)
             else:
                 log(json.dumps({"tree": root, "kernels": phase_kernels(
@@ -3561,6 +3737,7 @@ def main() -> int:
             f"{path_a['median_ms']:.1f} against {path_seq['median_ms']:.1f}"
             f" ms, max {path_a['max_ms']:.1f} against "
             f"{path_seq['max_ms']:.1f} ms")
+        path_h = phase_h(device)
         launches = path_a["launches"]
         from orb_slam2_tpu_torch.matching import hamming_top2 as ht
         k4_ref = ht.hamming_top2_plain(*k4_problem(4096, 4096, 0.2, 4,
@@ -3583,6 +3760,7 @@ def main() -> int:
         # no single PyTorch call computes any of the four functions
         rows.append(dict(name=t["name"], route="cuda", source=source,
                          replaces=replaces, launches=launches[t["name"]],
+                         launches_h=path_h["launches"].get(t["name"], 0),
                          max_abs_err=t["max_abs_err"], ms=t["ms"],
                          plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                          bound_by=t["bound_by"], library_ms=None,

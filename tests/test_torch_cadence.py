@@ -34,6 +34,7 @@ mapping in both packages: a reference behaviour, not a port fault
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_cadence.py -m slow -s
 """
+import dataclasses
 import json
 import os
 
@@ -44,22 +45,11 @@ import torch
 from orb_slam2_tpu.geom.camera import Intrinsics as JIntrinsics
 from orb_slam2_tpu.ops.extractor import OrbParams as JOrbParams
 from orb_slam2_tpu.pipeline import SlamConfig as JSlamConfig, System as JSystem
-from orb_slam2_tpu_torch.geom.camera import Intrinsics
-from orb_slam2_tpu_torch.ops.extractor import OrbParams
-from orb_slam2_tpu_torch.pipeline.config import SlamConfig
+from orb_slam2_tpu_torch.bench import bench_config
 from orb_slam2_tpu_torch.pipeline.system import System
 from orb_slam2_tpu_torch.utils import synth
 
 N_FRAMES = 40
-CAM_KW = dict(fx=960.0, fy=960.0, cx=960.0, cy=720.0, width=1920,
-              height=1440)
-ORB_KW = dict(n_features=4000, n_levels=8, scale_factor=1.2)
-# bench.py:44-85 / chip_smoke.bench_config, at depth 3
-CFG_KW = dict(fps=10.0, pose_prior=True, init_min_matches=80,
-              init_min_triangulated=50, init_min_tracked_after_ba=80,
-              pad_min_bound=4096, pad_min_cand=16384,
-              device_point_capacity=262144, pipelined_tracking=True,
-              pipeline_depth=3)
 
 
 def decision_inputs(tracker, frame) -> dict:
@@ -105,10 +95,13 @@ def run_both(n_frames: int = N_FRAMES):
                              tex_shape=(3072, 10240),
                              origin_px=(1560.0, 1536.0), device="cpu")
     poses = synth.aerial_trajectory(n_frames, height=12.0, speed=0.5)
-    cfg = SlamConfig(cam=Intrinsics(**CAM_KW), orb=OrbParams(**ORB_KW),
-                     **CFG_KW)
-    jcfg = JSlamConfig(cam=JIntrinsics(**CAM_KW), orb=JOrbParams(**ORB_KW),
-                       **CFG_KW)
+    # bench.py's configuration (pipelined at depth 3), the port's own
+    # definition of it for both packages
+    cfg = bench_config()
+    jcfg = JSlamConfig(cam=JIntrinsics(*cfg.cam), orb=JOrbParams(*cfg.orb),
+                       **{f.name: getattr(cfg, f.name)
+                          for f in dataclasses.fields(cfg)
+                          if f.name not in ("cam", "orb")})
     runs = {}
     for name in ("jax", "port"):
         if name == "jax":
