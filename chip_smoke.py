@@ -133,6 +133,32 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
 Path A also holds a warm extraction to no host synchronization, and
 path D prints the model (H or F) of its two-view bootstrap, which must
 be H on the planar world.
+
+``python3 chip_smoke.py --cards 4`` is the four-card mode, for a host
+with four cards (it fails, naming the count, with fewer, and falls back
+to nothing): phases 1 and 2 on card 0, then
+  B4. path B unchanged on card 0, its global BA sharded over the four
+     cards by ``run_global_ba`` (``parallel.local_devices``): B's bars,
+     the global BA's chain segments on every card, each card's peak
+     memory, the kernels on card 0 only;
+  F4-local. path F's three solves of B4's first loop correction on
+     ``LocalMesh`` over the four cards, as path F holds them (graphed
+     against eager on every shard, replicated state bitwise equal, a
+     warm call with no sync and no capture, within the bars of the
+     single-device solve), the mesh's psum across the cards, peer
+     access, each card's peak memory; B4's recorded global BA against
+     its problem solved on one card;
+  W. tools/weak_scaling.py's measurement: its problem at 40,000 and
+     2^20 observations a card on 1, 2 and 4 cards (first and median warm
+     call, obs/s, each card's peak memory, final cost), then the largest
+     problem on one card (strong scaling, within the bars);
+  F4-NCCL. the three solves on four processes, one NCCL rank a card
+     (``--nccl-worker HOST:PORT PROBLEM RANK 4``), eager, captured and
+     cut, both forms bit for bit the eager solve on every rank and every
+     rank's results bitwise equal, within the bars of the single-device
+     solve; then W's largest problem on the four ranks, captured;
+then W's table, the kernel JSON line (B4's launches, K4's from path C),
+each card's nvidia-smi line and the ok line with ``"count": 4``.
 The kernel launch counts are read per path, each path driven with the
 counts set to 0 just before it.  The last three lines are a JSON object
 describing the kernels (``launches``: path A's; ``launches_h``: path
@@ -261,13 +287,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi_lines() -> list:
+    """Each card's name and power limit, as nvidia-smi prints them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1636,6 +1664,9 @@ LOOP_PROGRAMS = (
     ("essential_graph", None, "optim.pose_graph", "optimize_pose_graph"),
     ("global_ba", None, "optim.ba", "bundle_adjust"),
 )
+# global BA where run_global_ba shards over several cards
+SHARDED_GBA = ("global_ba", None, "parallel",
+               "distributed_bundle_adjust_sharded_points")
 # their graphs by graphs.STATS name
 LOOP_GRAPHS = ("loop_bow_match", "sim3_ransac", "search_by_sim3",
                "sim3_round", "search_by_projection_sim3", "pose_graph_step",
@@ -1700,19 +1731,25 @@ class LoopWatch:
     program's first call's time in the run (``first_ms``).  With
     ``profile``, each keyframe's loop-closer work runs under
     torch.profiler, and the loop keyframe's runtime calls are kept
-    (``loop_kf["runtime"]``)."""
+    (``loop_kf["runtime"]``).  On a host with several cards global BA
+    is ``run_global_ba``'s sharded solve (SHARDED_GBA)."""
 
     def __init__(self, system, syncs, profile: bool = False):
         import importlib
+        from orb_slam2_tpu_torch import parallel
         self.lc = lc = system.loop_closer
         self.syncs = syncs
         self.profile = profile
         self.graphed = hasattr(lc, "_ransac")
+        self.sharded = len(parallel.local_devices(system.store.device)) > 1
+        self.programs = tuple(
+            SHARDED_GBA if self.sharded and p[0] == "global_ba" else p
+            for p in LOOP_PROGRAMS)
         self.first_ms = {}
         self.loop_kf = None
         self._cur = None
         self._restore = []
-        for label, attr, mod, name in LOOP_PROGRAMS:
+        for label, attr, mod, name in self.programs:
             if self.graphed and attr is not None:
                 setattr(lc, attr, self._program(label, getattr(lc, attr)))
             else:
@@ -1723,8 +1760,8 @@ class LoopWatch:
 
         def process_keyframe(kid):
             import torch
-            roles = ("loop",) + tuple(p[0] for p in LOOP_PROGRAMS)
-            self._cur = {p[0]: [] for p in LOOP_PROGRAMS}
+            roles = ("loop",) + tuple(p[0] for p in self.programs)
+            self._cur = {p[0]: [] for p in self.programs}
             n0 = lc.n_loops_closed
             s0 = {r: syncs.counts[r] for r in roles}
             st0 = {k: lc.timer.total.get(k, 0.0) for k in LOOP_STAGES}
@@ -1804,7 +1841,7 @@ class LoopWatch:
             log(f"B loop keyframe {lk['kid']}, torch.profiler over the "
                 f"loop closer's work: {json.dumps(lk['runtime'])}")
         split = {}
-        for label, *_ in LOOP_PROGRAMS:
+        for label, *_ in self.programs:
             calls = lk["calls"][label]
             if not calls:
                 continue
@@ -1838,21 +1875,25 @@ class LoopWatch:
         of the loop keyframe, made again, against the same call with
         every graph run eagerly (``graphs.Graphed.__call__`` patched to
         call its function), bit for bit, and against the output the run
-        got; then each program's last call under
-        ``torch.cuda.set_sync_debug_mode("error")`` (a warm call waits
-        for the card nowhere)."""
+        got (a sharded global BA against its ``eager=True`` call, the
+        one-call core on every shard); then each program's last call
+        under ``torch.cuda.set_sync_debug_mode("error")`` (a warm call
+        waits for the card nowhere)."""
         import torch
         from orb_slam2_tpu_torch import graphs
         lk = self.loop_kf
         checked = {}
-        for label, *_ in LOOP_PROGRAMS:
+        for prog in self.programs:
+            label = prog[0]
             calls = lk["calls"][label]
             for k, c in enumerate(calls):
                 again = _leaves(c["fn"](*c["args"], **c["kwargs"]))
                 saved = graphs.Graphed.__call__
                 graphs.Graphed.__call__ = lambda g, *a: g.fn(*a)
+                eager = {"eager": True} if prog == SHARDED_GBA else {}
                 try:
-                    want = _leaves(c["fn"](*c["args"], **c["kwargs"]))
+                    want = _leaves(c["fn"](*c["args"], **c["kwargs"],
+                                           **eager))
                 finally:
                     graphs.Graphed.__call__ = saved
                 torch.cuda.synchronize()
@@ -1875,7 +1916,7 @@ class LoopWatch:
                 torch.cuda.set_sync_debug_mode(0)
             checked[label] = (len(calls), [tuple(a.shape) for a in c["args"]
                                            if isinstance(a, torch.Tensor)][:2])
-        missing = [p[0] for p in LOOP_PROGRAMS if p[0] not in checked]
+        missing = [p[0] for p in self.programs if p[0] not in checked]
         check(not missing, f"G: B's loop keyframe made no call of {missing}")
         log(f"G: path B's loop programs bit-exact against their eager "
             f"calls on the loop keyframe, and a warm call of each with no "
@@ -1937,7 +1978,9 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None,
         syncs = SyncCounter()
         lw = LoopWatch(system, syncs, profile=profile)
         syncs.__enter__()
-    solvers = (ba.bundle_adjust, pose_graph.optimize_pose_graph)
+    from orb_slam2_tpu_torch import parallel
+    solvers = (ba.bundle_adjust, pose_graph.optimize_pose_graph,
+               parallel.distributed_bundle_adjust_sharded_points)
     if record is not None:
         in_gba = [False]
 
@@ -1954,6 +1997,18 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None,
             record.setdefault("pose_graph", (host(args), dict(kwargs)))
             return solvers[1](*args, **kwargs)
 
+        def rec_sharded(mesh, *args, **kwargs):
+            # run_global_ba's sharded branch (several cards): the same
+            # problem without the single-device padding, and its result
+            first = in_gba[0] and "ba" not in record
+            res = solvers[2](mesh, *args, **kwargs)
+            if first:
+                record["ba"] = (host(args), dict(kwargs))
+                record["gba_devices"] = [str(mesh.device_of(d))
+                                         for d in mesh.local_shards()]
+                record["gba_result"] = type(res)(*(t.cpu() for t in res))
+            return res
+
         gba = lc.run_global_ba
 
         def rec_gba(*args, **kwargs):
@@ -1967,6 +2022,7 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None,
                 in_gba[0] = False
         lc.run_global_ba = rec_gba
         ba.bundle_adjust, pose_graph.optimize_pose_graph = rec_ba, rec_pg
+        parallel.distributed_bundle_adjust_sharded_points = rec_sharded
     frame_no = [0]
     if trail is not None:
         record_trail(system, trail, frame_no)
@@ -1987,7 +2043,8 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None,
                 f"{frame_ms[-1]:9.1f} ms")
         system.shutdown()
     finally:
-        ba.bundle_adjust, pose_graph.optimize_pose_graph = solvers
+        (ba.bundle_adjust, pose_graph.optimize_pose_graph,
+         parallel.distributed_bundle_adjust_sharded_points) = solvers
         if watch:
             syncs.__exit__(None, None, None)
             lw.restore()
@@ -2016,6 +2073,7 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None,
         + ", ".join(f"{k} {v:.4f}" for k, v in stage_ate[:3]))
     check(ate < ate_prior, f"B: corrected keyframe ATE {ate:.4f} is not "
           f"below the priors' {ate_prior:.4f}")
+
     for name in ("fast_score", "masked_top2_mutual", "masked_top2_epi"):
         check(launches[name] > 0, f"B: kernel {name} never launched")
     log(f"B: kernel launches {json.dumps(launches)}")
@@ -2025,6 +2083,10 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None,
         f"{np.max(frame_ms):.1f} ms; the first loop closed on frame "
         f"{first_loop}, in {frame_ms[first_loop]:.1f} ms (host clock, the "
         f"frame's tracking and its keyframe's mapping included)")
+    if record is not None:
+        record["b"] = dict(ate=ate, ate_prior=ate_prior, n_ok=n_ok,
+                           n_frames=len(true), loop=last,
+                           first_loop_ms=frame_ms[first_loop])
     if watch:
         from orb_slam2_tpu_torch import graphs
         lw.report(graphs)
@@ -2053,6 +2115,31 @@ F_GLOO_TIMEOUT_S = 300
 # write-back a collective, 342-701 a solve)
 F_NCCL_TIMEOUT_S = 420
 F_NCCL_HOST_BAR = 64
+
+
+# --cards 4: the four-card mode (phases B4, F4-local, F4-NCCL, W)
+CARDS = 4
+# path B's keyframe ATE and the priors' on one card (PERF.md §5)
+B_ONE_CARD_ATE = (0.4234, 0.5510)
+# phase W, tools/weak_scaling.py's measurement: meshes of 1, 2 and 4
+# cards, its 40,000 observations a card and 2^20 (262,144 points a
+# card, a power-of-4 bucket a shard), its solve options; the warm calls
+# timed after each first call
+W_CARDS = (1, 2, 4)
+W_LOADS = (40_000, 1 << 20)
+W_ITERS, W_CG_ITERS = 8, 15
+W_WARM = 3
+# the four NCCL ranks' time limit (path F's three solves in both forms,
+# then phase W's largest problem: ~2 min), and a rank's for its group's
+# teardown
+F4_NCCL_TIMEOUT_S = 360
+NCCL_TEARDOWN_S = 90
+
+
+def _captures() -> int:
+    """The CUDA graph captures so far, over every graph and segment."""
+    from orb_slam2_tpu_torch import graphs
+    return sum(v["captures"] for v in graphs.STATS.values())
 
 
 def _timed(fn):
@@ -2151,31 +2238,44 @@ def gloo_worker(addr: str, rank: int, problem: str) -> int:
     return 0
 
 
-def nccl_worker(addr: str, problem: str) -> int:
-    """``--nccl-worker``: path F's three solves on a one-rank NCCL
-    process group (``init_multihost(num_processes=1)``, whose backend
-    is NCCL with a card, and ``make_global_mesh``): each solved eagerly
-    (``eager=True``, the one-call core), then in the captured form (the
-    mesh capturable: every collective inside the graphs, one replay an
-    LM iteration) and in the cut form (``mesh.capturable`` set False:
-    the chain cut at every collective, the all-reduce eager between
-    replays), each form's first call (its captures) and a warm call;
-    every result of both forms bit for bit the eager one (so the two
-    forms equal each other),
+def nccl_worker(addr: str, problem: str, rank: int = 0,
+                world: int = 1) -> int:
+    """``--nccl-worker``: rank ``rank`` of a NCCL process group of
+    ``world`` ranks, one a card (``init_multihost``, whose backend is
+    NCCL with a card a rank, and ``make_global_mesh``), on path F's
+    three problems: each solved eagerly (``eager=True``, the one-call
+    core), then in the captured form (the mesh capturable: every
+    collective inside the graphs, one replay an LM iteration) and in the
+    cut form (``mesh.capturable`` set False: the chain cut at every
+    collective, the all-reduce eager between replays), each form's first
+    call (its captures) and a warm call; every result of both forms bit
+    for bit the eager one (so the two forms equal each other),
     ``graphs.STATS`` saying which form ran; a warm call's host syncs
     (SyncCounter), runtime calls (torch.profiler) and segments.  Checks:
     the captured form ran, a warm captured solve makes no host sync,
     its graph launches are its segments, its other host launches and
-    copies at most F_NCCL_HOST_BAR.  Prints one ``NCCL {...}`` JSON line
-    a solve and ``NCCL_OK``."""
+    copies at most F_NCCL_HOST_BAR.  Saves each solve's eager result
+    beside the problem (``PROBLEM.NAME.rankR.npz``), for the ranks to
+    be compared.  Where the problem names a weak-scaling load
+    (``w_load``), then solves phase W's problem of ``world`` cards at
+    that load, captured, first and W_WARM warm calls, and saves its
+    cameras and cost.  Prints one ``NCCL {...}`` JSON line a solve, a
+    ``NCCL_W {...}`` line, and ``NCCL_OK``."""
     import torch
     import torch.distributed as dist
     from orb_slam2_tpu_torch import graphs, parallel
-    parallel.init_multihost(coordinator=addr, num_processes=1, process_id=0)
+    if world > 1:
+        # the group's teardown aborts its communicator (every collective
+        # has finished by then) instead of a destroy that waits on peers
+        os.environ.setdefault("TORCH_NCCL_ABORT_IN_DESTROY_PG", "1")
+    parallel.init_multihost(coordinator=addr, num_processes=world,
+                            process_id=rank)
     mesh = parallel.make_global_mesh()
-    check(dist.get_backend() == "nccl" and mesh.capturable,
-          f"F/NCCL: backend {dist.get_backend()}, capturable "
-          f"{mesh.capturable}")
+    check(dist.get_backend() == "nccl" and mesh.capturable
+          and mesh.size == world
+          and mesh.device == torch.device("cuda", rank),
+          f"F/NCCL rank {rank}: backend {dist.get_backend()}, capturable "
+          f"{mesh.capturable}, {mesh.size} ranks, on {mesh.device}")
     p = np.load(problem)
     bargs = [p[f"b{i}"] for i in range(8)] + p["cam"].tolist()
     bkw = dict(iters=int(p["iters"]), cg_iters=int(p["cg_iters"]),
@@ -2207,6 +2307,8 @@ def nccl_worker(addr: str, problem: str) -> int:
 
     for name, chain, iters, solve in solves:
         eager, eager_ms = _timed(lambda: solve(True))
+        np.savez(f"{problem}.{name}.rank{rank}.npz",
+                 *[t.cpu().numpy() for t in eager])
         forms = {}
         for form in ("captured", "cut"):
             mesh.capturable = form == "captured"
@@ -2220,47 +2322,136 @@ def nccl_worker(addr: str, problem: str) -> int:
             runtime = runtime_counts(lambda: solve(False))
             for label, out in (("first", res), ("warm", warm)):
                 for j, (a, b) in enumerate(zip(out, eager)):
-                    check(torch.equal(a, b), f"F/NCCL: {name}'s {form} "
-                          f"{label} call differs from its eager call in "
-                          f"field {j}")
+                    check(torch.equal(a, b), f"F/NCCL rank {rank}: "
+                          f"{name}'s {form} {label} call differs from its "
+                          f"eager call in field {j}")
             ran = diff(s0, s1, form).get(chain, 0)
             other = diff(s0, s2, "cut" if form == "captured"
                          else "captured").get(chain, 0)
-            check(ran == 1 and other == 0, f"F/NCCL: {name} asked for the "
-                  f"{form} form ran {ran} {form} and {other} other solves")
+            check(ran == 1 and other == 0, f"F/NCCL rank {rank}: {name} "
+                  f"asked for the {form} form ran {ran} {form} and "
+                  f"{other} other solves")
             forms[form] = dict(
                 first_ms=first_ms, warm_ms=warm_ms,
                 warm_syncs=syncs.counts["nccl"],
                 sync_sites=dict(syncs.sites["nccl"]), runtime=runtime,
                 segments=diff(s1, s2, "segments").get(chain, 0),
                 captures=sum(diff(s0, s1, "captures").values()),
+                warm_captures=sum(diff(s1, s2, "captures").values()),
                 warmup_ms=sum(diff(s0, s1, "warmup_ms").values()),
-                capture_ms=sum(diff(s0, s1, "capture_ms").values()))
+                capture_ms=sum(diff(s0, s1, "capture_ms").values()),
+                stats={k: v for k, v in stats(chain).get(chain, {}).items()
+                       if k in ("captured", "cut", "segments")})
         mesh.capturable = True
         cap = forms["captured"]
-        check(cap["warm_syncs"] == 0, f"F/NCCL: a warm captured {name} "
-              f"synchronizes with the host: {cap['sync_sites']}")
-        check(cap["segments"] == iters + 2, f"F/NCCL: a captured {name} "
-              f"ran {cap['segments']} segments, not {iters + 2}")
+        check(cap["warm_syncs"] == 0, f"F/NCCL rank {rank}: a warm "
+              f"captured {name} synchronizes with the host: "
+              f"{cap['sync_sites']}")
+        check(cap["warm_captures"] == 0 and forms["cut"]["warm_captures"]
+              == 0, f"F/NCCL rank {rank}: a warm {name} captured graphs")
+        check(cap["segments"] == iters + 2, f"F/NCCL rank {rank}: a "
+              f"captured {name} ran {cap['segments']} segments, not "
+              f"{iters + 2}")
         rt = cap["runtime"]
         check(rt["graph_launches"] == cap["segments"]
               and rt["launches"] + rt["copies"] <= F_NCCL_HOST_BAR,
-              f"F/NCCL: a warm captured {name}'s host launches: {rt}")
-        print("NCCL " + json.dumps(dict(name=name, eager_ms=eager_ms,
-                                        **forms)), flush=True)
+              f"F/NCCL rank {rank}: a warm captured {name}'s host "
+              f"launches: {rt}")
+        print("NCCL " + json.dumps(dict(name=name, rank=rank, world=world,
+                                        eager_ms=eager_ms, **forms)),
+              flush=True)
+    if "w_load" in p:
+        w = w_problem(world, int(p["w_load"]))
+        times = [_timed(lambda: w_solve(mesh, w)) for _ in
+                 range(1 + W_WARM)]
+        res = times[-1][0]
+        np.savez(f"{problem}.w.rank{rank}.npz",
+                 *[t.cpu().numpy() for t in res])
+        print("NCCL_W " + json.dumps(dict(
+            rank=rank, world=world, n_obs=len(w[2]),
+            first_ms=times[0][1], warm_ms=[t[1] for t in times[1:]],
+            cost=float(res.final_cost),
+            form=graphs.STATS["ba"]["captured"] > 0)), flush=True)
+    # the captured graphs hold NCCL work of the communicator: they go,
+    # and the card finishes, before the group does; a teardown that
+    # hangs fails this rank within NCCL_TEARDOWN_S
+    import gc
+    graphs.clear_chains()
+    gc.collect()
+    torch.cuda.synchronize()
+    print("NCCL_DONE", flush=True)
+    done = threading.Event()
+
+    def watchdog():
+        if not done.wait(NCCL_TEARDOWN_S):
+            print(f"F/NCCL rank {rank}: destroy_process_group ran past "
+                  f"{NCCL_TEARDOWN_S} s", flush=True)
+            os._exit(3)
+    threading.Thread(target=watchdog, daemon=True).start()
     dist.destroy_process_group()
+    done.set()
     print("NCCL_OK", flush=True)
     return 0
 
 
-def phase_nccl(bargs, bkw, pargs, pkw) -> dict:
-    """Path F on NCCL: ``--nccl-worker`` in a process of its own (a
-    one-rank NCCL group of the card) on path F's three problems; its
-    numbers, captured beside cut, printed here."""
+def run_ranks(cmds: list, timeout: float) -> list:
+    """Run one process a command from the repository's root, each
+    writing to a file of its own, and wait for all of them, at most
+    ``timeout`` seconds in all.  The first that fails, or the deadline,
+    ends the others: a rank left inside a collective would wait for the
+    process group's own timeout.  Returns [(exit code, output)]."""
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as root:
+        logs = [open(os.path.join(root, f"{r}.log"), "w+")
+                for r in range(len(cmds))]
+        procs = [subprocess.Popen(c, cwd=here, stdout=f,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c, f in zip(cmds, logs)]
+        deadline = time.monotonic() + timeout
+        try:
+            while any(q.poll() is None for q in procs):
+                if (time.monotonic() > deadline
+                        or any(q.poll() not in (None, 0) for q in procs)):
+                    break
+                time.sleep(0.2)
+        finally:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+                q.wait()
+        outs = []
+        for f in logs:
+            f.seek(0)
+            outs.append(f.read())
+            f.close()
+    return [(q.returncode, o) for q, o in zip(procs, outs)]
+
+
+def free_addr() -> str:
+    """A free TCP port of this host, as HOST:PORT."""
     import socket
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    addr = f"127.0.0.1:{sock.getsockname()[1]}"
+    sock.close()
+    return addr
+
+
+def phase_nccl(bargs, bkw, pargs, pkw, world: int = 1, w_load=None,
+               label: str = "F/NCCL", timeout: float = None) -> dict:
+    """Path F on NCCL: ``world`` processes (``--nccl-worker``), one rank
+    a card, on path F's three problems (and, with ``w_load``, phase W's
+    problem of ``world`` cards); their numbers, captured beside cut,
+    printed here.  With several ranks every rank's eager results, which
+    both graphed forms equal bit for bit, must be bitwise equal across
+    the ranks.  Returns rank 0's numbers by solve, every rank's
+    (``ranks``), the wall time and, with ``w_load``, rank 0's W line
+    (``w``) and cameras (``w_cams``)."""
     import tempfile
     with tempfile.TemporaryDirectory() as root:
         problem = os.path.join(root, "problem.npz")
+        extra = {} if w_load is None else dict(w_load=w_load)
         np.savez(problem, cam=np.array(bargs[8:12]),
                  iters=bkw.get("iters", 10), cg_iters=bkw.get("cg_iters", 20),
                  use_huber=bkw.get("use_huber", True),
@@ -2268,55 +2459,76 @@ def phase_nccl(bargs, bkw, pargs, pkw) -> dict:
                  p_iters=pkw.get("iters", 20), p_cg_iters=pkw.get("cg_iters",
                                                                   30),
                  **{f"b{i}": a for i, a in enumerate(bargs[:8])},
-                 **{f"p{i}": a for i, a in enumerate(pargs)})
-        sock = socket.socket()
-        sock.bind(("127.0.0.1", 0))
-        addr = f"127.0.0.1:{sock.getsockname()[1]}"
-        sock.close()
+                 **{f"p{i}": a for i, a in enumerate(pargs)}, **extra)
+        addr = free_addr()
+        cmd = [sys.executable, os.path.abspath(__file__), "--nccl-worker",
+               addr, problem]
         t0 = time.perf_counter()
-        proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--nccl-worker",
-             addr, problem], cwd=os.path.dirname(os.path.abspath(__file__)),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        try:
-            out = proc.communicate(timeout=F_NCCL_TIMEOUT_S)[0]
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+        runs = run_ranks([cmd] if world == 1 else
+                         [cmd + [str(r), str(world)] for r in range(world)],
+                         timeout or F_NCCL_TIMEOUT_S)
         wall = time.perf_counter() - t0
-    check(proc.returncode == 0 and "NCCL_OK" in out,
-          f"F: the NCCL worker failed ({proc.returncode}):\n{out[-3000:]}")
-    res = {}
-    for ln in out.splitlines():
-        if not ln.startswith("NCCL {"):
+        failed = [(r, rc, out) for r, (rc, out) in enumerate(runs)
+                  if rc != 0 or "NCCL_OK" not in out]
+        check(not failed, f"{label}: NCCL ranks failed after {wall:.1f} s: "
+              + "\n".join(f"rank {r} ({rc}):\n{out[-1500:]}"
+                          for r, rc, out in failed))
+        names = [json.loads(ln[len("NCCL "):])["name"]
+                 for ln in runs[0][1].splitlines() if ln.startswith("NCCL {")]
+        check(len(names) == 3, f"{label}: the NCCL worker printed {names}")
+        results = {}
+        for name in names + (["w"] if w_load is not None else []):
+            got = [np.load(f"{problem}.{name}.rank{r}.npz")
+                   for r in range(world)]
+            got = [[g[f"arr_{i}"] for i in range(len(g.files))]
+                   for g in got]
+            check(all(np.array_equal(a, b) for g in got
+                      for a, b in zip(g, got[0])),
+                  f"{label}: {name}'s results differ between the ranks")
+            results[name] = got[0]
+    res = {"ranks": [], "wall_s": wall, "results": results}
+    for r, (_, out) in enumerate(runs):
+        mine = {}
+        for ln in out.splitlines():
+            if ln.startswith("NCCL {"):
+                rec = json.loads(ln[len("NCCL "):])
+                mine[rec["name"]] = rec
+            elif ln.startswith("NCCL_W {"):
+                mine["w"] = json.loads(ln[len("NCCL_W "):])
+        res["ranks"].append(mine)
+    for name, r in res["ranks"][0].items():
+        res[name] = r
+        if name == "w":
             continue
-        r = json.loads(ln[len("NCCL "):])
-        res[r["name"]] = r
         c, u = r["captured"], r["cut"]
-        log(f"F/NCCL {r['name']} on a one-rank NCCL group, captured "
-            f"against cut: first {c['first_ms']:.1f} / {u['first_ms']:.1f} "
-            f"ms (captures {c['captures']} / {u['captures']}; warm-up "
-            f"{c['warmup_ms']:.1f} / {u['warmup_ms']:.1f} ms, capture "
-            f"{c['capture_ms']:.1f} / {u['capture_ms']:.1f} ms), warm "
-            f"{c['warm_ms']:.1f} / {u['warm_ms']:.1f} ms, eager "
-            f"{r['eager_ms']:.1f} ms; a warm solve's host syncs "
+        log(f"{label} {r['name']} on {world} NCCL rank(s), rank 0, "
+            f"captured against cut: first {c['first_ms']:.1f} / "
+            f"{u['first_ms']:.1f} ms (captures {c['captures']} / "
+            f"{u['captures']}; warm-up {c['warmup_ms']:.1f} / "
+            f"{u['warmup_ms']:.1f} ms, capture {c['capture_ms']:.1f} / "
+            f"{u['capture_ms']:.1f} ms), warm {c['warm_ms']:.1f} / "
+            f"{u['warm_ms']:.1f} ms (every rank: "
+            f"{[round(x[name]['captured']['warm_ms'], 1) for x in res['ranks']]}"
+            f" / {[round(x[name]['cut']['warm_ms'], 1) for x in res['ranks']]}"
+            f"), eager {r['eager_ms']:.1f} ms; a warm solve's host syncs "
             f"{c['warm_syncs']} / {u['warm_syncs']}, segments "
             f"{c['segments']} / {u['segments']}, runtime calls "
             f"{json.dumps(c['runtime'])} / {json.dumps(u['runtime'])}; "
-            f"both forms bit for bit the eager solve")
-    check(len(res) == 3, f"F: the NCCL worker printed {sorted(res)}")
-    log(f"F/NCCL: {wall:.1f} s with the process's start")
-    return dict(wall_s=wall, **res)
+            f"graphs.STATS {json.dumps(c['stats'])}; both forms bit for "
+            f"bit the eager solve" + ("; every rank's results bitwise "
+                                      "equal" if world > 1 else ""))
+    log(f"{label}: {wall:.1f} s with the processes' start")
+    return res
 
 
-def _graph_chain_checks(name, run, mesh_cls, devs) -> dict:
+def _graph_chain_checks(name, run, mesh_cls, devs, label="F") -> dict:
     """One sharded solve on a local mesh of ``devs``: the eager call
     (``run(mesh, True)``, the one-call core on every shard), the graphed
     call's first run (it captures every shard's chain) and a warm run,
     each shard's every result of both graphed runs against the eager
     call's, bit for bit; the warm run's host syncs on every thread
-    (SyncCounter, bar 0) and a further warm run's CUDA runtime calls
+    (SyncCounter, bar 0) and captures (bar 0), each card's peak memory
+    over the graphed runs, and a further warm run's CUDA runtime calls
     (torch.profiler).  Returns the graphed result (first run), the mesh
     and the numbers."""
     import torch
@@ -2324,28 +2536,37 @@ def _graph_chain_checks(name, run, mesh_cls, devs) -> dict:
 
     def shards(mesh):
         return {d: tuple(r) for d, r in mesh.results.items()}
+    cards = sorted({torch.device(d).index for d in devs})
     mesh_e = mesh_cls(devs)
     eager, eager_ms = _timed(lambda: run(mesh_e, True))
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
     mesh_g = mesh_cls(devs)
     before = {k: dict(v) for k, v in graphs.STATS.items()}
     res, first_ms = _timed(lambda: run(mesh_g, False))
     mesh_w = mesh_cls(devs)
+    n_cap = _captures()
     with SyncCounter() as syncs:
         warm, warm_ms = _timed(syncs.wrap(lambda: run(mesh_w, False),
                                           "dist", all_threads=True))
-    for label, mesh, out in (("first", mesh_g, res), ("warm", mesh_w, warm)):
+    warm_captures = _captures() - n_cap
+    peak_mib = {f"cuda:{i}": round(torch.cuda.max_memory_allocated(i)
+                                   / 2 ** 20, 1) for i in cards}
+    for tag, mesh, out in (("first", mesh_g, res), ("warm", mesh_w, warm)):
         want = shards(mesh_e)
         for d, got in shards(mesh).items():
             for j, (a, b) in enumerate(zip(got, want[d])):
-                check(torch.equal(a, b), f"F: {name}'s graphed {label} run "
-                      f"differs from its eager call on shard {d} in result "
-                      f"{j}")
+                check(torch.equal(a, b), f"{label}: {name}'s graphed {tag} "
+                      f"run differs from its eager call on shard {d} in "
+                      f"result {j}")
         for j, (a, b) in enumerate(zip(out, eager)):
-            check(torch.equal(a, b), f"F: {name}'s graphed {label} result "
-                  f"differs from its eager call in field {j}")
+            check(torch.equal(a, b), f"{label}: {name}'s graphed {tag} "
+                  f"result differs from its eager call in field {j}")
     n_sync = syncs.counts["dist"]
-    check(n_sync == 0, f"F: a warm graphed {name} synchronizes with the "
-          f"host {n_sync} times: {dict(syncs.sites['dist'])}")
+    check(n_sync == 0, f"{label}: a warm graphed {name} synchronizes with "
+          f"the host {n_sync} times: {dict(syncs.sites['dist'])}")
+    check(warm_captures == 0, f"{label}: a warm graphed {name} captured "
+          f"{warm_captures} graphs")
     runtime = runtime_counts(lambda: run(mesh_cls(devs), False))
     new = {k: {f: v[f] - before.get(k, {}).get(f, 0)
                for f in ("captures", "warmup_ms", "capture_ms")}
@@ -2354,15 +2575,18 @@ def _graph_chain_checks(name, run, mesh_cls, devs) -> dict:
     segs = {k: v["captures"] for k, v in new.items()}
     setup = {f: round(sum(v[f] for v in new.values()), 1)
              for f in ("warmup_ms", "capture_ms")}
-    log(f"F: {name} graphed on {len(devs)} shards: first {first_ms:.1f} ms "
-        f"(captures: warm-up and capture {json.dumps(setup)}), warm "
-        f"{warm_ms:.1f} ms, eager {eager_ms:.1f} ms; bit-exact against the "
-        f"eager call on every shard (first and warm); a warm call's host "
-        f"syncs {n_sync}, CUDA runtime calls {json.dumps(runtime)}; "
-        f"captures by segment {json.dumps(segs)}")
+    log(f"{label}: {name} graphed on {len(devs)} shards: first "
+        f"{first_ms:.1f} ms (captures: warm-up and capture "
+        f"{json.dumps(setup)}), warm {warm_ms:.1f} ms, eager "
+        f"{eager_ms:.1f} ms; bit-exact against the eager call on every "
+        f"shard (first and warm); a warm call's host syncs {n_sync}, "
+        f"captures {warm_captures}, CUDA runtime calls "
+        f"{json.dumps(runtime)}; captures by segment {json.dumps(segs)}; "
+        f"peak memory by card (MiB) {json.dumps(peak_mib)}")
     return res, mesh_g, dict(first_ms=first_ms, warm_ms=warm_ms,
                              eager_ms=eager_ms, warm_syncs=n_sync,
-                             runtime=runtime, captures=segs, **setup)
+                             warm_captures=warm_captures, runtime=runtime,
+                             captures=segs, peak_mib=peak_mib, **setup)
 
 
 def f_problems(record: dict):
@@ -2457,57 +2681,70 @@ def repeat_dist_trees(tree: str) -> int:
     return 0
 
 
-def phase_dist(device, record: dict) -> dict:
-    """Path F: the distributed solvers at full width on path B's first
-    loop correction.  On a local mesh of F_SHARDS shards on the one card:
-    distributed_bundle_adjust and distributed_bundle_adjust_sharded_points
-    on the global BA's problem, distributed_pose_graph on the essential
-    graph, and LoopCloser.run_global_ba's sharded branch on a copy of
-    the map.  Each sharded solve runs as its graph chains (first and
-    warm) and eagerly (the one-call core on every shard), the graphed
-    runs bit for bit equal to the eager one on every shard, a warm run
-    with no host sync (_graph_chain_checks); each against the
-    single-device solve on the same inputs (poses and Sim3 within
-    F_POSE_TOL, points F_POINT_TOL, inliers equal, cost within
-    F_COST_RTOL), the cameras bitwise equal on every shard; the chains'
-    captures at most graphs.MAXSIZE a segment.  Then F_SHARDS processes
-    joined by gloo on the card (init_multihost, make_global_mesh) run
-    distributed_bundle_adjust on the same problem, eagerly and graphed:
-    the graphed solve equal to the eager one, the same cost and cameras
-    on both ranks, within F_COST_RTOL of the single-device cost, one
-    host sync a collective.  Each solve's time beside the single-device
-    time (first and warm); the gap between the card's and the CPU's
-    single-device solve (sums in another order) for scale."""
-    import tempfile
-    import torch
-    from orb_slam2_tpu_torch import graphs, interop, parallel
-    from orb_slam2_tpu_torch.optim import ba, pose_graph, segment
-    from orb_slam2_tpu_torch.pipeline.loop_closing import LoopCloser
-    check(all(k in record for k in ("ba", "pose_graph", "store")),
-          f"F: path B recorded only {sorted(record)}")
+def spy_mesh(devices):
+    """A local mesh that keeps every shard's result (``results``)."""
+    from orb_slam2_tpu_torch import parallel
 
     class Mesh(parallel.LocalMesh):
         def run(self, body):
             self.results = super().run(body)
             return self.results
+    return Mesh(devices)
 
-    def replicated(mesh, field):
-        vals = [getattr(r, field).cpu().numpy()
-                for r in mesh.results.values()]
-        return all(np.array_equal(v, vals[0]) for v in vals)
 
-    devs = [device] * F_SHARDS
+def run_gba(record: dict, device, devices=None):
+    """``LoopCloser.run_global_ba`` on a copy of the map path B recorded
+    before its first global BA, on ``device``, with
+    ``parallel.local_devices`` saying ``devices`` (else the visible
+    cards); returns the valid keyframes' poses, the valid points and
+    the milliseconds."""
+    from orb_slam2_tpu_torch import interop, parallel
+    from orb_slam2_tpu_torch.pipeline.loop_closing import LoopCloser
+    store = interop.mapstore_from_numpy(**record["store"], device=device)
+    lc = LoopCloser(record["cfg"], store)
+    real = parallel.local_devices
+    parallel.local_devices = (lambda d: devices) if devices else real
+    try:
+        _, ms = _timed(lc.run_global_ba)
+    finally:
+        parallel.local_devices = real
+    kids = store.valid_kf_ids()
+    return (np.stack([store.kfs[k].Tcw for k in kids]),
+            np.asarray(store.mp_pos)[np.asarray(store.mp_valid, bool)], ms)
+
+
+def replicated(mesh, field) -> bool:
+    """Every shard of a spy_mesh holds the same bits of ``field``."""
+    vals = [getattr(r, field).cpu().numpy() for r in mesh.results.values()]
+    return all(np.array_equal(v, vals[0]) for v in vals)
+
+
+def f_solves(device, record: dict, devs: list, label: str) -> dict:
+    """Path F's three sharded solves of path B's first loop correction
+    on a local mesh of ``devs`` (``label`` starts the lines): each
+    graphed against its eager call and warm (_graph_chain_checks), the
+    shards' replicated state bitwise equal, each shard's point rows on
+    its own card, each within the bars of the single-device solve on
+    ``device``.  Returns the numbers, with the single-device results
+    (``single``, ``psingle``), the bars (``bars``, ``pbars``) and the
+    problems."""
+    import torch
+    from orb_slam2_tpu_torch import graphs, parallel
+    from orb_slam2_tpu_torch.optim import ba, pose_graph, segment
+    check(all(k in record for k in ("ba", "pose_graph", "store")),
+          f"{label}: path B recorded only {sorted(record)}")
     out = {}
     bargs, bkw, pargs, pkw = f_problems(record)
     cams, pts, oc, op, ouv, isig, valid, fixed = bargs[:8]
     fx, fy, cx, cy = bargs[8:12]
     n_pts, n_obs = len(pts), len(oc)
     rpts, roc = record["ba"][0][1], record["ba"][0][2]
-    log(f"F: global BA problem: {len(cams)} cameras ({int(fixed.sum())} "
-        f"fixed), {n_pts} points and {n_obs} observations (padded to "
-        f"{len(rpts)} and {len(roc)} by run_global_ba), {bkw}; collectives "
-        f"a sharded solve: {ba.collectives(bkw['iters'], bkw['cg_iters'], True)}"
-        f" with the points sharded, "
+    log(f"{label}: global BA problem: {len(cams)} cameras "
+        f"({int(fixed.sum())} fixed), {n_pts} points and {n_obs} "
+        f"observations (run_global_ba gave {len(rpts)} and {len(roc)}), "
+        f"{bkw}; collectives a sharded solve: "
+        f"{ba.collectives(bkw['iters'], bkw['cg_iters'], True)} with the "
+        f"points sharded, "
         f"{ba.collectives(bkw['iters'], bkw['cg_iters'], False)} with the "
         f"observations")
     dev_args = [torch.as_tensor(a, device=device) for a in bargs[:8]]
@@ -2519,9 +2756,10 @@ def phase_dist(device, record: dict) -> dict:
                            fx, fy, cx, cy, **bkw)
     sum_order = _gaps(cpu, single)
     bars = _bars(sum_order)
-    log(f"F: single-device BA {single_ms:.1f} ms first, {single_warm_ms:.1f}"
-        f" ms warm; the CPU's solve against the card's (another sum "
-        f"order): {json.dumps(sum_order)}; bars {json.dumps(bars)}")
+    log(f"{label}: single-device BA {single_ms:.1f} ms first, "
+        f"{single_warm_ms:.1f} ms warm; the CPU's solve against the "
+        f"card's (another sum order): {json.dumps(sum_order)}; bars "
+        f"{json.dumps(bars)}")
     # the sharded solves take the single-device solve's reductions: its
     # layout's longest runs, from the host
     skw = dict(bkw, longest_cam=segment.longest_segment(oc, len(cams)),
@@ -2532,21 +2770,29 @@ def phase_dist(device, record: dict) -> dict:
                       parallel.distributed_bundle_adjust_sharded_points)):
         res, mesh, nums = _graph_chain_checks(
             name, lambda m, eager: fn(m, *bargs[:8], fx, fy, cx, cy,
-                                      eager=eager, **skw), Mesh, devs)
+                                      eager=eager, **skw), spy_mesh, devs,
+            label)
         g = _gaps(res, single)
         rep = replicated(mesh, "cam_Tcw") and replicated(mesh, "final_cost")
-        log(f"F: {name} on {F_SHARDS} shards of {device}: "
-            f"{nums['warm_ms']:.1f} ms warm (single device "
-            f"{single_warm_ms:.1f} ms warm); against the single "
-            f"device {json.dumps(g)}; cameras bitwise equal on every "
-            f"shard: {rep}")
-        check(rep, f"F: {name}: the shards' cameras differ")
-        check(_within(g, bars), f"F: {name} misses the bars "
+        log(f"{label}: {name} on {len(devs)} shards of "
+            f"{sorted(set(map(str, devs)))}: {nums['warm_ms']:.1f} ms warm "
+            f"(single device {single_warm_ms:.1f} ms warm); against the "
+            f"single device {json.dumps(g)}; cameras and cost bitwise "
+            f"equal on every shard: {rep}")
+        check(rep, f"{label}: {name}: the shards' cameras differ")
+        check(_within(g, bars), f"{label}: {name} misses the bars "
               f"{json.dumps(bars)}: {json.dumps(g)}")
+        for d, r in mesh.results.items():
+            check(all(t.device == mesh.devices[d] for t in r),
+                  f"{label}: {name}: shard {d}'s results left its card")
+        if name.endswith("sharded_points"):
+            rows = {d: len(r.points) for d, r in mesh.results.items()}
+            log(f"{label}: point rows a shard (its block, padded to a "
+                f"bucket), each on its own card: {rows} of {n_pts} points")
         out[name] = dict(single_ms=single_ms, single_warm_ms=single_warm_ms,
                          **nums, **g)
 
-    log(f"F: essential graph: {len(pargs[0])} Sim3 vertices "
+    log(f"{label}: essential graph: {len(pargs[0])} Sim3 vertices "
         f"({int(pargs[5].sum())} fixed), {len(pargs[1])} edges, {pkw}; "
         f"collectives a sharded solve: "
         f"{pose_graph.collectives(pkw['iters'], pkw['cg_iters'])}")
@@ -2562,46 +2808,65 @@ def phase_dist(device, record: dict) -> dict:
     pres, mesh, nums = _graph_chain_checks(
         "distributed_pose_graph",
         lambda m, eager: parallel.distributed_pose_graph(
-            m, *pargs, eager=eager, **pkw), Mesh, devs)
+            m, *pargs, eager=eager, **pkw), spy_mesh, devs, label)
     g = _gaps(pres, psingle)
-    rep = replicated(mesh, "sims")
-    log(f"F: distributed_pose_graph on {F_SHARDS} shards: "
+    rep = replicated(mesh, "sims") and replicated(mesh, "final_cost")
+    log(f"{label}: distributed_pose_graph on {len(devs)} shards: "
         f"{nums['warm_ms']:.1f} ms warm (single device {p_ms:.1f} ms "
         f"first, {p_warm_ms:.1f} ms warm); against the single device "
         f"{json.dumps(g)}; the CPU's single solve against the card's "
-        f"{json.dumps(psum_order)}; bars {json.dumps(pbars)}; Sim3 bitwise "
-        f"equal on every shard: {rep}")
-    check(rep, "F: distributed_pose_graph: the shards' vertices differ")
-    check(_within(g, pbars), f"F: distributed_pose_graph misses the bars "
-          f"{json.dumps(pbars)}: {json.dumps(g)}")
+        f"{json.dumps(psum_order)}; bars {json.dumps(pbars)}; Sim3 and "
+        f"cost bitwise equal on every shard: {rep}")
+    check(rep, f"{label}: distributed_pose_graph: the shards' vertices "
+          f"differ")
+    check(_within(g, pbars), f"{label}: distributed_pose_graph misses the "
+          f"bars {json.dumps(pbars)}: {json.dumps(g)}")
     out["distributed_pose_graph"] = dict(single_ms=p_ms,
                                          single_warm_ms=p_warm_ms,
                                          **nums, **g)
+    out.update(single=single, psingle=psingle, bars=bars, pbars=pbars,
+               problems=(bargs, skw, pargs, pkw))
+    return out
+
+
+def phase_dist(device, record: dict) -> dict:
+    """Path F: the distributed solvers at full width on path B's first
+    loop correction.  On a local mesh of F_SHARDS shards on the one card
+    (``f_solves``): distributed_bundle_adjust and
+    distributed_bundle_adjust_sharded_points on the global BA's problem,
+    distributed_pose_graph on the essential graph, each as its graph
+    chains (first and warm) and eagerly, the graphed runs bit for bit
+    the eager one on every shard, a warm run with no host sync and no
+    capture, each within the bars of the single-device solve (poses and
+    Sim3 within F_POSE_TOL, points F_POINT_TOL, inliers equal, cost
+    within F_COST_RTOL, or F_SUM_ORDER_FACTOR times the gap between the
+    card's and the CPU's single-device solve), the cameras bitwise equal
+    on every shard; then LoopCloser.run_global_ba's sharded branch on a
+    copy of the map; the chains' captures at most graphs.MAXSIZE a
+    segment.  Then F_SHARDS processes joined by gloo on the card
+    (init_multihost, make_global_mesh) run distributed_bundle_adjust on
+    the same problem, eagerly and graphed: the graphed solve equal to
+    the eager one, the same cost and cameras on both ranks, within
+    F_COST_RTOL of the single-device cost, one host sync a collective.
+    Then the three solves on a one-rank NCCL group (phase_nccl)."""
+    import tempfile
+    from orb_slam2_tpu_torch import graphs
+    devs = [device] * F_SHARDS
+    out = f_solves(device, record, devs, "F")
+    single, bars = out["single"], out["bars"]
+    bargs, skw, pargs, pkw = out["problems"]
+    fx, fy, cx, cy = bargs[8:12]
+    bkw = {k: v for k, v in skw.items() if not k.startswith("longest")}
 
     # LoopCloser.run_global_ba on two copies of the map: one device, and
     # the sharded branch (local_devices says there are F_SHARDS), which
     # must replay the point-sharded chains
-    def gba(devices):
-        store = interop.mapstore_from_numpy(**record["store"],
-                                            device=device)
-        lc = LoopCloser(record["cfg"], store)
-        real = parallel.local_devices
-        parallel.local_devices = (lambda d: devices) if devices else real
-        try:
-            _, ms = _timed(lc.run_global_ba)
-        finally:
-            parallel.local_devices = real
-        kids = store.valid_kf_ids()
-        return (np.stack([store.kfs[k].Tcw for k in kids]),
-                np.asarray(store.mp_pos)[np.asarray(store.mp_valid, bool)],
-                ms)
-
     def chain_replays():
         return sum(v["replays"] for k, v in graphs.STATS.items()
                    if k.startswith("ba:"))
-    t1, p1, ms1 = gba(None)
+    t1, p1, ms1 = run_gba(record, device)
     r0 = chain_replays()
-    t2, p2, ms2 = gba(devs)
+    t2, p2, ms2 = run_gba(record, device, devs)
     replays = chain_replays() - r0
     g = dict(poses=float(np.abs(t1 - t2).max()),
              points=float(np.abs(p1 - p2).max()), cost_rel=0.0)
@@ -2626,30 +2891,16 @@ def phase_dist(device, record: dict) -> dict:
                  use_huber=bkw.get("use_huber", True),
                  longest=np.array([skw["longest_cam"], skw["longest_pt"]]),
                  **{f"a{i}": a for i, a in enumerate(bargs[:8])})
-        import socket
-        sock = socket.socket()
-        sock.bind(("127.0.0.1", 0))
-        addr = f"127.0.0.1:{sock.getsockname()[1]}"
-        sock.close()
-        here = os.path.dirname(os.path.abspath(__file__))
+        addr = free_addr()
         t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--gloo-worker",
-             addr, str(r), problem], cwd=here, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(F_SHARDS)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=F_GLOO_TIMEOUT_S)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
+        runs = run_ranks([[sys.executable, os.path.abspath(__file__),
+                           "--gloo-worker", addr, str(r), problem]
+                          for r in range(F_SHARDS)], F_GLOO_TIMEOUT_S)
         wall = time.perf_counter() - t0
-        for r, (p, o) in enumerate(zip(procs, outs)):
-            check(p.returncode == 0 and "GLOO rank=" in o,
-                  f"F: gloo rank {r} failed ({p.returncode}):\n{o[-2000:]}")
+        outs = [o for _, o in runs]
+        for r, (rc, o) in enumerate(runs):
+            check(rc == 0 and "GLOO rank=" in o,
+                  f"F: gloo rank {r} failed ({rc}):\n{o[-2000:]}")
         lines = [next(ln for ln in o.splitlines() if ln.startswith("GLOO"))
                  for o in outs]
         costs = [float(ln.split("cost=")[1].split()[0]) for ln in lines]
@@ -2681,6 +2932,391 @@ def phase_dist(device, record: dict) -> dict:
                      "collectives", "formula")})
     out["nccl"] = phase_nccl(bargs, skw, pargs, pkw)
     return out
+
+
+# ----------------------------------------------------------------------
+# --cards 4: the distributed solvers over the cards of one host
+# ----------------------------------------------------------------------
+def require_cards(n: int) -> int:
+    """The visible CUDA cards; fails, naming the count, unless there
+    are at least ``n``."""
+    import torch
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    check(have >= n, f"--cards {n} needs {n} CUDA cards; {have} visible")
+    return have
+
+
+def _cards_of(devs: list) -> list:
+    """The distinct card indices of a list of CUDA devices."""
+    return sorted({d.index for d in devs})
+
+
+def _timed_all(fn, devs: list):
+    """``fn()`` and its milliseconds, the queues of every card of
+    ``devs`` drained before and after."""
+    import torch
+
+    def sync():
+        for i in _cards_of(devs):
+            torch.cuda.synchronize(i)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+class ChainDevices:
+    """The graph-chain segments run on each card while it is open: a
+    wrapped ``graphs.Chain._run_steps`` counts (chain name, device)."""
+
+    def __enter__(self):
+        import collections
+        from orb_slam2_tpu_torch import graphs
+        self.counts = collections.Counter()
+        self._graphs, self._real = graphs, graphs.Chain._run_steps
+        real, counts = self._real, self.counts
+
+        def run_steps(chain, steps, cfg):
+            if steps:
+                counts[(chain.name, str(chain.device))] += 1
+            return real(chain, steps, cfg)
+        graphs.Chain._run_steps = run_steps
+        return self
+
+    def __exit__(self, *exc):
+        self._graphs.Chain._run_steps = self._real
+
+    def cards(self, name: str) -> list:
+        return sorted(d for n, d in self.counts if n == name)
+
+
+class KernelDevices:
+    """The cards the hand-written kernels launch on while it is open: a
+    wrapped ``kernels.call`` notes the current card and its tensors'
+    cards (a graph's capture calls it; its replays run where it was
+    captured)."""
+
+    def __enter__(self):
+        import torch
+        from orb_slam2_tpu_torch import kernels
+        self.cards = set()
+        self._kernels, self._real = kernels, kernels.call
+        real, cards = self._real, self.cards
+
+        def call(name, *args, **kwargs):
+            cards.add(torch.cuda.current_device())
+            cards.update(a.device.index for a in args
+                         if isinstance(a, torch.Tensor))
+            return real(name, *args, **kwargs)
+        kernels.call = call
+        return self
+
+    def __exit__(self, *exc):
+        self._kernels.call = self._real
+
+
+def phase_b4(cfg, devs: list):
+    """B4: path B on card 0 of a host whose cards are ``devs``,
+    unchanged: its global BA takes ``run_global_ba``'s sharded branch
+    over every card (``parallel.local_devices``), with no flag.  Bars:
+    B's own, the global BA sharded over ``devs`` with its chain segments
+    on every card, each card's peak memory above 0, the hand-written
+    kernels on card 0 only.  Prints the loop,
+    its matches, the ATE beside one card's run and the loop keyframe's
+    split (``LoopWatch``).  Returns path B's record (the global BA's
+    problem and result, the essential graph, the map before the global
+    BA) and its kernel launches."""
+    import torch
+    device = devs[0]
+    for i in _cards_of(devs):
+        torch.cuda.reset_peak_memory_stats(i)
+    record = {}
+    with ChainDevices() as segs, KernelDevices() as kcards:
+        launches = phase_loop(device, cfg, record=record, watch=True)
+    peak = [torch.cuda.max_memory_allocated(i) for i in _cards_of(devs)]
+    cards = [str(d) for d in devs]
+    b = record["b"]
+    log(f"B4: loop {b['loop']}; keyframe ATE {b['ate']:.4f} against the "
+        f"priors' {b['ate_prior']:.4f} (one card: "
+        f"{B_ONE_CARD_ATE[0]:.4f} against {B_ONE_CARD_ATE[1]:.4f}); "
+        f"{b['n_ok']}/{b['n_frames']} frames OK; the first loop's frame "
+        f"{b['first_loop_ms']:.1f} ms; global BA sharded over "
+        f"{record.get('gba_devices')}; chain segments by card "
+        f"{json.dumps({f'{n}@{d}': c for (n, d), c in segs.counts.items()})}"
+        f"; peak memory by card (MiB) "
+        f"{[round(p / 2 ** 20, 1) for p in peak]}; kernels launched on "
+        f"cards {sorted(kcards.cards)}: {json.dumps(launches)}")
+    check(record.get("gba_devices") == cards, f"B4: the global BA ran on "
+          f"{record.get('gba_devices')}, not sharded over {cards}")
+    check(segs.cards("ba") == sorted(set(cards)), f"B4: the global BA's "
+          f"chains ran on {segs.cards('ba')}, not on {cards}")
+    check(all(p > 0 for p in peak), f"B4: a card allocated nothing: {peak}")
+    check(kcards.cards == {0}, f"B4: kernels launched on cards "
+          f"{sorted(kcards.cards)}")
+    return record, launches
+
+
+def psum_cards(devs: list) -> None:
+    """``LocalMesh.psum`` across the cards: each shard's partial comes
+    after a wait on its card's stream (``torch.cuda._sleep``), and every
+    shard's sum must be bitwise equal to the others' and to the sum in
+    shard order on one card."""
+    import torch
+    from orb_slam2_tpu_torch import parallel
+    rng = np.random.default_rng(0)
+    parts = [rng.normal(size=(1 << 20,)).astype(np.float32) for _ in devs]
+
+    def body(d, dev, psum):
+        x = torch.as_tensor(parts[d]).to(dev)
+        torch.cuda._sleep(20_000_000)
+        return psum(x * 1.0).cpu()
+    got = parallel.LocalMesh(devs).run(body)
+    acc = torch.as_tensor(parts[0]).to(devs[0])
+    for p in parts[1:]:
+        acc = acc + torch.as_tensor(p).to(devs[0])
+    want = acc.cpu()
+    check(all(torch.equal(got[d], want) for d in got),
+          f"F4: LocalMesh.psum over {len(devs)} cards differs from the sum "
+          f"in shard order on one card")
+
+
+def phase_f4_local(record: dict, devs: list) -> dict:
+    """F4-local: path F's three solves of B4's first loop correction on
+    ``LocalMesh(devs)``, one shard a card (``f_solves``): graphed, bit for
+    bit the eager solve on every shard, replicated state bitwise equal,
+    each shard's point rows on its card, within the F bars of the
+    single-device solve, a warm call with no host sync and no capture;
+    the chains' segments on every card.  Before them the mesh's psum
+    across the cards (``psum_cards``) and which pairs of cards have peer
+    access; after them the result of B4's global BA against its
+    recorded problem solved on one card (the single-device solve of
+    ``f_solves``), within the F bars."""
+    import torch
+    n_cards = len(devs)
+    peer = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+            for i in _cards_of(devs) for j in _cards_of(devs) if i != j}
+    log(f"F4: peer access between the cards: {json.dumps(peer)}")
+    psum_cards(devs)
+    log(f"F4: LocalMesh.psum over {n_cards} cards bitwise equal on every "
+        f"shard and to the shard-order sum on one card")
+    with ChainDevices() as segs:
+        out = f_solves(devs[0], record, devs, "F4")
+    cards = sorted({str(d) for d in devs})
+    for chain in ("ba", "pose_graph"):
+        check(segs.cards(chain) == cards, f"F4: the {chain} chains ran on "
+              f"{segs.cards(chain)}, not on {cards}")
+    g = _gaps(record["gba_result"], out["single"])
+    log(f"F4: B4's global BA on {n_cards} cards against its recorded "
+        f"problem solved on one card: {json.dumps(g)}; bars "
+        f"{json.dumps(out['bars'])}")
+    check(_within(g, out["bars"]), f"F4: B4's global BA misses the bars "
+          f"{json.dumps(out['bars'])}: {json.dumps(g)}")
+    for name in ("distributed_bundle_adjust",
+                 "distributed_bundle_adjust_sharded_points",
+                 "distributed_pose_graph"):
+        r = out[name]
+        log(f"F4 summary {name}: {n_cards} cards first {r['first_ms']:.1f}"
+            f" ms, warm {r['warm_ms']:.1f} ms; one card first "
+            f"{r['single_ms']:.1f} ms, warm {r['single_warm_ms']:.1f} ms; "
+            f"peak memory by card (MiB) {json.dumps(r['peak_mib'])}")
+    out["gba_one_card"] = g
+    return out
+
+
+def w_problem(n_dev: int, load: int) -> tuple:
+    """tools/weak_scaling.py's problem for a mesh of ``n_dev`` devices
+    at ``load`` observations a device (4 a point, 8 cameras a device,
+    ``seed = n_dev``, camera 0 fixed): the arguments of
+    ``distributed_bundle_adjust_sharded_points`` after the mesh."""
+    from orb_slam2_tpu_torch import interop
+    (cams, pts, ocam, opt, uv, sig, valid,
+     fx, fy, cx, cy) = interop.weak_scaling_problem(
+        load * n_dev // 4, 8 * n_dev, 4, seed=n_dev)
+    fixed = np.zeros(len(cams), bool)
+    fixed[0] = True
+    return (cams, pts, ocam, opt, uv, sig, valid, fixed, fx, fy, cx, cy)
+
+
+def w_solve(mesh, w: tuple):
+    """The tool's solve: the point-sharded BA, its options."""
+    from orb_slam2_tpu_torch import parallel
+    return parallel.distributed_bundle_adjust_sharded_points(
+        mesh, *w, iters=W_ITERS, cg_iters=W_CG_ITERS, use_huber=False)
+
+
+def w_row(mesh, w: tuple, label: str) -> tuple:
+    """One weak-scaling row, its cards cleared of earlier chains
+    (``graphs.clear_chains``): the first call (its captures) and W_WARM
+    warm calls, each equal to the first bit for bit and capturing
+    nothing; the median warm call, obs/s, each card's peak memory
+    allocated and reserved (a chain's graphs keep their pool's blocks
+    reserved), the final cost.  Returns (row, result)."""
+    import torch
+    from orb_slam2_tpu_torch import graphs
+    # the chains of the rows before, and their graphs' memory pools, go
+    graphs.clear_chains()
+    torch.cuda.empty_cache()
+    cards = _cards_of(mesh.devices)
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    res, first_ms = _timed_all(lambda: w_solve(mesh, w), mesh.devices)
+    n_cap = _captures()
+    warm = []
+    for _ in range(W_WARM):
+        again, ms = _timed_all(lambda: w_solve(mesh, w), mesh.devices)
+        warm.append(ms)
+        check(all(torch.equal(a, b) for a, b in zip(again, res)),
+              f"{label}: a warm solve differs from the first")
+    check(_captures() == n_cap, f"{label}: a warm solve captured "
+          f"{_captures() - n_cap} graphs")
+    ms = float(np.median(warm))
+    n_obs = len(w[2])
+    row = dict(cards=mesh.size, n_obs=n_obs, n_pts=len(w[1]),
+               first_ms=first_ms, warm_ms=warm, ms=ms,
+               obs_s=n_obs / ms * 1e3, cost=float(res.final_cost),
+               peak_mib=[round(torch.cuda.max_memory_allocated(i) / 2 ** 20,
+                               1) for i in cards],
+               reserved_mib=[round(torch.cuda.max_memory_reserved(i)
+                                   / 2 ** 20, 1) for i in cards])
+    log(f"{label}: {json.dumps(row)}")
+    return row, res
+
+
+def phase_w(devs: list, bars: dict) -> dict:
+    """W, the port's counterpart of tools/weak_scaling.py: the tool's
+    problems (``w_problem``) solved by ``w_solve`` on ``LocalMesh(devs[:n])``
+    for n in W_CARDS at each load of W_LOADS (``w_row``); then the
+    largest problem of the most cards solved on one card (strong
+    scaling: the same problem), which must be within the bars of the
+    many-card result: path F's ``bars``, or F_SUM_ORDER_FACTOR
+    times the gap between two one-card solves of it whose observations
+    come in other orders (sums in another order only) where that is
+    larger.  Returns the rows, the strong-scaling row, the many-card
+    result and the bars."""
+    import torch
+    from orb_slam2_tpu_torch import parallel
+    rows, big = [], None
+    for load in W_LOADS:
+        for n in W_CARDS:
+            w = w_problem(n, load)
+            row, res = w_row(parallel.LocalMesh(devs[:n]), w,
+                             f"W {n} card(s), {load} obs a card")
+            rows.append(dict(row, load=load))
+            if (n, load) == (W_CARDS[-1], W_LOADS[-1]):
+                big = (w, res)
+            del res
+    w, res_n = big
+    one = parallel.LocalMesh(devs[:1])
+    strong, res_1 = w_row(one, w, f"W strong: {len(w[2])} obs on one card")
+    # the sum order alone on this problem: the same solve on one card
+    # with the observations in another order (its cameras share one
+    # rotation and lie on a line: a flat valley that magnifies rounding)
+    perm = np.random.default_rng(0).permutation(len(w[2]))
+    res_p = w_solve(one, (*w[:2], *(a[perm] for a in w[2:7]), *w[7:]))
+    inlier = torch.empty_like(res_p.obs_inlier)
+    inlier[torch.as_tensor(perm, device=inlier.device)] = res_p.obs_inlier
+    order = _gaps(res_p._replace(obs_inlier=inlier), res_1)
+    wbars = {k: max(v, bars[k]) for k, v in _bars(order).items()}
+    g = _gaps(res_1, res_n)
+    log(f"W strong: one card against {W_CARDS[-1]} cards on the same "
+        f"problem {json.dumps(g)}; the observations in another order on "
+        f"one card {json.dumps(order)}; bars {json.dumps(wbars)}")
+    check(_within(g, wbars), f"W: one card's solve misses the bars "
+          f"{json.dumps(wbars)} of {W_CARDS[-1]} cards': {json.dumps(g)}")
+    return dict(rows=rows, strong=dict(strong, **g), result=res_n,
+                bars=wbars)
+
+
+def w_table(w: dict, nccl: dict, smi: list) -> str:
+    """Phase W's table, as the tool prints its own, the cards' names and
+    power limits above it."""
+    lines = ["cards: " + " | ".join(smi), "",
+             "| devices | observations | mesh | first s | warm s (median"
+             f" of {W_WARM}) | obs/s | obs/s/device | peak MiB a card "
+             "(reserved) | final cost |",
+             "|---|---|---|---|---|---|---|---|---|"]
+    base = {}
+    for r in w["rows"]:
+        per = r["obs_s"] / r["cards"]
+        base.setdefault(r["load"], per)
+        lines.append(
+            f"| {r['cards']} | {r['n_obs']:,} | local | "
+            f"{r['first_ms'] / 1e3:.3f} | {r['ms'] / 1e3:.3f} | "
+            f"{r['obs_s']:,.0f} | {per:,.0f} "
+            f"({100 * per / base[r['load']]:.0f}%) | "
+            f"{max(r['peak_mib']):,.0f} ({max(r['reserved_mib']):,.0f}) | "
+            f"{r['cost']:.1f} |")
+    s = w["strong"]
+    lines.append(f"| 1 (strong) | {s['n_obs']:,} | local | "
+                 f"{s['first_ms'] / 1e3:.3f} | {s['ms'] / 1e3:.3f} | "
+                 f"{s['obs_s']:,.0f} | {s['obs_s']:,.0f} | "
+                 f"{max(s['peak_mib']):,.0f} ({max(s['reserved_mib']):,.0f})"
+                 f" | {s['cost']:.1f} |")
+    if nccl:
+        ms = float(np.median(nccl["warm_ms"]))
+        rate = nccl["n_obs"] / ms * 1e3
+        lines.append(f"| {nccl['world']} | {nccl['n_obs']:,} | NCCL, "
+                     f"captured | {nccl['first_ms'] / 1e3:.3f} | "
+                     f"{ms / 1e3:.3f} | {rate:,.0f} | "
+                     f"{rate / nccl['world']:,.0f} | - | "
+                     f"{nccl['cost']:.1f} |")
+    return "\n".join(lines)
+
+
+def four_cards(cfg, world, smi: list) -> tuple:
+    """``--cards 4``: phase 2 on card 0, then B4, F4-local, W and
+    F4-NCCL (see the module).  Returns phase 2's timings and B4's
+    kernel launches, with K4's from path C."""
+    import torch
+    from orb_slam2_tpu_torch import graphs, kernels
+    from orb_slam2_tpu_torch.matching import hamming_top2 as ht
+    require_cards(CARDS)
+    devs = [torch.device("cuda", i) for i in range(CARDS)]
+    for d in devs:          # each card's context and allocator, up front
+        torch.zeros(1, device=d)
+    n = len(devs)
+    device = devs[0]
+    timing = phase_kernels(device, world, cfg)
+    record, launches = phase_b4(cfg, devs)
+    k4_ref = ht.hamming_top2_plain(*k4_problem(4096, 4096, 0.2, 4, device))
+    launches["hamming_top2"] = phase_k4(device, k4_ref)["hamming_top2"]
+    kernels.reset_launch_counts()
+    f4 = phase_f4_local(record, devs)
+    w = phase_w(devs, f4["bars"])
+    bargs, skw, pargs, pkw = f4["problems"]
+    # the ranks' processes share the cards: this one's chains go first
+    graphs.clear_chains()
+    torch.cuda.empty_cache()
+    nccl = phase_nccl(bargs, skw, pargs, pkw, world=n,
+                      w_load=W_LOADS[-1], label="F4/NCCL",
+                      timeout=F4_NCCL_TIMEOUT_S)
+    check(sum(kernels.LAUNCHES.values()) == 0,
+          f"F4: kernels launched: {dict(kernels.LAUNCHES)}")
+    for name, single, bars in (
+            ("distributed_bundle_adjust", f4["single"], f4["bars"]),
+            ("distributed_bundle_adjust_sharded_points", f4["single"],
+             f4["bars"]),
+            ("distributed_pose_graph", f4["psingle"], f4["pbars"])):
+        r = nccl[name]
+        got = type(single)(*map(torch.as_tensor, nccl["results"][name]))
+        g = _gaps(got, single)
+        log(f"F4/NCCL summary {name}: warm captured "
+            f"{r['captured']['warm_ms']:.1f} ms, cut "
+            f"{r['cut']['warm_ms']:.1f} ms on {n} ranks; local mesh of "
+            f"{n} cards {f4[name]['warm_ms']:.1f} ms; one card "
+            f"{f4[name]['single_warm_ms']:.1f} ms; against the single "
+            f"device {json.dumps(g)}")
+        check(_within(g, bars), f"F4/NCCL: {name} misses the bars "
+              f"{json.dumps(bars)}: {json.dumps(g)}")
+    got = type(f4["single"])(*map(torch.as_tensor, nccl["results"]["w"]))
+    g = _gaps(got, w["result"])
+    log(f"W NCCL: {n} ranks against the local mesh of {n} cards on the "
+        f"same problem: {json.dumps(g)}")
+    check(_within(g, w["bars"]), f"W: the NCCL ranks' solve misses the "
+          f"bars {json.dumps(w['bars'])}: {json.dumps(g)}")
+    log("W table\n" + w_table(w, nccl.get("w"), smi))
+    return timing, launches
 
 
 def rotation_deg(Ta, Tb) -> float:
@@ -3613,10 +4249,15 @@ def main() -> int:
     ap.add_argument("--gloo-worker", nargs=3,
                     metavar=("HOST:PORT", "RANK", "PROBLEM"),
                     help="path F's process-group rank (started by path F)")
-    ap.add_argument("--nccl-worker", nargs=2,
-                    metavar=("HOST:PORT", "PROBLEM"),
-                    help="path F's one-rank NCCL group, captured against "
-                         "cut (started by path F)")
+    ap.add_argument("--nccl-worker", nargs="+",
+                    metavar="HOST:PORT PROBLEM [RANK WORLD]",
+                    help="a rank of path F's NCCL group (one rank, or "
+                         "RANK of WORLD), captured against cut (started "
+                         "by path F and F4-NCCL)")
+    ap.add_argument("--cards", type=int, choices=(1, CARDS), default=1,
+                    help=f"{CARDS}: the four-card mode (phases 1-2, B4, "
+                         f"F4-local, W, F4-NCCL) on a host with {CARDS} "
+                         f"cards; 1: the default run on one card")
     ap.add_argument("--kernels-from", metavar="DIR",
                     help="run only phases 1 and 2 (build, each kernel "
                          "against its plain version, timed) with "
@@ -3629,6 +4270,8 @@ def main() -> int:
                          "parent of a change, unpacked by git archive), "
                          "so both run under this script")
     args = ap.parse_args()
+    if args.nccl_worker and len(args.nccl_worker) not in (2, 4):
+        ap.error("--nccl-worker takes HOST:PORT PROBLEM [RANK WORLD]")
     if args.tree and not (args.repeat_a or args.profile or args.loop_split
                           or args.repeat_d or args.repeat_f):
         ap.error("--tree goes with --repeat-a, --repeat-d, --repeat-f, "
@@ -3638,6 +4281,12 @@ def main() -> int:
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 2
+    if args.cards > 1:
+        try:
+            require_cards(args.cards)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on the "
               "card", file=sys.stderr)
@@ -3657,8 +4306,9 @@ def main() -> int:
         addr, rank, problem = args.gloo_worker
         return gloo_worker(addr, int(rank), problem)
     if args.nccl_worker:
+        addr, problem, *rank_world = args.nccl_worker
         try:
-            return nccl_worker(*args.nccl_worker)
+            return nccl_worker(addr, problem, *map(int, rank_world))
         except SmokeFailure as e:
             print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
             return 1
@@ -3667,9 +4317,11 @@ def main() -> int:
     t_start = time.perf_counter()
     device = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi_line()
+    smi_all = nvidia_smi_lines()
+    smi = smi_all[0]
     log(f"device: {kind} (torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}); nvidia-smi: {smi}")
+        f"{torch.version.cuda}); {torch.cuda.device_count()} card(s); "
+        f"nvidia-smi: {' | '.join(smi_all)}")
     info = kernels.build(force=True)
     kernels.library()
     log(f"build: {info['seconds']:.1f} s")
@@ -3680,6 +4332,13 @@ def main() -> int:
 
     cfg = bench_config()
     world, _ = bench_world(device)
+    if args.cards > 1:
+        try:
+            timing, launches = four_cards(cfg, world, smi_all)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        return finish(timing, launches, None, t_start, smi_all, kind)
     if args.repeat_b:
         return repeat_loop(device, cfg)
     if args.tree:
@@ -3754,14 +4413,25 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    return finish(timing, launches, path_h["launches"], t_start, [smi],
+                  kind)
+
+
+def finish(timing, launches, launches_h, t_start, smi: list,
+           kind: str) -> int:
+    """The last lines: the kernels' JSON (``launches``: the main path's
+    run; ``launches_h``: path H's, where it ran), the nvidia-smi line of
+    each card used, and the ok line."""
+    import torch
     rows = []
     for t in timing:
         source, replaces = KERNEL_META[t["name"]]
+        h = {} if launches_h is None else dict(
+            launches_h=launches_h.get(t["name"], 0))
         # no single PyTorch call computes any of the four functions
         rows.append(dict(name=t["name"], route="cuda", source=source,
                          replaces=replaces, launches=launches[t["name"]],
-                         launches_h=path_h["launches"].get(t["name"], 0),
-                         max_abs_err=t["max_abs_err"], ms=t["ms"],
+                         **h, max_abs_err=t["max_abs_err"], ms=t["ms"],
                          plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                          bound_by=t["bound_by"], library_ms=None,
                          shape=t["shape"], loop_ms=t["loop_ms"],
@@ -3770,7 +4440,8 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")
     print(json.dumps({"kernels": rows}))
-    print(smi)
+    for line in smi:
+        print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

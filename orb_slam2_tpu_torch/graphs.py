@@ -125,20 +125,25 @@ class Readback:
     read as they are."""
 
     def __init__(self, tensors):
-        self.event = None
+        self.events = ()
         self._arrays = None
         if tensors[0].is_cuda:
             self._host = tuple(
                 torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 .copy_(t, non_blocking=True) for t in tensors)
-            self.event = torch.cuda.Event()
-            self.event.record()
+            # each copy runs on the current stream of its tensor's card,
+            # which need not be this thread's current card: an event
+            # recorded on the current card's stream would not cover it
+            for dev in dict.fromkeys(t.device for t in tensors):
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                self.events += (event,)
         else:
             self._host = tuple(tensors)
 
     def wait(self):
-        if self.event is not None:
-            self.event.synchronize()
+        for event in self.events:
+            event.synchronize()
 
     def arrays(self):
         """The outputs as numpy arrays (waits for the copies once)."""
@@ -501,28 +506,57 @@ class Chain:
         seg.replay()
 
 
+# every ChainCache made, for clear_chains
+_CACHES = []
+
+
+def clear_chains() -> None:
+    """Drop the chains of every solver, as ``jax.clear_caches`` drops
+    compiled programs.  A chain's captured graphs keep their memory pool
+    on the card for as long as the chain lives, so the chains of a few
+    large problems can hold much of a card: a caller that moves on to
+    other problem sizes can free them (with
+    ``torch.cuda.empty_cache()``)."""
+    for cache in _CACHES:
+        cache.clear()
+
+
 class ChainCache:
-    """The chains of one solver, keyed by the caller (shard, device,
-    static arguments and shapes), at most ``MAXSIZE`` of them, least
-    recently used first out.  The CPU keeps none: a CPU chain has
-    nothing to keep."""
+    """The chains of one solver: for each static signature (the
+    caller's static arguments and shapes) one chain a shard that ran it,
+    on that shard's device; at most ``MAXSIZE`` signatures, least
+    recently used first out.  A signature is the JAX package's compiled
+    ``shard_map`` program, which holds every shard's part, under its
+    ``lru_cache(maxsize=8)``: the shards of one signature are kept and
+    evicted together, so a mesh of any size keeps ``MAXSIZE`` of its
+    problem sizes warm (were every shard's chain an entry of its own, a
+    mesh of more than ``MAXSIZE`` shards would evict its own chains
+    within a solve, and one of four shards would keep two sizes).  The
+    CPU keeps none: a CPU chain has nothing to keep."""
 
     def __init__(self, name: str):
         self.name = name
         self._chains = collections.OrderedDict()
         self._lock = threading.Lock()
+        _CACHES.append(self)
 
-    def get(self, key, device) -> Chain:
+    def clear(self) -> None:
+        with self._lock:
+            self._chains.clear()
+
+    def get(self, key, shard: int, device) -> Chain:
         device = torch.device(device)
         if device.type != "cuda":
             return Chain(self.name, device)
-        key = (device, key)
         with self._lock:
-            chain = self._chains.get(key)
-            if chain is None:
-                chain = self._chains[key] = Chain(self.name, device)
+            shards = self._chains.get(key)
+            if shards is None:
+                shards = self._chains[key] = {}
                 if len(self._chains) > MAXSIZE:
                     self._chains.popitem(last=False)
             else:
                 self._chains.move_to_end(key)
+            chain = shards.get((shard, device))
+            if chain is None:
+                chain = shards[(shard, device)] = Chain(self.name, device)
         return chain

@@ -149,3 +149,37 @@ def vocabulary_from_numpy(k: int, levels: int, centers, idf,
                       centers=[np.array(c, np.uint32) for c in centers],
                       idf=np.array(idf, np.float32),
                       node_level=int(node_level))
+
+
+def weak_scaling_problem(n_pts: int, n_cams: int, obs_per_pt: int,
+                         seed: int = 0):
+    """The JAX package's weak-scaling BA problem (``make_problem`` of
+    ``tools/weak_scaling.py``), bit for bit: ``n_pts`` points 8-16 units
+    ahead of ``n_cams`` cameras strung along x, each point seen
+    ``obs_per_pt`` times by random cameras, the projections with 0.5 px
+    of noise and the points with 0.05 units.  Returns (cams, points,
+    obs_cam, obs_pt, obs_uv, obs_isig2, obs_valid, fx, fy, cx, cy).
+    The tool sizes a mesh of ``n_dev`` devices with ``n_pts =
+    obs_per_device * n_dev // 4``, ``n_cams = 8 * n_dev`` and ``seed =
+    n_dev``, and fixes camera 0."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-8, 8, n_pts), rng.uniform(-6, 6, n_pts),
+                    rng.uniform(8, 16, n_pts)], 1).astype(np.float32)
+    cams = []
+    for i in range(n_cams):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = [0.3 * i, 0.02 * i, 0.0]
+        cams.append(T)
+    cams = np.stack(cams)
+    obs_pt = np.repeat(np.arange(n_pts, dtype=np.int32), obs_per_pt)
+    obs_cam = rng.integers(0, n_cams, len(obs_pt)).astype(np.int32)
+    fx = fy = 450.0
+    cx, cy = 320.0, 240.0
+    pc = np.einsum("oij,oj->oi", cams[obs_cam, :3, :3], pts[obs_pt]) \
+        + cams[obs_cam, :3, 3]
+    uv = pc[:, :2] / pc[:, 2:3] * [fx, fy] + [cx, cy]
+    uv = (uv + rng.normal(0, 0.5, uv.shape)).astype(np.float32)
+    pts_noisy = pts + rng.normal(0, 0.05, pts.shape).astype(np.float32)
+    return (cams, pts_noisy.astype(np.float32), obs_cam, obs_pt, uv,
+            np.ones(len(obs_pt), np.float32), np.ones(len(obs_pt), bool),
+            fx, fy, cx, cy)

@@ -503,10 +503,10 @@ def bundle_adjust_shard(shard: int, device, arrays: dict, fx: float,
                bool(use_huber),
                _longest(longest_cam, arrays["obs_cam"], K),
                _longest(longest_pt, arrays["obs_pt"], P))
-    key = (shard, cfg, int(iters), int(cg_iters), bool(shard_points),
+    key = (cfg, int(iters), int(cg_iters), bool(shard_points),
            graphs.capture_key(psum),
            *((k, np.shape(a)) for k, a in sorted(arrays.items())))
-    chain = _CHAINS.get(key, device)
+    chain = _CHAINS.get(key, shard, device)
     chain.load(**arrays)
     st = chain.run(_program(iters, cg_iters), cfg,
                    {"cam": psum, "pt": None if shard_points else psum},

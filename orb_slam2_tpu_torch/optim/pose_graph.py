@@ -369,9 +369,9 @@ def pose_graph_shard(shard: int, device, arrays: dict, iters: int,
     tensors are this shard's own."""
     K = len(arrays["sims"])
     cfg = _Cfg(K, _longest(None, arrays["edge_i"], arrays["edge_j"], K))
-    key = (shard, cfg, int(iters), int(cg_iters), graphs.capture_key(psum),
+    key = (cfg, int(iters), int(cg_iters), graphs.capture_key(psum),
            *((k, np.shape(a)) for k, a in sorted(arrays.items())))
-    chain = _CHAINS.get(key, device)
+    chain = _CHAINS.get(key, shard, device)
     chain.load(**arrays)
     st = chain.run(_program(iters, cg_iters), cfg, {"psum": psum},
                    cut_before=(_jacobians, _final_cost))

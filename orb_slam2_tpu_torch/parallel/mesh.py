@@ -11,7 +11,10 @@ counterparts:
   partial (a copy), then each shard sums the partials in shard order on
   its own device (so every shard gets the same bits, and runs repeat)
   and carries on.  A shard that raises aborts the barrier, so the others
-  fail instead of waiting; every wait has a timeout.
+  fail instead of waiting; every wait has a timeout.  Between cards the
+  partials travel card to card where the driver gives peer access
+  (``torch.cuda.can_device_access_peer``; PyTorch enables it at the
+  first copy), else through host memory.
 
   The shards take turns, in shard order, between two collectives: a
   turn passes to the next shard at each ``psum``.  The interpreter lock
@@ -131,6 +134,16 @@ class LocalMesh:
                 buf[d] = [leaf.clone() for leaf in leaves]
                 pass_turn(d)
                 wait_turn(d)        # every shard has deposited
+                # another card's deposit comes over by ``.to(dev)``.
+                # PyTorch runs a copy between cards on the source card's
+                # current stream of this thread, which is the default
+                # stream its shard cloned the deposit on (shards launch
+                # on their cards' default streams between replays),
+                # after an event from this card's current stream, and
+                # makes this card's stream wait for the copy: the copy
+                # reads the deposit after its clone, and the sum reads
+                # the copy.  A deposit's memory, freed two rounds later,
+                # returns to its card's allocator on that same stream.
                 out = []
                 for k in range(len(leaves)):
                     acc = buf[0][k].to(dev)

@@ -15,15 +15,25 @@ chains of the solvers capture the all-reduce (``graphs.Chain``), so
 NCCL creates it lazily at a group's first collective, which must not
 happen inside a capture.
 
+Before ``destroy_process_group`` on NCCL with several ranks, drop the
+solvers' chains (``graphs.clear_chains()``: a captured graph holds NCCL
+work of the communicator), synchronize, and let the group abort its
+communicator (``TORCH_NCCL_ABORT_IN_DESTROY_PG=1`` before
+``init_multihost``): four ranks whose graphs were alive hung in a plain
+teardown on four H100s, and did not with both (which one is needed is
+not measured).
+
 One process needs nothing from here; call ``parallel.make_mesh()``.
 """
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional
 
 import torch
 
+from . import mesh as mesh_mod
 from .mesh import ProcessGroupMesh
 
 
@@ -48,7 +58,10 @@ def init_multihost(coordinator: Optional[str] = None,
     """Join the process group from the arguments or the environment
     variables COORDINATOR_ADDRESS (host:port of rank 0's rendezvous,
     the ``tcp://`` init method), NUM_PROCESSES (the world size) and
-    PROCESS_ID (this rank), on the backend the module names."""
+    PROCESS_ID (this rank), on the backend the module names.  The
+    rendezvous and every collective time out after ``mesh.TIMEOUT_S``
+    seconds, as a local mesh's shards do: a rank that is missing or
+    stuck fails the others instead of holding them."""
     import torch.distributed as dist
     coordinator = coordinator or os.environ["COORDINATOR_ADDRESS"]
     if num_processes is None:
@@ -60,7 +73,8 @@ def init_multihost(coordinator: Optional[str] = None,
     dist.init_process_group(_backend(int(num_processes)),
                             init_method=coordinator,
                             world_size=int(num_processes),
-                            rank=int(process_id))
+                            rank=int(process_id),
+                            timeout=datetime.timedelta(seconds=mesh_mod.TIMEOUT_S))
 
 
 def make_global_mesh(axis: str = "obs", device=None) -> ProcessGroupMesh:

@@ -1000,6 +1000,117 @@ def test_nccl_captured_solves_equal_the_eager_solves(cuda):
         dist.destroy_process_group()
 
 
+def _cards(n: int) -> list:
+    """The first ``n`` cards; skips unless there are ``n``."""
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < n:
+        pytest.skip(f"needs {n} CUDA cards, {have} visible (on a host with "
+                    f"four: python3 -m pytest tests/test_torch_gpu.py -m gpu "
+                    f"--noconftest -k four_cards)")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.gpu
+def test_local_mesh_psum_on_four_cards():
+    """``LocalMesh.psum`` across four cards: each shard's partial comes
+    after a wait on its own card (``torch.cuda._sleep``), so a copy that
+    ran ahead of the deposit it reads would read stale memory; every
+    shard's sum is bitwise equal to the others' and to the sum in shard
+    order on one card."""
+    from orb_slam2_tpu_torch import parallel
+    devs = _cards(4)
+    rng = np.random.default_rng(0)
+    parts = [rng.normal(size=(1 << 20,)).astype(np.float32) for _ in devs]
+
+    def body(d, dev, psum):
+        x = torch.as_tensor(parts[d]).to(dev)
+        torch.cuda._sleep(20_000_000)
+        return psum(x * 1.0).cpu()
+    for _ in range(3):
+        got = parallel.LocalMesh(devs).run(body)
+        acc = torch.as_tensor(parts[0]).to(devs[0])
+        for p in parts[1:]:
+            acc = acc + torch.as_tensor(p).to(devs[0])
+        for d in range(4):
+            assert torch.equal(got[d], acc.cpu()), d
+
+
+@pytest.mark.gpu
+def test_readback_of_another_cards_tensors_on_four_cards():
+    """``graphs.Readback`` of a tensor on card 1 from a thread whose
+    current card is 0: the copy runs on card 1's stream, after a long
+    wait there, and the read waits for it (an event on card 0's stream
+    would not cover it)."""
+    from orb_slam2_tpu_torch import graphs
+    devs = _cards(4)
+    torch.cuda.set_device(devs[0])
+    for dev in devs[1:]:
+        with torch.cuda.device(dev):
+            x = torch.zeros(1 << 20, device=dev)
+            torch.cuda._sleep(100_000_000)
+            y = x + 7.0
+        got = graphs.Readback((y,)).arrays()[0]
+        assert (got == 7.0).all(), dev
+
+
+@pytest.mark.gpu
+def test_sharded_solves_on_four_cards_equal_the_eager_solves():
+    """The three sharded solvers on a local mesh of four cards: every
+    shard's results of the graphed first and warm calls bit for bit the
+    one-call cores (``eager=True``), on its own card; the replicated
+    cameras, vertices and cost bitwise equal on every shard; a warm call
+    waits for the card nowhere and captures nothing."""
+    from orb_slam2_tpu_torch import graphs, parallel
+    devs = _cards(4)
+
+    class Mesh(parallel.LocalMesh):
+        def run(self, body):
+            self.results = super().run(body)
+            return self.results
+
+    def captures():
+        return sum(v["captures"] for v in graphs.STATS.values())
+    for solve in _sharded_solves():
+        ref = Mesh(devs)
+        solve(ref, True)
+        for warm in (False, True):
+            mesh = Mesh(devs)
+            for d in devs:
+                torch.cuda.synchronize(d)
+            n_cap = captures()
+            if warm:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                solve(mesh, False)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if warm:
+                assert captures() == n_cap
+            for d, res in mesh.results.items():
+                for a, b in zip(res, ref.results[d]):
+                    assert a.device == devs[d] and torch.equal(a, b)
+            first = mesh.results[0]
+            for res in mesh.results.values():
+                for f in ("final_cost", "sims" if hasattr(first, "sims")
+                          else "cam_Tcw"):
+                    assert torch.equal(getattr(res, f).cpu(),
+                                       getattr(first, f).cpu())
+
+
+@pytest.mark.gpu
+def test_many_shards_keep_their_chains_warm(cuda):
+    """A local mesh of more shards than ``graphs.MAXSIZE`` on the card:
+    the graph-chain cache keeps a signature's chains for every shard,
+    so a second solve replays them and captures nothing."""
+    from orb_slam2_tpu_torch import graphs, parallel
+    devs = [cuda] * (graphs.MAXSIZE + 1)
+    solve = _sharded_solves()[1]
+    solve(parallel.LocalMesh(devs), False)
+    n_cap = sum(v["captures"] for v in graphs.STATS.values())
+    solve(parallel.LocalMesh(devs), False)
+    assert sum(v["captures"] for v in graphs.STATS.values()) == n_cap
+
+
 @pytest.mark.gpu
 def test_viewer_png_of_a_card_frame(cuda):
     """draw_frame on a card image and frame (device tensors read back on
