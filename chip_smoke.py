@@ -57,6 +57,18 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      captures inside it by graph and bucket, the map and the mapper's
      queue at its end and the tracker's map-lock wait; peak device
      memory and the kernels' launches over the run;
+  L. tests/test_scale_run.py's long run on the card, as the JAX test
+     runs it: 500 frames of 640x480 on a circuit, three noise frames
+     that force LOST and relocalization, sequential mapping, loop
+     closing on; the JAX test's bars (the late per-frame wall within 3x
+     the early one among them), at most 8 captures a graph, no host
+     sync on a steady frame; prints every capture by frame, graph and
+     bucket, allocated and reserved memory every 50 frames and what
+     the captures' memory pools hold;
+  L-bench. path H for 12 measured windows (1,216 frames), nothing else
+     changed: H's bars and the last window's p50 within 3x the first's;
+     per window fps, p50, p90, captures, lock waits, memory, the map
+     and the device point store's rows, and its re-allocations;
   5. path C: K4 through its entry point ``hamming_top2`` at 4096x4096
      with 20% of the columns invalid;
   6. path B, a loop that closes at full width: a drifted circuit with
@@ -161,11 +173,13 @@ then W's table, the kernel JSON line (B4's launches, K4's from path C),
 each card's nvidia-smi line and the ok line with ``"count": 4``.
 The kernel launch counts are read per path, each path driven with the
 counts set to 0 just before it.  The last three lines are a JSON object
-describing the kernels (``launches``: path A's; ``launches_h``: path
-H's), the card's name and power limit, and
+describing the kernels (``launches``: path A's; ``launches_h``,
+``launches_l``, ``launches_lb``: paths H's, L's and L-bench's), the
+card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 
-Eight diagnostics print no such lines: ``--path-h`` runs path H alone,
+Nine diagnostics print no such lines: ``--path-h`` runs path H alone,
+``--path-l`` paths L and L-bench alone,
 ``--repeat-f`` runs path B and
 then times path F's solves (with ``--tree DIR``: four processes, as
 ``--repeat-d``), ``--repeat-d`` runs path D twice
@@ -257,6 +271,13 @@ E_FRAMES = 24
 E_VOCAB_LEVELS = 6      # the shipped ORBvoc's depth (k=10: 1M words)
 E_RELOC_FRAME = 12
 E_LOC_FRAMES = 4
+# path L: tests/test_scale_run.py's run (500 frames, noise at 250-252);
+# path L-bench: bench.py's run for 12 measured windows (1,216 frames);
+# the JAX test's bar on the growth of the per-frame wall, for both
+L_FRAMES = 500
+L_BLACKOUT = range(250, 253)
+LB_WINDOWS = 12
+WALL_RATIO = 3.0
 
 # H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor cores and
 # device memory.  A Hamming distance of two 256-bit descriptors is
@@ -1415,7 +1436,122 @@ def phase_bench(device, world, cfg, pipelined: bool = True,
         tracker_cpu_ms=cpu, tracker_ms=wall)
 
 
-def phase_h(device) -> dict:
+class CaptureLog:
+    """Every CUDA graph capture made while it is entered, on any thread
+    (a wrapped ``graphs._Capture.__init__``): a dict each with the host
+    time, the frame being tracked as it was made (``frame``, set by the
+    caller), the graph, the bucket (the two largest argument shapes),
+    the bytes of its static inputs (clones in the default pool), its
+    memory pool and a weak reference to the capture; :meth:`pools`
+    reads back what the pools hold.  Each re-allocation of the device
+    point store (a wrapped ``DevicePoints._full_upload``) goes to
+    ``grows``: the frame, the new and old rows, the points, the
+    thread."""
+
+    def __init__(self):
+        self.caps = []
+        self.grows = []
+        self.frame = None
+
+    def __enter__(self):
+        import weakref
+        import torch
+        from orb_slam2_tpu_torch import graphs
+        from orb_slam2_tpu_torch.models.device_points import DevicePoints
+        init = self._init = graphs._Capture.__init__
+        upload = self._upload = DevicePoints._full_upload
+        book = self
+
+        def grown(dp, store, cap):
+            book.grows.append(dict(
+                frame=book.frame, rows=cap, old_rows=dp.cap,
+                points=store.n_points(),
+                thread=threading.current_thread().name))
+            return upload(dp, store, cap)
+        DevicePoints._full_upload = grown
+
+        def capture(cap, fn, args, *rest):
+            init(cap, fn, args, *rest)
+            shapes = sorted({tuple(a.shape) for a in args
+                             if isinstance(a, torch.Tensor)},
+                            key=lambda s: -int(np.prod(s)))
+            book.caps.append(dict(
+                t=time.perf_counter(), frame=book.frame, graph=rest[1],
+                bucket=" ".join("x".join(map(str, s)) for s in shapes[:2]),
+                static_bytes=sum(a.numel() * a.element_size()
+                                 for a in cap.static
+                                 if isinstance(a, torch.Tensor)),
+                pool=tuple(cap.graph.pool()), ref=weakref.ref(cap)))
+        graphs._Capture.__init__ = capture
+        return self
+
+    def __exit__(self, *exc):
+        from orb_slam2_tpu_torch import graphs
+        from orb_slam2_tpu_torch.models.device_points import DevicePoints
+        graphs._Capture.__init__ = self._init
+        DevicePoints._full_upload = self._upload
+
+    def between(self, t0: float, t1: float) -> dict:
+        """graph -> bucket -> captures made from ``t0`` to ``t1``."""
+        by = {}
+        for c in self.caps:
+            if t0 <= c["t"] <= t1:
+                by.setdefault(c["graph"], {}).setdefault(c["bucket"], 0)
+                by[c["graph"]][c["bucket"]] += 1
+        return by
+
+    def pools(self) -> dict:
+        """What the logged captures hold on the card now, from the
+        caching allocator's snapshot (segments by private pool): the
+        pools of which a capture is still cached (``live``: MiB reserved
+        and allocated in them, by graph) and those whose captures were
+        all evicted (``evicted``: freed only by
+        ``torch.cuda.empty_cache``), the cached captures and the MiB of
+        their static inputs."""
+        import torch
+        seg = {}
+        for s in torch.cuda.memory_snapshot():
+            pid = s.get("segment_pool_id")
+            if pid is None:
+                continue
+            r = seg.setdefault(tuple(pid), [0, 0])
+            r[0] += s["total_size"]
+            r[1] += s["allocated_size"]
+        mib = 2.0 ** -20
+        by_pool = {}
+        for c in self.caps:
+            p = by_pool.setdefault(c["pool"], dict(graphs=set(), live=0))
+            p["graphs"].add(c["graph"])
+            p["live"] += c["ref"]() is not None
+        out = dict(live=0, evicted=0, live_mib=0.0, live_alloc_mib=0.0,
+                   evicted_mib=0.0, static_mib=0.0, captures=0,
+                   by_graph={})
+        for pid, p in by_pool.items():
+            res, alloc = seg.get(pid, (0, 0))
+            if p["live"]:
+                out["live"] += 1
+                out["live_mib"] += res * mib
+                out["live_alloc_mib"] += alloc * mib
+                g = "+".join(sorted(p["graphs"]))
+                out["by_graph"][g] = out["by_graph"].get(g, 0) + res * mib
+            else:
+                out["evicted"] += 1
+                out["evicted_mib"] += res * mib
+        for c in self.caps:
+            if c["ref"]() is not None:
+                out["captures"] += 1
+                out["static_mib"] += c["static_bytes"] * mib
+        return out
+
+
+def memory_mib() -> dict:
+    """The caching allocator's allocated and reserved MiB now."""
+    import torch
+    return dict(alloc=torch.cuda.memory_allocated() / 2 ** 20,
+                reserved=torch.cuda.memory_reserved() / 2 ** 20)
+
+
+def phase_h(device, n_windows: int = None, label: str = "H") -> dict:
     """Path H: bench.py's run in this process, at its full default
     length, through the port's benchmark module
     (``orb_slam2_tpu_torch.bench``: ``bench_config``,
@@ -1429,26 +1565,38 @@ def phase_h(device) -> dict:
     MEDIAN_Z_BAR; no host sync in the extractions and fused dispatches
     of a measured frame that made no capture (SyncCounter); at most
     graphs.MAXSIZE captures a graph; K1-K3 launched, K1 at least once a
-    frame.  Prints one ``H {json}`` line: bench.py's JSON; per window
+    frame; the last window's p50 at most WALL_RATIO times the first's
+    (the JAX scale test's bar on the per-frame wall as the map grows).
+    Prints one ``H {json}`` line: bench.py's JSON; per window
     its fps, p50 and p90 frame ms, the captures made inside it by
     graph and bucket (the two largest argument shapes), the map at its
     end (keyframes valid and inserted, valid and allocated points, the
-    mapper's queue), the tracker's map-lock wait and the mapping
-    thread's hold of the lock (LockWaitClock), syncs on its frames
-    without a capture; captures in the warm-up and between the
-    windows; the link probes unrounded (``rt_ms``, ``up_ms``); peak
-    device memory; the kernels' launches over the run."""
+    mapper's queue, the device point store's rows), allocated and
+    reserved memory at its end, the tracker's map-lock wait and the
+    mapping thread's hold of the lock (LockWaitClock), syncs on its
+    frames without a capture; captures in the warm-up and between the
+    windows, every capture by frame, graph and bucket, each
+    re-allocation of the device point store (frame, rows), what the
+    captures hold (``CaptureLog.pools``); memory every 50 frames; the
+    link probes unrounded (``rt_ms``, ``up_ms``); peak device memory;
+    the kernels' launches over the run.
+
+    Path L-bench (``n_windows=LB_WINDOWS``, ``label="L-bench"``): the
+    same run for that many windows (1,216 frames), nothing else
+    changed."""
     import torch
     from orb_slam2_tpu_torch import bench, graphs, kernels
     from orb_slam2_tpu_torch.pipeline.system import System
     cfg = bench.bench_config()
-    n_warm, n_meas, n_windows = bench.bench_lengths()
+    n_warm, n_meas, n_default = bench.bench_lengths()
+    n_windows = n_windows or n_default
     n_total = n_warm + n_meas * n_windows
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     frames, poses = bench.bench_sequence(n_total, cfg.cam, device)
     stage_s = time.perf_counter() - t0
+    staged = memory_mib()
     system = System(cfg, enable_loop_closing=True, async_mapping=True,
                     device=device)
     clock = LockWaitClock(system.store.lock)
@@ -1458,28 +1606,23 @@ def phase_h(device) -> dict:
     system.factory.start = syncs.wrap(system.factory.start)
     system.tracker._fused_dispatch = syncs.wrap(
         system.tracker._fused_dispatch)
-    # every capture, on either thread: (host time, graph, bucket)
-    caps = []
-    capture_init = graphs._Capture.__init__
-
-    def capture(self, fn, args, dev, name):
-        capture_init(self, fn, args, dev, name)
-        shapes = sorted({tuple(a.shape) for a in args
-                         if isinstance(a, torch.Tensor)},
-                        key=lambda s: -int(np.prod(s)))
-        caps.append((time.perf_counter(), name,
-                     " ".join("x".join(map(str, s)) for s in shapes[:2])))
-    per_frame = {}
+    book = CaptureLog()
+    per_frame, curve = {}, []
     track, flush = system.track_monocular_with_pose, system.flush_tracking
 
     def tracked(image, timestamp, Tcw, next_image=None):
-        s0, c0 = syncs.counts["tracker"], len(caps)
+        i = int(round(timestamp * 10))
+        book.frame = i
+        if i % 50 == 0:
+            curve.append(dict(frame=i, **memory_mib()))
+        s0, c0 = syncs.counts["tracker"], len(book.caps)
         w0, h0 = clock.wait_s, clock.hold_s
         try:
             return track(image, timestamp, Tcw, next_image=next_image)
         finally:
-            per_frame[int(round(timestamp * 10))] = dict(
-                syncs=syncs.counts["tracker"] - s0, caps=len(caps) - c0,
+            per_frame[i] = dict(
+                syncs=syncs.counts["tracker"] - s0,
+                caps=len(book.caps) - c0,
                 wait=clock.wait_s - w0, held=clock.hold_s - h0)
     flushes = []
 
@@ -1488,50 +1631,46 @@ def phase_h(device) -> dict:
         try:
             return flush()
         finally:
+            dp = system.store._dev_points
             flushes.append(dict(wait=clock.wait_s - w0,
-                                held=clock.hold_s - h0))
+                                held=clock.hold_s - h0,
+                                dev_rows=dp.cap if dp else 0,
+                                **memory_mib()))
     system.track_monocular_with_pose = tracked
     system.flush_tracking = flushed
     kernels.reset_launch_counts()
     graphs.reset_stats()
-    graphs._Capture.__init__ = capture
     t0 = time.perf_counter()
-    try:
-        with syncs:
-            run = bench.run_windows(system, frames, poses, n_warm, n_meas,
-                                    n_windows)
-    finally:
-        graphs._Capture.__init__ = capture_init
+    with syncs, book:
+        run = bench.run_windows(system, frames, poses, n_warm, n_meas,
+                                n_windows)
     run_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     line = bench.result_line(run)
+    pools = book.pools()
 
     wins = []
     for w, win in enumerate(run["windows"]):
         ids = range(n_warm + w * n_meas, n_warm + (w + 1) * n_meas)
-        inside = [(name, bucket) for t, name, bucket in caps
-                  if win["start"] <= t <= win["stop"]]
-        by = {}
-        for name, bucket in inside:
-            by.setdefault(name, {}).setdefault(bucket, 0)
-            by[name][bucket] += 1
         quiet = [i for i in ids if per_frame[i]["caps"] == 0]
         times = np.asarray(win["times"]) * 1e3
+        fl = flushes[w]
         wins.append(dict(
             fps=win["fps"], n_ok=win["n_ok"],
             p50_ms=float(np.percentile(times, 50)),
             p90_ms=float(np.percentile(times, 90)),
-            max_ms=float(times.max()), captures=by,
+            max_ms=float(times.max()),
+            captures=book.between(win["start"], win["stop"]),
             frames_with_capture=[i for i in ids if per_frame[i]["caps"]],
             syncs_quiet=sum(per_frame[i]["syncs"] for i in quiet),
             n_quiet=len(quiet),
             lock_wait_ms=1e3 * (sum(per_frame[i]["wait"] for i in ids)
-                                + flushes[w]["wait"]),
+                                + fl["wait"]),
             mapper_lock_held_ms=1e3 * (sum(per_frame[i]["held"]
-                                           for i in ids)
-                                       + flushes[w]["held"]),
-            **win["end"]))
+                                           for i in ids) + fl["held"]),
+            alloc_mib=fl["alloc"], reserved_mib=fl["reserved"],
+            dev_rows=fl["dev_rows"], **win["end"]))
     first = run["windows"][0]["start"]
     last = run["windows"][-1]["stop"]
     in_windows = sum(sum(sum(b.values()) for b in x["captures"].values())
@@ -1542,46 +1681,204 @@ def phase_h(device) -> dict:
     stats = {k: v["captures"] for k, v in graphs.STATS.items()}
     out = dict(
         bench=line, windows=wins, n_warm=n_warm, n_meas=n_meas,
-        captures_warm=sum(t < first for t, _, _ in caps),
-        captures_between=sum(first <= t <= last for t, _, _ in caps)
+        captures_warm=sum(c["t"] < first for c in book.caps),
+        captures_between=sum(first <= c["t"] <= last for c in book.caps)
         - in_windows,
+        captures=[(c["frame"], c["graph"], c["bucket"]) for c in book.caps
+                  if c["t"] >= first],
         captures_by_graph=stats, loops_closed=loops, median_z=med_z,
-        map_points=len(pts), peak_mib=peak / 2 ** 20,
+        map_points=len(pts), dev_point_grows=book.grows, memory=curve,
+        pools=pools, staged_mib=staged, peak_mib=peak / 2 ** 20,
         allocated_before_mib=mem0 / 2 ** 20, staging_s=stage_s,
         run_s=run_s, rt_ms=run["rt_ms"], up_ms=run["up_ms"],
         launches={k: v for k, v in launches.items() if v})
-    log("H " + json.dumps(out))
+    log(f"{label} " + json.dumps(out))
     for w, x in enumerate(wins):
-        log(f"H window {w}: {x['fps']:.2f} fps, {x['n_ok']}/{n_meas} OK, "
-            f"p50 {x['p50_ms']:.1f} ms, p90 {x['p90_ms']:.1f} ms, max "
+        log(f"{label} window {w}: {x['fps']:.2f} fps, {x['n_ok']}/{n_meas} "
+            f"OK, p50 {x['p50_ms']:.1f} ms, p90 {x['p90_ms']:.1f} ms, max "
             f"{x['max_ms']:.1f} ms; captures inside it "
             f"{json.dumps(x['captures'])} (frames "
             f"{x['frames_with_capture']}); the tracker waited "
             f"{x['lock_wait_ms']:.1f} ms on the map lock, the mapping "
             f"thread held it {x['mapper_lock_held_ms']:.1f} ms; at its end "
             f"{x['kfs']} keyframes ({x['inserted']} inserted), {x['pts']} "
-            f"valid of {x['alloc']} allocated points, queue {x['qd']}")
-    log(f"H: bench.py's line {json.dumps(line)}; staged in {stage_s:.1f} "
-        f"s, run {run_s:.1f} s; peak device memory {peak / 2 ** 20:.0f} "
-        f"MiB ({mem0 / 2 ** 20:.0f} MiB allocated before H)")
+            f"valid of {x['alloc']} allocated points (device store "
+            f"{x['dev_rows']} rows), queue {x['qd']}, memory "
+            f"{x['alloc_mib']:.0f} MiB allocated / {x['reserved_mib']:.0f} "
+            f"reserved")
+    log(f"{label}: bench.py's line {json.dumps(line)}; staged in "
+        f"{stage_s:.1f} s, run {run_s:.1f} s; peak device memory "
+        f"{peak / 2 ** 20:.0f} MiB ({mem0 / 2 ** 20:.0f} MiB allocated "
+        f"before {label}); device point store re-allocations {book.grows}; "
+        f"the "
+        f"{pools['captures']} cached captures hold {pools['live_mib']:.0f} "
+        f"MiB reserved in {pools['live']} pools "
+        f"({json.dumps(pools['by_graph'])}), evicted ones "
+        f"{pools['evicted_mib']:.0f} MiB")
 
     for w, x in enumerate(wins):
-        check(x["n_ok"] == n_meas, f"H: window {w} tracked {x['n_ok']}/"
-              f"{n_meas} frames OK")
-        check(x["syncs_quiet"] == 0, f"H: window {w}'s frames without a "
-              f"capture synchronize with the host {x['syncs_quiet']} "
-              f"times, sites {dict(syncs.sites['tracker'])}")
-    check(loops == 0, f"H: {loops} loops closed on a straight sweep")
+        check(x["n_ok"] == n_meas, f"{label}: window {w} tracked "
+              f"{x['n_ok']}/{n_meas} frames OK")
+        check(x["syncs_quiet"] == 0, f"{label}: window {w}'s frames "
+              f"without a capture synchronize with the host "
+              f"{x['syncs_quiet']} times, sites "
+              f"{dict(syncs.sites['tracker'])}")
+    check(loops == 0, f"{label}: {loops} loops closed on a straight sweep")
     check(med_z is not None and med_z < MEDIAN_Z_BAR,
-          f"H: map points off the plane: median |z| {med_z} >= "
+          f"{label}: map points off the plane: median |z| {med_z} >= "
           f"{MEDIAN_Z_BAR}")
     for k, n in stats.items():
-        check(n <= graphs.MAXSIZE, f"H: {k} captured {n} times, more than "
-              f"its {graphs.MAXSIZE} kept")
+        check(n <= graphs.MAXSIZE, f"{label}: {k} captured {n} times, "
+              f"more than its {graphs.MAXSIZE} kept")
     for k in ("fast_score", "masked_top2_mutual", "masked_top2_epi"):
-        check(launches[k] > 0, f"H: kernel {k} never launched")
-    check(launches["fast_score"] >= n_total, f"H: K1 launched "
+        check(launches[k] > 0, f"{label}: kernel {k} never launched")
+    check(launches["fast_score"] >= n_total, f"{label}: K1 launched "
           f"{launches['fast_score']} times over {n_total} frames")
+    check(wins[-1]["p50_ms"] <= WALL_RATIO * wins[0]["p50_ms"],
+          f"{label}: the last window's p50 {wins[-1]['p50_ms']:.2f} ms is "
+          f"over {WALL_RATIO}x the first's {wins[0]['p50_ms']:.2f}")
+    return out
+
+
+def phase_l(device) -> dict:
+    """Path L: tests/test_scale_run.py's run on the card, as the JAX
+    test runs it: 640x480, 800 features, 4 levels, pose-prior mode,
+    sequential mapping, loop closing on; its world and 500-frame circuit
+    rendered on the card frame by frame (the port's renderer), frames
+    L_BLACKOUT uniform noise from ``default_rng(0)``; each
+    ``track_monocular_with_pose`` timed alone.  Bars: the JAX test's
+    (> 90% of frames OK; the noise loses tracking and relocalization
+    recovers it; the last 100 frames OK; >= 40 keyframes created and
+    culling fired; > 2,000 points; median |z| < 0.12; the median wall
+    of the last 80 frames at most WALL_RATIO times that of frames
+    60-139); at most graphs.MAXSIZE captures a graph; no host sync in
+    the extractions and fused dispatches of a steady frame (OK after an
+    OK frame, no keyframe, no capture); K1-K3 launched.  Prints one
+    ``L {json}`` line: the states' counts, relocalizations, loops, the
+    keyframes and points, median |z|, early and late median walls, every
+    capture by frame, graph and bucket, each re-allocation of the device
+    point store, allocated and reserved memory every 50 frames, what the
+    captures hold, the launches, the stage times (StageTimer)."""
+    import torch
+    from orb_slam2_tpu_torch import graphs, kernels
+    from orb_slam2_tpu_torch.geom.camera import Intrinsics
+    from orb_slam2_tpu_torch.ops.extractor import OrbParams
+    from orb_slam2_tpu_torch.pipeline.config import SlamConfig
+    from orb_slam2_tpu_torch.pipeline.system import System
+    from orb_slam2_tpu_torch.utils import synth
+    cam = Intrinsics(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640,
+                     height=480)
+    cfg = SlamConfig(cam=cam, orb=OrbParams(n_features=800, n_levels=4),
+                     fps=10.0, pose_prior=True, init_min_matches=60,
+                     init_min_triangulated=40, init_min_tracked_after_ba=60)
+    world = synth.make_world(seed=5, scale=60.0, tex_size=2048,
+                             device=device)
+    poses = synth.loop_trajectory(L_FRAMES, radius=16.0)
+    rng = np.random.default_rng(0)
+    system = System(cfg, enable_loop_closing=True, device=device)
+    syncs = SyncCounter()
+    system.factory.start = syncs.wrap(system.factory.start)
+    system.tracker._fused_dispatch = syncs.wrap(
+        system.tracker._fused_dispatch)
+    book = CaptureLog()
+    kernels.reset_launch_counts()
+    graphs.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    states, walls, fsyncs, fcaps, kfs, curve = [], [], [], [], [], []
+    t_run = time.perf_counter()
+    with syncs, book:
+        for i, T in enumerate(poses):
+            if i in L_BLACKOUT:
+                img = torch.from_numpy(rng.uniform(
+                    0, 255, (480, 640)).astype(np.float32)).to(device)
+            else:
+                img = synth.render(world, cam, T)
+            if i % 50 == 0:
+                curve.append(dict(frame=i, **memory_mib()))
+            book.frame = i
+            s0, c0, k0 = (syncs.counts["tracker"], len(book.caps),
+                          len(system.store.kfs))
+            t0 = time.perf_counter()
+            system.track_monocular_with_pose(img, i * 0.1, T)
+            walls.append(time.perf_counter() - t0)
+            states.append(system.state.name)
+            fsyncs.append(syncs.counts["tracker"] - s0)
+            fcaps.append(len(book.caps) - c0)
+            kfs.append(len(system.store.kfs) - k0)
+            if i % 25 == 0 or i in L_BLACKOUT:
+                log(f"L frame {i}: {states[-1]} {walls[-1] * 1e3:.1f} ms, "
+                    f"{len(system.store.kfs)} keyframes, "
+                    f"{system.store.n_valid_points()} points, captures "
+                    f"{fcaps[-1]}")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    curve.append(dict(frame=L_FRAMES, **memory_mib()))
+    launches = dict(kernels.LAUNCHES)
+    pools = book.pools()
+    stats = {k: v["captures"] for k, v in graphs.STATS.items()}
+    store = system.store
+    pts = system.map_points()
+    med_z = float(np.median(np.abs(pts[:, 2]))) if len(pts) else None
+    w = np.asarray(walls) * 1e3
+    early, late = float(np.median(w[60:140])), float(np.median(w[-80:]))
+    steady = [i for i in range(1, L_FRAMES) if states[i] == "OK"
+              and states[i - 1] == "OK" and not fcaps[i] and not kfs[i]]
+    bad = [(i, fsyncs[i]) for i in steady if fsyncs[i]]
+    reloc = int(system.tracker.last_reloc_frame_id)
+    lost = (any(states[i] != "OK" for i in L_BLACKOUT)
+            or states[L_BLACKOUT[0] + 1] != "OK")
+    recovered = (reloc >= L_BLACKOUT[0]
+                 and states[L_BLACKOUT[-1] + 10] == "OK")
+    created, valid = len(store.kfs), store.n_valid_keyframes()
+    n_ok = states.count("OK")
+    out = dict(
+        n_ok=n_ok, n_lost=states.count("LOST"),
+        states_blackout={i: states[i] for i in range(
+            L_BLACKOUT[0] - 1, L_BLACKOUT[-1] + 4)},
+        reloc_frame=reloc, loops_closed=system.loop_closer.n_loops_closed,
+        kfs_created=created, kfs_valid=valid,
+        points=store.n_valid_points(), points_alloc=store.n_points(),
+        median_z=med_z, early_ms=early, late_ms=late,
+        wall_ratio=late / early, max_ms=float(w.max()),
+        captures=[(c["frame"], c["graph"], c["bucket"])
+                  for c in book.caps],
+        captures_by_graph=stats, dev_point_grows=book.grows, memory=curve,
+        pools=pools, steady_frames=len(steady),
+        steady_syncs=sum(n for _, n in bad), run_s=run_s,
+        peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+        launches={k: v for k, v in launches.items() if v},
+        stages={k: [n, round(1e3 * t, 3)] for k, (n, t, _) in sorted(
+            {**system.tracker.timer.report(),
+             **system.mapper.timer.report()}.items())})
+    log("L " + json.dumps(out))
+    log(f"L: {n_ok}/{L_FRAMES} OK, relocalized at frame {reloc}, "
+        f"{out['loops_closed']} loops, {created} keyframes created / "
+        f"{valid} valid, {out['points']} points, median |z| {med_z}, wall "
+        f"{early:.2f} -> {late:.2f} ms ({late / early:.2f}x), "
+        f"{len(book.caps)} captures, memory {curve[0]} -> {curve[-1]}, run "
+        f"{run_s:.1f} s")
+    check(n_ok > 0.9 * L_FRAMES, f"L: tracked {n_ok}/{L_FRAMES}")
+    check(lost, f"L: the noise frames did not lose tracking: "
+          f"{out['states_blackout']}")
+    check(recovered, f"L: relocalization did not recover after the noise "
+          f"(last relocalization at frame {reloc}): "
+          f"{out['states_blackout']}")
+    check(all(s == "OK" for s in states[-100:]),
+          "L: a frame of the last 100 is not OK")
+    check(created >= 40, f"L: only {created} keyframes created")
+    check(valid < created, "L: keyframe culling never fired")
+    check(out["points"] > 2000, f"L: only {out['points']} points")
+    check(med_z is not None and med_z < 0.12,
+          f"L: map points off the plane: median |z| {med_z}")
+    check(late <= WALL_RATIO * early, f"L: the per-frame wall grew with "
+          f"the map: {early:.2f} -> {late:.2f} ms")
+    for k, n in stats.items():
+        check(n <= graphs.MAXSIZE, f"L: {k} captured {n} times, more than "
+              f"its {graphs.MAXSIZE} kept")
+    check(not bad, f"L: steady frames synchronize with the host: {bad}, "
+          f"sites {dict(syncs.sites['tracker'])}")
+    for k in ("fast_score", "masked_top2_mutual", "masked_top2_epi"):
+        check(launches.get(k, 0) > 0, f"L: kernel {k} never launched")
     return out
 
 
@@ -2200,7 +2497,7 @@ def gloo_worker(addr: str, rank: int, problem: str) -> int:
     from orb_slam2_tpu_torch import parallel
     from orb_slam2_tpu_torch.optim import ba
     parallel.init_multihost(coordinator=addr, num_processes=F_SHARDS,
-                            process_id=rank)
+                            process_id=rank, backend="gloo")
     import torch.distributed as dist
     mesh = parallel.make_global_mesh()
     p = np.load(problem)
@@ -4225,6 +4522,9 @@ def main() -> int:
                          "repeat_bench)")
     ap.add_argument("--path-h", action="store_true",
                     help="run only path H, bench.py's run (see phase_h)")
+    ap.add_argument("--path-l", action="store_true",
+                    help="run only paths L and L-bench, the long runs "
+                         "(see phase_l and phase_h)")
     ap.add_argument("--repeat-b", action="store_true",
                     help="run only path B, four times (see repeat_loop)")
     ap.add_argument("--loop-split", action="store_true",
@@ -4273,9 +4573,10 @@ def main() -> int:
     if args.nccl_worker and len(args.nccl_worker) not in (2, 4):
         ap.error("--nccl-worker takes HOST:PORT PROBLEM [RANK WORLD]")
     if args.tree and not (args.repeat_a or args.profile or args.loop_split
-                          or args.repeat_d or args.repeat_f):
+                          or args.repeat_d or args.repeat_f or args.path_h
+                          or args.path_l):
         ap.error("--tree goes with --repeat-a, --repeat-d, --repeat-f, "
-                 "--profile or --loop-split")
+                 "--profile, --loop-split, --path-h or --path-l")
     try:
         import torch
     except ImportError:
@@ -4373,10 +4674,13 @@ def main() -> int:
         except SmokeFailure as e:
             print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
             return 1
-    if args.profile or args.kernels_from or args.path_h:
+    if args.profile or args.kernels_from or args.path_h or args.path_l:
         try:
             if args.path_h:
                 phase_h(device)
+            elif args.path_l:
+                phase_l(device)
+                phase_h(device, LB_WINDOWS, "L-bench")
             elif args.profile:
                 phase_bench(device, world, cfg, profile=True)
             else:
@@ -4397,6 +4701,8 @@ def main() -> int:
             f" ms, max {path_a['max_ms']:.1f} against "
             f"{path_seq['max_ms']:.1f} ms")
         path_h = phase_h(device)
+        path_l = phase_l(device)
+        path_lb = phase_h(device, LB_WINDOWS, "L-bench")
         launches = path_a["launches"]
         from orb_slam2_tpu_torch.matching import hamming_top2 as ht
         k4_ref = ht.hamming_top2_plain(*k4_problem(4096, 4096, 0.2, 4,
@@ -4413,21 +4719,23 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
-    return finish(timing, launches, path_h["launches"], t_start, [smi],
-                  kind)
+    return finish(timing, launches, dict(
+        launches_h=path_h["launches"], launches_l=path_l["launches"],
+        launches_lb=path_lb["launches"]), t_start, [smi], kind)
 
 
-def finish(timing, launches, launches_h, t_start, smi: list,
+def finish(timing, launches, more, t_start, smi: list,
            kind: str) -> int:
     """The last lines: the kernels' JSON (``launches``: the main path's
-    run; ``launches_h``: path H's, where it ran), the nvidia-smi line of
-    each card used, and the ok line."""
+    run; ``more``: key -> another path's launches, where they ran:
+    ``launches_h`` path H's, ``launches_l`` L's, ``launches_lb``
+    L-bench's), the nvidia-smi line of each card used, and the ok
+    line."""
     import torch
     rows = []
     for t in timing:
         source, replaces = KERNEL_META[t["name"]]
-        h = {} if launches_h is None else dict(
-            launches_h=launches_h.get(t["name"], 0))
+        h = {k: v.get(t["name"], 0) for k, v in (more or {}).items()}
         # no single PyTorch call computes any of the four functions
         rows.append(dict(name=t["name"], route="cuda", source=source,
                          replaces=replaces, launches=launches[t["name"]],

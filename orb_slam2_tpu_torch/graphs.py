@@ -28,7 +28,14 @@ signature as a CUDA graph and replays it:
   the next, so the graph's own output buffers, which the next replay
   overwrites, are never handed out;
 - at most ``MAXSIZE`` captures are kept per function, least recently
-  used first out (the JAX package's ``lru_cache(maxsize=8)``).
+  used first out (the JAX package's ``lru_cache(maxsize=8)``);
+- the captures of one function on one card share one private memory
+  pool and one capture stream, so a capture reuses what the earlier
+  ones freed (their intermediates, an evicted capture's outputs): a
+  function's graphs hold about its largest capture, not the sum of
+  its captures.  Sharing is safe because a replay's outputs are cloned
+  right after it on the caller's stream, under the function's lock,
+  before another replay of the function can overwrite them.
 
 On the CPU ``graphed`` calls the function: the caller asked for the CPU.
 On the card a capture or replay that fails raises; nothing falls back
@@ -171,15 +178,16 @@ def _flatten(out, leaves: list):
 
 class _Capture:
     """One captured call: the graph, its static inputs and outputs, and
-    the kernel launches the capture recorded."""
+    the kernel launches the capture recorded.  ``side`` is the stream
+    the warm-up and the capture run on and ``pool`` the private memory
+    pool the capture allocates from (its function's, shared by its
+    captures on the card: the caching allocator reuses a pool's free
+    blocks only on the stream that freed them)."""
 
-    def __init__(self, fn, args, device, name):
+    def __init__(self, fn, args, device, name, side, pool):
         self.static = [a.clone() if isinstance(a, torch.Tensor) else a
                        for a in args]
-        # warm-up and capture on a stream of this capture's own: a
-        # capture that fails leaves that stream, and no other, unusable
         cur = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
         side.wait_stream(cur)
         t0 = time.perf_counter()
         with kernels.recording(), torch.cuda.stream(side):
@@ -194,7 +202,8 @@ class _Capture:
         # allocations and pinned uploads of both threads would pay
         # cudaMalloc / cudaHostAlloc again
         with kernels.recording() as rec, torch.cuda.stream(side):
-            self.graph.capture_begin(capture_error_mode="thread_local")
+            self.graph.capture_begin(pool=pool,
+                                     capture_error_mode="thread_local")
             try:
                 out = fn(*self.static)
             finally:
@@ -226,6 +235,10 @@ class Graphed:
         self.name = name
         self._captures = collections.OrderedDict()
         self._lock = threading.Lock()
+        # per card: the capture stream and the memory pool every capture
+        # of fn shares (see the module docstring)
+        self._side = {}
+        self._pools = {}
 
     def __call__(self, *args):
         devices = {a.device for a in args if isinstance(a, torch.Tensor)}
@@ -240,7 +253,17 @@ class Graphed:
         with self._lock, torch.cuda.device(device):
             cap = self._captures.get(key)
             if cap is None:
-                cap = _Capture(self.fn, args, device, self.name)
+                side = self._side.get(device)
+                if side is None:
+                    side = self._side[device] = torch.cuda.Stream(device)
+                    self._pools[device] = torch.cuda.graph_pool_handle()
+                try:
+                    cap = _Capture(self.fn, args, device, self.name, side,
+                                   self._pools[device])
+                except BaseException:
+                    # a failed capture leaves its stream unusable
+                    del self._side[device], self._pools[device]
+                    raise
                 self._captures[key] = cap
                 if len(self._captures) > MAXSIZE:
                     self._captures.popitem(last=False)

@@ -7,9 +7,15 @@ group and builds a :class:`~.mesh.ProcessGroupMesh` with one shard per
 rank.  The solvers (``dist_ba`` / ``dist_pose_graph``) are the same at
 any scale, because every sum already closes with the mesh's ``psum``.
 
-Backend: NCCL when every rank of the host has a card of its own, gloo
-on the CPU and when ranks share a card (NCCL refuses two ranks on one
-GPU; gloo reduces CUDA tensors through the host).  On NCCL the graph
+Backend: NCCL, which needs a card for every rank of the host; the
+number of ranks on this host is ``LOCAL_WORLD_SIZE`` (a launcher sets
+it), else the world size, which must then fit the host's cards: a
+world larger than the host's cards with ``LOCAL_WORLD_SIZE`` unset, or
+no visible card, raises rather than falling back to gloo.  Gloo runs
+only when the caller asks for it (``backend="gloo"``): CPU ranks, and
+ranks that share a card (NCCL refuses two ranks on one GPU; gloo
+reduces CUDA tensors through the host, and its sums cannot be
+captured).  On NCCL the graph
 chains of the solvers capture the all-reduce (``graphs.Chain``), so
 ``make_global_mesh`` creates the communicator with one eager collective:
 NCCL creates it lazily at a group's first collective, which must not
@@ -45,20 +51,45 @@ def _local_rank() -> int:
     return dist.get_rank() % n
 
 
-def _backend(num_processes: int) -> str:
-    local = int(os.environ.get("LOCAL_WORLD_SIZE", num_processes))
-    if torch.cuda.is_available() and torch.cuda.device_count() >= local:
+def _backend(num_processes: int, backend: Optional[str] = None) -> str:
+    """The process group's backend: ``backend`` where the caller names
+    one, else NCCL, checked against the host's cards (see the module
+    docstring)."""
+    if backend is not None:
+        if backend not in ("nccl", "gloo"):
+            raise ValueError(f"init_multihost: backend must be 'nccl' or "
+                             f"'gloo', got {backend!r}")
+        return backend
+    if not torch.cuda.is_available():
+        raise RuntimeError("init_multihost: no CUDA device is visible; "
+                           "pass backend='gloo' for CPU ranks")
+    cards = torch.cuda.device_count()
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    if not local:
+        if num_processes > cards:
+            raise RuntimeError(
+                f"init_multihost: a world of {num_processes} ranks exceeds "
+                f"this host's {cards} card(s) and LOCAL_WORLD_SIZE is unset: "
+                f"set LOCAL_WORLD_SIZE to the ranks on this host (NCCL, a "
+                f"card a rank), or pass backend='gloo'")
         return "nccl"
-    return "gloo"
+    if int(local) > cards:
+        raise RuntimeError(
+            f"init_multihost: LOCAL_WORLD_SIZE={local} ranks on this host "
+            f"but {cards} card(s): NCCL needs a card a rank; pass "
+            f"backend='gloo' for ranks that share a card")
+    return "nccl"
 
 
 def init_multihost(coordinator: Optional[str] = None,
                    num_processes: Optional[int] = None,
-                   process_id: Optional[int] = None) -> None:
+                   process_id: Optional[int] = None,
+                   backend: Optional[str] = None) -> None:
     """Join the process group from the arguments or the environment
     variables COORDINATOR_ADDRESS (host:port of rank 0's rendezvous,
     the ``tcp://`` init method), NUM_PROCESSES (the world size) and
-    PROCESS_ID (this rank), on the backend the module names.  The
+    PROCESS_ID (this rank), on NCCL, or on ``backend`` where the caller
+    names one ("gloo" for CPU ranks or ranks sharing a card).  The
     rendezvous and every collective time out after ``mesh.TIMEOUT_S``
     seconds, as a local mesh's shards do: a rank that is missing or
     stuck fails the others instead of holding them."""
@@ -70,7 +101,7 @@ def init_multihost(coordinator: Optional[str] = None,
         process_id = int(os.environ["PROCESS_ID"])
     if "://" not in coordinator:
         coordinator = f"tcp://{coordinator}"
-    dist.init_process_group(_backend(int(num_processes)),
+    dist.init_process_group(_backend(int(num_processes), backend),
                             init_method=coordinator,
                             world_size=int(num_processes),
                             rank=int(process_id),

@@ -1422,6 +1422,47 @@ def test_graphed_sync_raises_without_eager_fallback(cuda):
         out.stdout
 
 
+@pytest.mark.gpu
+def test_graphed_captures_share_one_pool(cuda):
+    """Three signatures of one function are captured into one private
+    memory pool; each replayed in turn, the others replayed between,
+    equals its first result and the eager call bit for bit; the shared
+    pool holds less than the three captures take in pools of their own
+    (the later captures reuse what the earlier ones freed)."""
+    from orb_slam2_tpu_torch import graphs
+
+    def f(a, b):
+        x = a @ b.T
+        y = torch.relu(x) * 0.5 + x.sin()
+        return y.sum(1), y.max(0).values
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    args = [(torch.randn(n, 64, device=cuda, generator=gen),
+             torch.randn(n, 64, device=cuda, generator=gen))
+            for n in (1024, 2048, 512)]
+
+    def pool_bytes(pools):
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id") or ()) in pools)
+    shared = graphs.graphed(f, "shared_pool")
+    first = [shared(*a) for a in args]
+    pools = {tuple(c.graph.pool()) for c in shared._captures.values()}
+    assert len(pools) == 1 and shared.n_captures() == 3
+    for _ in range(2):
+        for a, ref in zip(args, first):
+            got, eager = shared(*a), f(*a)
+            for x, y, z in zip(got, ref, eager):
+                assert torch.equal(x, y) and torch.equal(x, z)
+    alone = [graphs.graphed(f, f"own_pool_{i}") for i in range(3)]
+    for g, a in zip(alone, args):
+        g(*a)
+    own = {tuple(c.graph.pool()) for g in alone
+           for c in g._captures.values()}
+    assert len(own) == 3
+    torch.cuda.synchronize()
+    assert pool_bytes(pools) < pool_bytes(own)
+
+
 # ----------------------------------------------------------------------
 # the local mapper's CUDA graphs (pipeline/local_mapping.py) against
 # their eager calls

@@ -218,7 +218,8 @@ def worker():
     from orb_slam2_tpu_torch.parallel import (distributed_bundle_adjust,
                                               init_multihost,
                                               make_global_mesh)
-    init_multihost(coordinator=coord, num_processes=world, process_id=rank)
+    init_multihost(coordinator=coord, num_processes=world, process_id=rank,
+                   backend="gloo")
     mesh = make_global_mesh(device="cpu")
     assert mesh.size == world and mesh.local_shards() == [rank]
     p = np.load(path)

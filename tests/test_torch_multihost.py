@@ -3,7 +3,9 @@ port's init_multihost + make_global_mesh and run
 distributed_bundle_adjust on test_parallel.py's scene, one shard each
 (the port's counterpart of test_multihost.py).  Bars: both ranks
 print the same cost and the same cameras, within 1e-3 (rtol) of the
-single-device cost; every observation's inlier flag comes back.
+single-device cost; every observation's inlier flag comes back.  The
+backend rule of ``multihost._backend`` is held with the host's card
+count and environment patched: no silent fallback to gloo.
 
 The test runs this file as each rank's worker:
 
@@ -15,6 +17,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -28,7 +31,8 @@ def worker():
                                               init_multihost,
                                               make_global_mesh)
     import torch.distributed as dist
-    init_multihost(coordinator=coord, num_processes=world, process_id=rank)
+    init_multihost(coordinator=coord, num_processes=world, process_id=rank,
+                   backend="gloo")
     mesh = make_global_mesh(device="cpu")
     assert mesh.size == world and mesh.local_shards() == [rank]
     x = mesh.psum(torch.tensor([float(rank + 1)]))
@@ -90,6 +94,50 @@ def test_two_process_gloo_distributed_ba(tmp_path):
                                FX, FY, CX, CY, iters=10, cg_iters=30)
     np.testing.assert_allclose(costs[0], float(single.final_cost), rtol=1e-3)
     np.testing.assert_allclose(cams[0], single.cam_Tcw.numpy(), atol=2e-4)
+
+
+def _cards(monkeypatch, n, local=None):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: n > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+    if local is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", str(local))
+
+
+def test_backend_unset_local_world_beyond_the_cards_raises(monkeypatch):
+    """Eight ranks, four cards, LOCAL_WORLD_SIZE unset (two hosts launched
+    without a launcher): an error naming LOCAL_WORLD_SIZE, not gloo."""
+    from orb_slam2_tpu_torch.parallel.multihost import _backend
+    _cards(monkeypatch, 4)
+    with pytest.raises(RuntimeError, match="LOCAL_WORLD_SIZE"):
+        _backend(8)
+    assert _backend(4) == "nccl"     # the whole world on this host's cards
+
+
+def test_backend_set_local_world_is_nccl(monkeypatch):
+    """LOCAL_WORLD_SIZE set within the host's cards: NCCL for any world;
+    set beyond them: an error that says to ask for gloo."""
+    from orb_slam2_tpu_torch.parallel.multihost import _backend
+    _cards(monkeypatch, 4, local=4)
+    assert _backend(8) == "nccl"
+    _cards(monkeypatch, 4, local=8)
+    with pytest.raises(RuntimeError, match="backend='gloo'"):
+        _backend(8)
+
+
+def test_backend_gloo_only_when_asked(monkeypatch):
+    """gloo where the caller names it (on a host with cards or none);
+    no visible card and no backend named raises; an unknown name raises."""
+    from orb_slam2_tpu_torch.parallel.multihost import _backend
+    _cards(monkeypatch, 1)
+    assert _backend(2, "gloo") == "gloo"
+    _cards(monkeypatch, 0)
+    assert _backend(2, "gloo") == "gloo"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _backend(2)
+    with pytest.raises(ValueError):
+        _backend(2, "mpi")
 
 
 if __name__ == "__main__":

@@ -59,7 +59,8 @@ def worker():
     import torch.distributed as dist
     from orb_slam2_tpu_torch import graphs
     from orb_slam2_tpu_torch.parallel import init_multihost, make_global_mesh
-    init_multihost(coordinator=coord, num_processes=world, process_id=rank)
+    init_multihost(coordinator=coord, num_processes=world, process_id=rank,
+                   backend="gloo")
     mesh = make_global_mesh(device="cpu")
     print(f"rank={rank} backend={dist.get_backend()} "
           f"capturable={mesh.capturable}", flush=True)
