@@ -83,6 +83,22 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      the essential graph, global BA) against the same call with every
      CUDA graph run eagerly, bit for bit, and a warm call of each with
      no host sync;
+  B-height. path B over non-planar ground (after path F): B's texture
+     on tests/test_loop_proof.py's height field (make_height_world's
+     field, 1.5 units, over the texture's extent), rendered by
+     ``render_height``; B's bars, the map's std in z over 0.2 and at
+     most 8 captures a graph; prints B's lines, the map's size and
+     spread in z;
+  B-1M. path B with a 1,111,111-node ORBvoc (k=10, L=6, 10^6 words) as
+     the live vocabulary: ``synthetic_orbvoc`` written as a DBoW2
+     binary file, loaded back and given as ``System(..., vocab=)``
+     (tests/test_vocab_scale_live.py's boot path); bars: the JAX test's
+     (load under 120 s, a warm BoW transform under 2 s), B's loop and
+     ATE bars, a warm descent with no host sync, at most 8 captures of
+     the descent; prints the file's generation, write and load times,
+     the warm descent by CUDA events beside its replay and its copies
+     into the static inputs (the centers, ~35.6 MB a replay), what its
+     captures hold, the inverted file's size and a loop query's time;
   7. path D, estimated-pose mode at full width: path A's world and a
      50-frame sweep through ``track_monocular`` with no pose (the H/F
      two-view bootstrap, eager, whose time it prints; the motion model
@@ -174,12 +190,15 @@ each card's nvidia-smi line and the ok line with ``"count": 4``.
 The kernel launch counts are read per path, each path driven with the
 counts set to 0 just before it.  The last three lines are a JSON object
 describing the kernels (``launches``: path A's; ``launches_h``,
-``launches_l``, ``launches_lb``: paths H's, L's and L-bench's), the
+``launches_l``, ``launches_lb``, ``launches_b_height``,
+``launches_b_1m``: paths H's, L's, L-bench's, B-height's and B-1M's),
+the
 card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 
-Nine diagnostics print no such lines: ``--path-h`` runs path H alone,
-``--path-l`` paths L and L-bench alone,
+Eleven diagnostics print no such lines: ``--path-h`` runs path H alone,
+``--path-l`` paths L and L-bench alone, ``--path-bh`` / ``--path-b1m``
+path B-height / B-1M alone (both with both flags),
 ``--repeat-f`` runs path B and
 then times path F's solves (with ``--tree DIR``: four processes, as
 ``--repeat-d``), ``--repeat-d`` runs path D twice
@@ -240,6 +259,22 @@ LOOP_REVISIT = 14       # frames of the lap flown again
 LOOP_RADIUS = 20.0      # world units
 LOOP_DRIFT = 0.02       # prior drift per frame, world units
 LOOP_MIN_OK = 0.7       # share of frames tracked OK
+LOOP_SEED = 7           # the texture's (bench.py's world seed)
+# path B-height: path B over the JAX package's height field
+# (tests/test_loop_proof.py: make_height_world(seed=3, height_amp=1.5),
+# whose field is 28x28 random cells bicubic to 768x768 over the
+# texture's extent); its bar on the map's spread in z
+BH_AMP = 1.5
+BH_CELLS = 28
+BH_SIZE = 768
+BH_Z_STD = 0.2
+# path B-1M: path B with a 1,111,111-node ORBvoc (k=10, L=6) as the live
+# vocabulary (tests/test_vocab_scale_live.py: synthetic_orbvoc(k=10,
+# L=6, seed=7) through the DBoW2 binary file); the JAX test's bars on
+# the file's load and a warm BoW transform, host clock
+B1M_K, B1M_LEVELS, B1M_SEED = 10, 6, 7
+B1M_LOAD_S = 120.0
+B1M_TRANSFORM_S = 2.0
 # paths A and A-seq: bench.py's warm-up (BENCH_WARM), each frame
 # followed by flush_mapping; the frames after it are measured
 WARM_FRAMES = 16
@@ -2029,14 +2064,17 @@ class LoopWatch:
     ``profile``, each keyframe's loop-closer work runs under
     torch.profiler, and the loop keyframe's runtime calls are kept
     (``loop_kf["runtime"]``).  On a host with several cards global BA
-    is ``run_global_ba``'s sharded solve (SHARDED_GBA)."""
+    is ``run_global_ba``'s sharded solve (SHARDED_GBA).  ``label``
+    names the path in what it prints."""
 
-    def __init__(self, system, syncs, profile: bool = False):
+    def __init__(self, system, syncs, profile: bool = False,
+                 label: str = "B"):
         import importlib
         from orb_slam2_tpu_torch import parallel
         self.lc = lc = system.loop_closer
         self.syncs = syncs
         self.profile = profile
+        self.label = label
         self.graphed = hasattr(lc, "_ransac")
         self.sharded = len(parallel.local_devices(system.store.device)) > 1
         self.programs = tuple(
@@ -2128,15 +2166,15 @@ class LoopWatch:
         replays (bar: at most graphs.MAXSIZE)."""
         import torch
         lk = self.loop_kf
-        check(lk is not None, "B: no keyframe closed a loop")
-        log(f"B loop keyframe {lk['kid']}: the loop closer's work "
+        check(lk is not None, f"{self.label}: no keyframe closed a loop")
+        log(f"{self.label} loop keyframe {lk['kid']}: the loop closer's work "
             f"{lk['ms']:.1f} ms (host clock); stages, ms "
             f"{json.dumps({k: round(v, 1) for k, v in lk['stages'].items()})}"
             f"; host syncs {json.dumps(lk['syncs'])} (role loop: outside "
             f"the programs)")
         if lk["runtime"] is not None:
-            log(f"B loop keyframe {lk['kid']}, torch.profiler over the "
-                f"loop closer's work: {json.dumps(lk['runtime'])}")
+            log(f"{self.label} loop keyframe {lk['kid']}, torch.profiler "
+                f"over the loop closer's work: {json.dumps(lk['runtime'])}")
         split = {}
         for label, *_ in self.programs:
             calls = lk["calls"][label]
@@ -2156,15 +2194,16 @@ class LoopWatch:
                 calls=len(calls), ms=round(sum(c["ms"] for c in calls), 2),
                 first_ms=round(self.first_ms[label], 2),
                 warm_ms=round(warm[1], 2), warm_runtime=rt)
-            log(f"B loop keyframe, {label}: {json.dumps(split[label])}")
+            log(f"{self.label} loop keyframe, {label}: "
+                f"{json.dumps(split[label])}")
         if graphs is not None and self.graphed:
             stats = {k: dict(graphs.STATS.get(k, {})) for k in LOOP_GRAPHS}
-            log(f"B: the loop programs' graphs (captures, replays) over "
-                f"the run {json.dumps(stats)}")
+            log(f"{self.label}: the loop programs' graphs (captures, "
+                f"replays) over the run {json.dumps(stats)}")
             for k, v in stats.items():
                 n_cap = v.get("captures", 0)
-                check(n_cap <= graphs.MAXSIZE, f"B: {k} captured {n_cap} "
-                      f"times, more than its {graphs.MAXSIZE} kept")
+                check(n_cap <= graphs.MAXSIZE, f"{self.label}: {k} captured "
+                      f"{n_cap} times, more than its {graphs.MAXSIZE} kept")
         return split
 
     def check_graphs(self) -> None:
@@ -2220,8 +2259,40 @@ class LoopWatch:
             f"host sync; calls and first shapes {json.dumps(checked)}")
 
 
+def loop_world(device, ground: str = "plane"):
+    """Path B's ground (``"plane"``): a square texture that holds the
+    circle plus the footprint's half-diagonal (15 units at height 12)
+    and a unit of margin, at bench.py's 120 px per unit; with
+    ``"height"``, path B-height's: the same texture over a height field
+    made as the port's ``synth.make_height_world`` makes its field
+    (seed + 12345, 28x28 cells bicubic to 768x768, scaled to BH_AMP
+    units), spread over the texture's extent.  ``make_height_world``
+    takes no texture shape and anchors its texture's cells to a square
+    ``tex_size``, so it cannot give path B's texture itself."""
+    import torch
+    import torch.nn.functional as F
+    from orb_slam2_tpu_torch.utils import synth
+    side = int(np.ceil(2 * (LOOP_RADIUS + 16.0) * 120.0 / 128)) * 128
+    world = synth.make_world(seed=LOOP_SEED, tex_size=4096, scale=120.0,
+                             tex_shape=(side, side), device=device)
+    if ground == "plane":
+        return world
+    rng = np.random.default_rng(LOOP_SEED + 12345)
+    h = torch.as_tensor(rng.uniform(-1, 1, (BH_CELLS, BH_CELLS))
+                        .astype(np.float32), device=device)
+    h = F.interpolate(h[None, None], size=(BH_SIZE, BH_SIZE),
+                      mode="bicubic", align_corners=False)[0, 0]
+    h = BH_AMP * h / torch.clamp(h.abs().max(), min=1e-9)
+    return synth.HeightWorld(
+        texture=world.texture, heights=h, scale=world.scale,
+        h_scale=BH_SIZE / (side / world.scale), origin=world.origin,
+        h_origin=np.array([BH_SIZE / 2, BH_SIZE / 2], np.float32))
+
+
 def phase_loop(device, cfg, trail: list = None, record: dict = None,
-               watch: bool = False, profile: bool = False):
+               watch: bool = False, profile: bool = False,
+               ground: str = "plane", vocab=None, label: str = "B",
+               keep: dict = None):
     """Path B: a drifted circuit at bench width, bench.py's
     configuration with sequential tracking and mapping, so that whether
     the loop fires does not depend on thread timing or pipeline lag.
@@ -2230,9 +2301,13 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None,
     inputs (``ba``), the essential graph's (``pose_graph``) and the map
     as run_global_ba found it (``store``, an ``interop`` snapshot).
     ``watch``: the loop keyframe's split (``LoopWatch``), and, where the
-    port graphs the loop programs, phase G's check of them; ``profile``:
-    the loop keyframe's runtime calls too (timings then include the
-    profiler's cost)."""
+    port graphs the loop programs and the path is B, phase G's check of
+    them; ``profile``: the loop keyframe's runtime calls too (timings
+    then include the profiler's cost).  ``ground``: ``loop_world``'s
+    (``"height"``: rendered by ``synth.render_height``); ``vocab``: the
+    live vocabulary (``System(..., vocab=)``; None trains one online);
+    ``label`` names the path in what it prints; with ``watch``, ``keep``
+    receives the System, the ATEs and the loop keyframe."""
     import dataclasses
     import torch
     from orb_slam2_tpu_torch import interop, kernels
@@ -2241,17 +2316,14 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None,
     from orb_slam2_tpu_torch.pipeline.tracking import TrackState
     from orb_slam2_tpu_torch.utils import synth
     true, fed = loop_circuit()
-    # a square texture that holds the circle plus the footprint's
-    # half-diagonal (15 units at height 12) and a unit of margin, at
-    # bench.py's 120 px per unit
-    side = int(np.ceil(2 * (LOOP_RADIUS + 16.0) * 120.0 / 128)) * 128
-    world = synth.make_world(seed=7, tex_size=4096, scale=120.0,
-                             tex_shape=(side, side), device=device)
-    frames = [synth.render(world, cfg.cam, T) for T in true]
+    world = loop_world(device, ground)
+    render = synth.render_height if ground == "height" else synth.render
+    frames = [render(world, cfg.cam, T) for T in true]
     torch.cuda.synchronize()
     lcfg = dataclasses.replace(cfg, loop_min_kfs_since_last=6,
                                pipelined_tracking=False)
-    system = System(lcfg, enable_loop_closing=True, device=device)
+    system = System(lcfg, enable_loop_closing=True, vocab=vocab,
+                    device=device)
     lc = system.loop_closer
     # keyframe ATE at each stage of the correction (the group correction
     # and loop fuse run before the essential graph, global BA after it)
@@ -2273,7 +2345,7 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None,
         from orb_slam2_tpu_torch import graphs
         graphs.reset_stats()
         syncs = SyncCounter()
-        lw = LoopWatch(system, syncs, profile=profile)
+        lw = LoopWatch(system, syncs, profile=profile, label=label)
         syncs.__enter__()
     from orb_slam2_tpu_torch import parallel
     solvers = (ba.bundle_adjust, pose_graph.optimize_pose_graph,
@@ -2334,7 +2406,7 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None,
             frame_ms.append((time.perf_counter() - t0) * 1e3)
             states.append(system.state)
             loops.append(system.loop_closer.n_loops_closed)
-            log(f"B frame {i:2d}: {system.state.name:15s} "
+            log(f"{label} frame {i:2d}: {system.state.name:15s} "
                 f"kfs={system.store.n_valid_keyframes():3d} "
                 f"loops={system.loop_closer.n_loops_closed} "
                 f"{frame_ms[-1]:9.1f} ms")
@@ -2349,34 +2421,35 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None,
     n_ok = sum(s == TrackState.OK for s in states)
     last = {k: v for k, v in (lc.last_loop or {}).items()
             if k != "loop_connections"}
-    log(f"B: {n_ok}/{len(true)} frames OK, {lc.n_loops_closed} loops "
+    log(f"{label}: {n_ok}/{len(true)} frames OK, {lc.n_loops_closed} loops "
         f"closed, last {last}")
     check(n_ok >= LOOP_MIN_OK * len(true),
-          f"B: only {n_ok}/{len(true)} frames OK")
-    check(lc.n_loops_closed >= 1, "B: the loop never closed")
+          f"{label}: only {n_ok}/{len(true)} frames OK")
+    check(lc.n_loops_closed >= 1, f"{label}: the loop never closed")
     check(lc.last_loop["n_matched"] >= lcfg.loop_min_total_matches,
-          f"B: {lc.last_loop['n_matched']} loop matches < "
+          f"{label}: {lc.last_loop['n_matched']} loop matches < "
           f"{lcfg.loop_min_total_matches}")
     pts = system.map_points()
     check(len(pts) > 0 and bool(np.isfinite(pts).all()),
-          "B: map points missing or not finite")
+          f"{label}: map points missing or not finite")
     check(all(np.isfinite(kf.Tcw).all() for kf in system.store.kfs
-              if kf.valid), "B: a keyframe pose is not finite")
+              if kf.valid), f"{label}: a keyframe pose is not finite")
     ate = kf_ate(system.store, true)
     ate_prior = kf_ate(system.store, true, poses=fed)
-    log(f"B: keyframe ATE {ate:.4f} after loop correction, {ate_prior:.4f} "
-        f"for the fed priors at the same {system.store.n_valid_keyframes()} "
-        f"keyframes (Sim3-aligned); at the first loop, after "
+    log(f"{label}: keyframe ATE {ate:.4f} after loop correction, "
+        f"{ate_prior:.4f} for the fed priors at the same "
+        f"{system.store.n_valid_keyframes()} keyframes (Sim3-aligned); at "
+        f"the first loop, after "
         + ", ".join(f"{k} {v:.4f}" for k, v in stage_ate[:3]))
-    check(ate < ate_prior, f"B: corrected keyframe ATE {ate:.4f} is not "
+    check(ate < ate_prior, f"{label}: corrected keyframe ATE {ate:.4f} is not "
           f"below the priors' {ate_prior:.4f}")
 
     for name in ("fast_score", "masked_top2_mutual", "masked_top2_epi"):
-        check(launches[name] > 0, f"B: kernel {name} never launched")
-    log(f"B: kernel launches {json.dumps(launches)}")
-    log("B: loop-closing stages (host clock):\n" + lc.timer.summary())
+        check(launches[name] > 0, f"{label}: kernel {name} never launched")
+    log(f"{label}: kernel launches {json.dumps(launches)}")
+    log(f"{label}: loop-closing stages (host clock):\n" + lc.timer.summary())
     first_loop = next(i for i, n in enumerate(loops) if n >= 1)
-    log(f"B: median frame {np.median(frame_ms):.1f} ms, max "
+    log(f"{label}: median frame {np.median(frame_ms):.1f} ms, max "
         f"{np.max(frame_ms):.1f} ms; the first loop closed on frame "
         f"{first_loop}, in {frame_ms[first_loop]:.1f} ms (host clock, the "
         f"frame's tracking and its keyframe's mapping included)")
@@ -2387,9 +2460,168 @@ def phase_loop(device, cfg, trail: list = None, record: dict = None,
     if watch:
         from orb_slam2_tpu_torch import graphs
         lw.report(graphs)
-        if lw.graphed:
+        if keep is not None:
+            keep.update(system=system, ate=ate, ate_prior=ate_prior,
+                        stage_ate=stage_ate, loop_kf=lw.loop_kf["kid"])
+        if lw.graphed and label == "B":
             lw.check_graphs()
     return launches
+
+
+def graph_captures(label: str, names=None) -> dict:
+    """Each graph's captures and replays since the last
+    ``graphs.reset_stats()`` (``names``: those graphs only); bar: at
+    most ``graphs.MAXSIZE`` captures a graph."""
+    from orb_slam2_tpu_torch import graphs
+    stats = {k: dict(captures=v["captures"], replays=v["replays"])
+             for k, v in graphs.STATS.items()
+             if names is None or k in names}
+    log(f"{label}: captures and replays by graph over the run "
+        f"{json.dumps(stats)}")
+    for k, v in stats.items():
+        check(v["captures"] <= graphs.MAXSIZE, f"{label}: {k} captured "
+              f"{v['captures']} times, more than its {graphs.MAXSIZE} kept")
+    return stats
+
+
+def phase_b_height(device, cfg) -> dict:
+    """Path B-height: path B over a height field (``loop_world(...,
+    "height")``: B's texture on tests/test_loop_proof.py's field,
+    BH_AMP units), rendered by ``synth.render_height``.  Bars: path B's
+    (a loop closed, 0.7 of the frames OK, finite map and poses, KF ATE
+    after the corrections below the drifted priors' at the same
+    keyframes), std(map z) > BH_Z_STD and at most ``graphs.MAXSIZE``
+    captures a graph.  Prints B's lines (the KF ATE at each stage of the
+    first correction, the loop keyframe's split), the map's points and
+    keyframes and their spread in z."""
+    keep = {}
+    launches = phase_loop(device, cfg, watch=True, ground="height",
+                          label="B-height", keep=keep)
+    system = keep["system"]
+    pts = system.map_points()
+    z_std = float(np.std(pts[:, 2]))
+    out = dict(points=len(pts), keyframes=system.store.n_valid_keyframes(),
+               z_std=z_std, z_median_abs=float(np.median(np.abs(pts[:, 2]))),
+               ate=keep["ate"], ate_prior=keep["ate_prior"],
+               stage_ate=keep["stage_ate"], loop_kf=keep["loop_kf"],
+               launches=launches)
+    out["captures"] = graph_captures("B-height")
+    log("B-height " + json.dumps(out))
+    check(z_std > BH_Z_STD, f"B-height: std(map z) {z_std:.4f} <= "
+          f"{BH_Z_STD}: the map collapsed to a plane")
+    return out
+
+
+def phase_b_1m(device, cfg) -> dict:
+    """Path B-1M: path B with a 10^6-word ORBvoc as the live vocabulary:
+    ``synthetic_orbvoc(k=10, L=6, seed=7)`` written with
+    ``save_orbvoc_binary`` to a temporary directory, loaded with
+    ``load_orbvoc_binary`` and given as ``System(..., vocab=)``.  Bars:
+    the JAX test's (the load under B1M_LOAD_S, a warm BoW transform of
+    the loop keyframe's descriptors under B1M_TRANSFORM_S on the host
+    clock), path B's (a loop closed, KF ATE below the priors'), a warm
+    descent with no host sync, at most ``graphs.MAXSIZE`` captures of
+    ``bow_transform``.  Prints the generation, write and load times,
+    the warm descent by CUDA events (the call, its graph's replay alone,
+    the copies into its static inputs alone), the bytes a replay copies
+    into them and what its captures hold (their static inputs, their
+    pool), the inverted file's size, the loop-candidate query's time
+    and B's lines (the loop keyframe's split)."""
+    import tempfile
+    import torch
+    from orb_slam2_tpu_torch.io import orbvoc
+    from orb_slam2_tpu_torch.models import vocabulary
+    t0 = time.perf_counter()
+    voc = orbvoc.synthetic_orbvoc(k=B1M_K, L=B1M_LEVELS, seed=B1M_SEED)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "ORBvoc.bin")
+        orbvoc.save_orbvoc_binary(voc, path)
+        t2 = time.perf_counter()
+        voc = orbvoc.load_orbvoc_binary(path)
+        t3 = time.perf_counter()
+        file_bytes = os.path.getsize(path)
+    out = dict(words=voc.n_words, node_level=voc.node_level,
+               file_bytes=file_bytes, generate_s=t1 - t0, write_s=t2 - t1,
+               load_s=t3 - t2)
+    log(f"B-1M: ORBvoc k={voc.k} L={voc.levels}: {voc.n_words} words, "
+        f"{file_bytes} B file; generated {out['generate_s']:.2f} s, "
+        f"written {out['write_s']:.2f} s, loaded {out['load_s']:.2f} s")
+    check(voc.n_words == B1M_K ** B1M_LEVELS,
+          f"B-1M: {voc.n_words} words loaded")
+    check(out["load_s"] < B1M_LOAD_S,
+          f"B-1M: the load took {out['load_s']:.1f} s")
+    keep = {}
+    with CaptureLog() as caps:
+        launches = phase_loop(device, cfg, watch=True, vocab=voc,
+                              label="B-1M", keep=keep)
+    system = keep["system"]
+    pr = system.place_rec
+    check(pr.vocab is voc, "B-1M: the system's vocabulary is not the "
+          "loaded ORBvoc")
+    out.update(ate=keep["ate"], ate_prior=keep["ate_prior"],
+               loop_kf=keep["loop_kf"], launches=launches,
+               captures=graph_captures("B-1M", ("bow_transform",)))
+    # the warm descent of the loop keyframe's descriptors
+    desc = system.store.kfs[keep["loop_kf"]].frame.dev("desc")
+    centers = voc.device_arrays(desc.device)
+    voc.transform(desc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    words, _ = voc.transform(desc)
+    words.cpu()
+    out["transform_host_ms"] = (time.perf_counter() - t0) * 1e3
+    check(out["transform_host_ms"] < B1M_TRANSFORM_S * 1e3,
+          f"B-1M: a warm BoW transform took "
+          f"{out['transform_host_ms']:.1f} ms")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        voc.transform(desc)
+    except RuntimeError as e:
+        raise SmokeFailure(f"B-1M: a warm descent synchronizes with the "
+                           f"host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cap = next(reversed(vocabulary._transform_graph._captures.values()))
+    args = (desc, voc.k, voc.node_level, *centers)
+
+    def copies():
+        for s, a in zip(cap.static, args):
+            if isinstance(s, torch.Tensor):
+                s.copy_(a)
+    out.update(
+        rows=desc.shape[0],
+        transform_ms=cuda_ms(lambda: voc.transform(desc)),
+        replay_ms=cuda_ms(cap.graph.replay),
+        copies_ms=cuda_ms(copies),
+        replay_copy_bytes=sum(s.numel() * s.element_size()
+                              for s in cap.static
+                              if isinstance(s, torch.Tensor)),
+        center_bytes=sum(c.numel() * c.element_size() for c in centers))
+    mib = 2.0 ** -20
+    held = [c for c in caps.caps
+            if c["graph"] == "bow_transform" and c["ref"]() is not None]
+    out.update(
+        transform_captures=len(held),
+        transform_static_mib=sum(c["static_bytes"] for c in held) * mib,
+        transform_pool_mib=caps.pools()["by_graph"].get("bow_transform",
+                                                        0.0))
+    # the inverted file and a loop query against it
+    bows = pr.db.bow
+    out.update(db_keyframes=len(bows),
+               db_postings=sum(len(v) for v in bows.values()),
+               db_words=len(set().union(*map(set, bows.values()))))
+    kid = keep["loop_kf"]
+    min_score = pr.min_covisible_score(kid)
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        cands = pr.loop_candidates(kid, min_score)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out.update(query_ms=float(np.median(times)), query_candidates=cands)
+    log("B-1M " + json.dumps(out))
+    return out
 
 
 # path F: the distributed solvers on path B's problems, two shards on
@@ -4525,6 +4757,13 @@ def main() -> int:
     ap.add_argument("--path-l", action="store_true",
                     help="run only paths L and L-bench, the long runs "
                          "(see phase_l and phase_h)")
+    ap.add_argument("--path-bh", action="store_true",
+                    help="run only path B-height, path B over a height "
+                         "field (see phase_b_height); with --path-b1m, "
+                         "both")
+    ap.add_argument("--path-b1m", action="store_true",
+                    help="run only path B-1M, path B with a 10^6-word "
+                         "ORBvoc (see phase_b_1m)")
     ap.add_argument("--repeat-b", action="store_true",
                     help="run only path B, four times (see repeat_loop)")
     ap.add_argument("--loop-split", action="store_true",
@@ -4674,9 +4913,15 @@ def main() -> int:
         except SmokeFailure as e:
             print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
             return 1
-    if args.profile or args.kernels_from or args.path_h or args.path_l:
+    if (args.profile or args.kernels_from or args.path_h or args.path_l
+            or args.path_bh or args.path_b1m):
         try:
-            if args.path_h:
+            if args.path_bh or args.path_b1m:
+                if args.path_bh:
+                    phase_b_height(device, cfg)
+                if args.path_b1m:
+                    phase_b_1m(device, cfg)
+            elif args.path_h:
                 phase_h(device)
             elif args.path_l:
                 phase_l(device)
@@ -4714,6 +4959,8 @@ def main() -> int:
         phase_dist(device, record)
         check(sum(kernels.LAUNCHES.values()) == 0,
               f"F: kernels launched: {dict(kernels.LAUNCHES)}")
+        path_bh = phase_b_height(device, cfg)
+        path_b1m = phase_b_1m(device, cfg)
         phase_estimated(device, world, cfg)
         phase_cli(device, cfg, smi)
     except SmokeFailure as e:
@@ -4721,7 +4968,9 @@ def main() -> int:
         return 1
     return finish(timing, launches, dict(
         launches_h=path_h["launches"], launches_l=path_l["launches"],
-        launches_lb=path_lb["launches"]), t_start, [smi], kind)
+        launches_lb=path_lb["launches"],
+        launches_b_height=path_bh["launches"],
+        launches_b_1m=path_b1m["launches"]), t_start, [smi], kind)
 
 
 def finish(timing, launches, more, t_start, smi: list,
@@ -4729,8 +4978,8 @@ def finish(timing, launches, more, t_start, smi: list,
     """The last lines: the kernels' JSON (``launches``: the main path's
     run; ``more``: key -> another path's launches, where they ran:
     ``launches_h`` path H's, ``launches_l`` L's, ``launches_lb``
-    L-bench's), the nvidia-smi line of each card used, and the ok
-    line."""
+    L-bench's, ``launches_b_height`` B-height's, ``launches_b_1m``
+    B-1M's), the nvidia-smi line of each card used, and the ok line."""
     import torch
     rows = []
     for t in timing:

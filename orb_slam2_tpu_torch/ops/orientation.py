@@ -37,7 +37,9 @@ def ic_angle(image: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor
              ) -> torch.Tensor:
     """Angles in radians, (N,).  Keypoints are >= 16 px from the border
     (the detector's margin), so the edge-padded frame never reaches
-    them."""
+    them.  Rows that ``grid_topk`` left invalid may point into its
+    padding past the image's edge; they are clamped to it, as the JAX
+    package's gathers clamp."""
     h, w = image.shape
     im = image.float()
     xcol = torch.arange(w, dtype=torch.float32, device=im.device)[None, :]
@@ -60,8 +62,8 @@ def ic_angle(image: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor
         m01_map = m01_map + float(ddy) * rs
         s_map = s_map + rs
         sx_map = sx_map + rsx
-    ys = ys.long()
-    xs = xs.long()
+    ys = ys.long().clamp(0, h - 1)
+    xs = xs.long().clamp(0, w - 1)
     m01 = m01_map[ys, xs]
     m10 = sx_map[ys, xs] - xs.float() * s_map[ys, xs]
     return torch.atan2(m01, m10)

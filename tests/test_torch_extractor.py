@@ -117,6 +117,26 @@ def test_extractor_angles_and_descriptors(both):
     assert (bits_r == bits_o).mean() >= 0.99
 
 
+def test_extractor_dense_budget(image):
+    """A budget above the corners the levels hold (4,000 features on 4
+    levels of 640x480): grid_topk leaves slots invalid, some pointing
+    into its padding past a level's edge, where the JAX package's
+    gathers clamp.  The port's orientation indexed them unclamped and
+    raised IndexError.  Bars: the same valid count and >= 99% of the
+    JAX run's valid keypoints (position and octave) among the port's,
+    as test_extractor_keypoints; measured 3,796 of 3,796."""
+    p = dict(n_features=4000, n_levels=4)
+    ref = jex.make_extractor(480, 640, jex.OrbParams(**p))(jnp.asarray(image))
+    out = tex.extract(torch.from_numpy(image), tex.OrbParams(**p))
+    keys = []
+    for f in (ref, out):
+        valid = np.asarray(f.valid)
+        keys.append(set(map(tuple, np.c_[np.asarray(f.xy)[valid],
+                                         np.asarray(f.octave)[valid]])))
+    assert len(keys[1]) == len(keys[0]) > 3000
+    assert len(keys[0] & keys[1]) >= 0.99 * len(keys[0])
+
+
 def test_undistort_points():
     """Bar: 1e-3 px (the same float32 fixed-point iteration)."""
     kw = dict(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640, height=480,

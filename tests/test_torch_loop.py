@@ -344,29 +344,42 @@ def _kf_ate(store, true, poses=None):
     return ate_rmse(np.stack(est), np.stack(gt), align="sim3")
 
 
-@pytest.fixture(scope="module")
-def circuit():
-    true, fed = _circuit()
-    cfg = SlamConfig(cam=Intrinsics(**CAM_KW),
-                     orb=OrbParams(n_features=800, n_levels=4), **CFG_KW)
-    world = synth.make_world(seed=3, device="cpu")
-    images = [synth.render(world, cfg.cam, T).numpy() for T in true]
+def _vocab_state(v):
+    return dict(k=v.k, levels=v.levels, centers=v.centers, idf=v.idf,
+                node_level=v.node_level)
 
-    jsys = JSystem(JSlamConfig(cam=JIntrinsics(**CAM_KW),
-                               orb=JOrbParams(n_features=800, n_levels=4),
-                               **CFG_KW), enable_loop_closing=True)
+
+def run_circuit(cfg, images, fed, vocab=None, jvocab=None):
+    """Both packages over the same images and priors, frame by frame,
+    sequential mapping, loop closing on (``vocab`` / ``jvocab``: each
+    package's live vocabulary; None trains one online).  Records in
+    ``rec``, for the from-one-state tests: the JAX store and vocabulary
+    before and after its first ``_correct_loop`` and its arguments
+    (``before``, ``vocab``, ``args``, ``after``); the store, vocabulary
+    and RANSAC generator as the first ``_compute_sim3`` that found a
+    loop met them, with its arguments and result (``sim3``); each
+    ``loop_candidates`` call up to the first loop that returned
+    keyframes, with the store as it stood, the BoW vectors and the
+    relocalization candidates of the query's vector (``candidates``);
+    the JAX run's first essential-graph problem and its solution
+    (``pose_graph``)."""
+    cam = cfg.cam
+    jsys = JSystem(JSlamConfig(
+        cam=JIntrinsics(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+                        width=cam.width, height=cam.height),
+        orb=JOrbParams(n_features=cfg.orb.n_features,
+                       n_levels=cfg.orb.n_levels), **CFG_KW),
+        enable_loop_closing=True, vocab=jvocab)
     lc = jsys.loop_closer
-    rec = {}
+    rec = {"candidates": []}
     orig_correct = lc._correct_loop
 
     def correct(kid, loop_kf, Scw, loop_mps, matched):
         first = "before" not in rec
         if first:
-            v = lc.pr.vocab
             rec.update(
                 before=interop.mapstore_state(jsys.store),
-                vocab=dict(k=v.k, levels=v.levels, centers=v.centers,
-                           idf=v.idf, node_level=v.node_level),
+                vocab=_vocab_state(lc.pr.vocab),
                 args=(kid, loop_kf, np.array(Scw), list(loop_mps),
                       dict(matched)))
         orig_correct(kid, loop_kf, Scw, loop_mps, matched)
@@ -379,9 +392,7 @@ def circuit():
         # the map, the vocabulary and the RANSAC generator as this call
         # found them; kept for the first call that finds a loop
         state = (interop.mapstore_state(jsys.store),
-                 dict(k=lc.pr.vocab.k, levels=lc.pr.vocab.levels,
-                      centers=lc.pr.vocab.centers, idf=lc.pr.vocab.idf,
-                      node_level=lc.pr.vocab.node_level),
+                 _vocab_state(lc.pr.vocab),
                  copy.deepcopy(lc._rng.bit_generator.state))
         found = compute(kid, candidates)
         if found is not None and "sim3" not in rec:
@@ -392,15 +403,49 @@ def circuit():
                                       dict(matched)))
         return found
     lc._compute_sim3 = compute_sim3
+    query = lc.pr.loop_candidates
 
-    port = System(cfg, device="cpu")
+    def loop_candidates(kid, min_score):
+        out = query(kid, min_score)
+        if out and "before" not in rec:
+            rec["candidates"].append(dict(
+                store=interop.mapstore_state(jsys.store),
+                bow={k: dict(v) for k, v in lc.pr.bow.items()},
+                kid=kid, min_score=min_score, out=list(out),
+                reloc=lc.pr.reloc_candidates(lc.pr.bow[kid])))
+        return out
+    lc.pr.loop_candidates = loop_candidates
+
+    solve = jpg.optimize_pose_graph
+
+    def pose_graph_solve(*args, **kwargs):
+        res = solve(*args, **kwargs)
+        rec.setdefault("pose_graph", dict(
+            args=[np.array(a) for a in args], kwargs=dict(kwargs),
+            sims=np.array(res.sims), cost=float(res.final_cost)))
+        return res
+    port = System(cfg, device="cpu", vocab=vocab)
     states = []
-    for i, (img, Tf) in enumerate(zip(images, fed)):
-        jsys.track_monocular_with_pose(img, i * 0.1, Tf)
-        port.track_monocular_with_pose(img, i * 0.1, Tf)
-        states.append((jsys.state.name, port.state.name))
-    return dict(cfg=cfg, true=true, fed=fed, jsys=jsys, port=port,
-                states=states, rec=rec)
+    jpg.optimize_pose_graph = pose_graph_solve
+    try:
+        for i, (img, Tf) in enumerate(zip(images, fed)):
+            jsys.track_monocular_with_pose(img, i * 0.1, Tf)
+            port.track_monocular_with_pose(img, i * 0.1, Tf)
+            states.append((jsys.state.name, port.state.name))
+    finally:
+        jpg.optimize_pose_graph = solve
+    return dict(cfg=cfg, fed=fed, jsys=jsys, port=port, states=states,
+                rec=rec)
+
+
+@pytest.fixture(scope="module")
+def circuit():
+    true, fed = _circuit()
+    cfg = SlamConfig(cam=Intrinsics(**CAM_KW),
+                     orb=OrbParams(n_features=800, n_levels=4), **CFG_KW)
+    world = synth.make_world(seed=3, device="cpu")
+    images = [synth.render(world, cfg.cam, T).numpy() for T in true]
+    return dict(run_circuit(cfg, images, fed), true=true)
 
 
 def test_circuit_closes_the_loop_and_beats_the_priors(circuit):
@@ -426,6 +471,25 @@ def test_circuit_closes_the_loop_and_beats_the_priors(circuit):
     assert port.place_rec.ready and len(port.place_rec.bow) > 0
 
 
+def check_circuit_parity(circuit, true):
+    """The end-to-end bars of a circuit that holds the port to the JAX
+    run rather than to the priors: the port closes >= 1 loop if and
+    only if the JAX run does; the frame states agree on >= 95% of
+    frames; the port's KF ATE (Sim3-aligned) is <= 1.2x the JAX run's +
+    0.02; > 0.7 of the frames OK; map and poses finite."""
+    jsys, port = circuit["jsys"], circuit["port"]
+    assert ((port.loop_closer.n_loops_closed >= 1)
+            == (jsys.loop_closer.n_loops_closed >= 1))
+    same = np.mean([a == b for a, b in circuit["states"]])
+    assert same >= 0.95, circuit["states"]
+    ate_p = _kf_ate(port.store, true)
+    ate_j = _kf_ate(jsys.store, true)
+    assert ate_p <= 1.2 * ate_j + 0.02, (ate_p, ate_j)
+    assert sum(b == "OK" for _, b in circuit["states"]) > 0.7 * len(true)
+    assert np.isfinite(port.map_points()).all()
+    assert all(np.isfinite(kf.Tcw).all() for kf in port.store.kfs if kf.valid)
+
+
 def _rotation(T):
     """The rotation of a pose block that the Sim3 writeback scaled by
     1/s (loop_closing._se3_from_sim3), by polar decomposition."""
@@ -433,23 +497,16 @@ def _rotation(T):
     return U @ Vt
 
 
-def test_correct_loop_from_one_state(circuit, monkeypatch):
-    """The port's _correct_loop (group correction, loop fuse, essential
-    graph, global BA) on the JAX store and vocabulary as they stood at
-    the JAX run's first loop, with its arguments.  The JAX test process
-    has 8 CPU devices, so its global BA took the sharded branch; the
-    port's takes its own sharded branch here, over 8 CPU shards
-    (``parallel.local_devices`` patched).  Bars: KF translations within
-    2e-3 (measured 6.4e-4), rotations within 1e-3 rad, >= 99% of the
-    points valid in both within 2e-3 (measured 5.2e-4 at the 99th
-    percentile)."""
-    rec = circuit["rec"]
+def check_correct_loop(cfg, rec, monkeypatch, tol=2e-3):
+    """test_correct_loop_from_one_state's run and bars on a recorded
+    circuit (``run_circuit``'s ``rec``); ``tol``: the bar on keyframe
+    translations and on the points."""
     monkeypatch.setattr(parallel, "local_devices",
                         lambda device: [torch.device("cpu")] * 8)
     store = interop.mapstore_from_numpy(**rec["before"], device="cpu")
     pr = PlaceRecognition(store, vocab=interop.vocabulary_from_numpy(
         **rec["vocab"]))
-    lc = LoopCloser(circuit["cfg"], store, place_rec=pr)
+    lc = LoopCloser(cfg, store, place_rec=pr)
     kid, loop_kf, Scw, loop_mps, matched = rec["args"]
     lc._correct_loop(kid, loop_kf, Scw, list(loop_mps), dict(matched))
     after = rec["after"]
@@ -462,7 +519,7 @@ def test_correct_loop_from_one_state(circuit, monkeypatch):
         dt = np.abs(kf.Tcw[:3, 3] - ref["Tcw"][:3, 3]).max()
         dR = _rotation(kf.Tcw) @ _rotation(ref["Tcw"]).T
         ang = np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))
-        assert dt < 2e-3 and ang < 1e-3, (kf.kid, dt, ang)
+        assert dt < tol and ang < 1e-3, (kf.kid, dt, ang)
         assert np.abs(kf.Tcw[:3, :3] - ref["Tcw"][:3, :3]).max() < 1e-3
         assert kf.loop_edges == ref["loop_edges"]
     assert n_valid > 10
@@ -473,7 +530,45 @@ def test_correct_loop_from_one_state(circuit, monkeypatch):
     assert both.sum() >= 0.95 * jv.sum()
     d = np.abs(np.asarray(store.mp_pos)[:n][both]
                - after["points"]["mp_pos"][:n][both]).max(1)
-    assert (d < 2e-3).mean() >= 0.99, np.quantile(d, [0.5, 0.99])
+    assert (d < tol).mean() >= 0.99, np.quantile(d, [0.5, 0.99])
+
+
+def test_correct_loop_from_one_state(circuit, monkeypatch):
+    """The port's _correct_loop (group correction, loop fuse, essential
+    graph, global BA) on the JAX store and vocabulary as they stood at
+    the JAX run's first loop, with its arguments.  The JAX test process
+    has 8 CPU devices, so its global BA took the sharded branch; the
+    port's takes its own sharded branch here, over 8 CPU shards
+    (``parallel.local_devices`` patched).  Bars: KF translations within
+    2e-3 (measured 6.4e-4), rotations within 1e-3 rad, >= 99% of the
+    points valid in both within 2e-3 (measured 5.2e-4 at the 99th
+    percentile)."""
+    check_correct_loop(circuit["cfg"], circuit["rec"], monkeypatch)
+
+
+def check_compute_sim3(cfg, rec, eigvec, monkeypatch):
+    """test_compute_sim3_from_one_state's run and bars on a recorded
+    circuit (``run_circuit``'s ``rec``)."""
+    if eigvec == "jacobi":
+        monkeypatch.setattr(thorn, "top_eigvec", lambda N: (
+            thorn.sym4_top_eigvec(N.double()).to(N.dtype)))
+    rec = rec["sim3"]
+    store = interop.mapstore_from_numpy(**rec["store"], device="cpu")
+    pr = PlaceRecognition(store, vocab=interop.vocabulary_from_numpy(
+        **rec["vocab"]))
+    lc = LoopCloser(cfg, store, place_rec=pr)
+    lc._rng.bit_generator.state = copy.deepcopy(rec["rng"])
+    found = lc._compute_sim3(*rec["args"])
+    assert found is not None
+    cand, Scw, loop_mps, matched = found
+    j_cand, j_Scw, j_mps, j_matched = rec["found"]
+    assert cand == j_cand
+    assert loop_mps == j_mps
+    St, Sj = torch.from_numpy(np.asarray(Scw)), torch.from_numpy(j_Scw)
+    assert np.abs(Scw[4:] - j_Scw[4:]).max() < 2e-3
+    assert np.abs(_np(tsim3.rot(St)) - _np(tsim3.rot(Sj))).max() < 1e-3
+    same = sum(matched.get(f) == p for f, p in j_matched.items())
+    assert same >= 0.95 * len(j_matched), (same, len(j_matched))
 
 
 @pytest.mark.parametrize("eigvec", ["lapack", "jacobi"])
@@ -487,23 +582,4 @@ def test_compute_sim3_from_one_state(circuit, eigvec, monkeypatch):
     and loop points; Scw within 2e-3 in translation and 1e-3 in its
     rotation matrix (the bars of test_correct_loop_from_one_state);
     >= 95% of the JAX run's matched (feature, point) pairs."""
-    if eigvec == "jacobi":
-        monkeypatch.setattr(thorn, "top_eigvec", lambda N: (
-            thorn.sym4_top_eigvec(N.double()).to(N.dtype)))
-    rec = circuit["rec"]["sim3"]
-    store = interop.mapstore_from_numpy(**rec["store"], device="cpu")
-    pr = PlaceRecognition(store, vocab=interop.vocabulary_from_numpy(
-        **rec["vocab"]))
-    lc = LoopCloser(circuit["cfg"], store, place_rec=pr)
-    lc._rng.bit_generator.state = copy.deepcopy(rec["rng"])
-    found = lc._compute_sim3(*rec["args"])
-    assert found is not None
-    cand, Scw, loop_mps, matched = found
-    j_cand, j_Scw, j_mps, j_matched = rec["found"]
-    assert cand == j_cand
-    assert loop_mps == j_mps
-    St, Sj = torch.from_numpy(np.asarray(Scw)), torch.from_numpy(j_Scw)
-    assert np.abs(Scw[4:] - j_Scw[4:]).max() < 2e-3
-    assert np.abs(_np(tsim3.rot(St)) - _np(tsim3.rot(Sj))).max() < 1e-3
-    same = sum(matched.get(f) == p for f, p in j_matched.items())
-    assert same >= 0.95 * len(j_matched), (same, len(j_matched))
+    check_compute_sim3(circuit["cfg"], circuit["rec"], eigvec, monkeypatch)
