@@ -99,6 +99,26 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      the warm descent by CUDA events beside its replay and its copies
      into the static inputs (the centers, ~35.6 MB a replay), what its
      captures hold, the inverted file's size and a loop query's time;
+  B-est-640. a loop in estimated mode on the card (after B-1M):
+     tests/test_loop_upstream.py's own configuration and circuit
+     (640x480, 800 features, 4 levels, its SlamConfig with
+     ``pose_prior=False``, ``make_world(seed=3)``, the 48-frame circle
+     of radius 6 plus its first 14 frames), sequential mapping, loop
+     closing on, ``track_monocular`` with no pose, its noise (4 grey
+     levels) from each of the seeds 11-14, one run a seed, and a run
+     with loop closing off for each seed that closes a loop.  Bars:
+     every run finishes with a finite map and keyframe poses; at least
+     one seed closes a loop; each that does has > 0.7 of its frames OK,
+     the loop's matches at least ``loop_min_total_matches``, a finite
+     positive scale and a Sim3-aligned keyframe ATE below its loop-off
+     run's.  Prints per seed the frames OK, the loop's frame, keyframes
+     and scale, both ATEs, the loop keyframe's split (``LoopWatch``:
+     ``loop/*`` stages, each loop program's host syncs and calls, the
+     loop graphs' captures) and K1-K3's launches, each line with the
+     card's name and power limit.  It runs at the JAX test's width, not
+     at bench width: on path B's world and circle at bench width
+     (``bench_config()`` with ``pose_prior=False``) with this noise
+     neither package bootstraps (tests/test_torch_loop_estimated_bench.py);
   7. path D, estimated-pose mode at full width: path A's world and a
      50-frame sweep through ``track_monocular`` with no pose (the H/F
      two-view bootstrap, eager, whose time it prints; the motion model
@@ -160,7 +180,13 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      runtime calls of both forms side by side.
 Path A also holds a warm extraction to no host synchronization, and
 path D prints the model (H or F) of its two-view bootstrap, which must
-be H on the planar world.
+be H on the planar world.  Phase G ends on the card's eigensolvers:
+Horn's matrices of the EPnP batch the port met at frame 27 of
+tests/test_loop_upstream.py's circuit on the CPU (``tests/data/
+reloc_frame27.npz``; four blocks NaN) through ``horn.top_eigvec``'s
+Jacobi sweeps (NaN exactly there, LAPACK's vectors elsewhere, no
+error, its time) and that RANSAC problem through the graphed
+``pnp_ransac`` (no error, no pose, as on the CPU).
 
 ``python3 chip_smoke.py --cards 4`` is the four-card mode, for a host
 with four cards (it fails, naming the count, with fewer, and falls back
@@ -188,18 +214,23 @@ to nothing): phases 1 and 2 on card 0, then
 then W's table, the kernel JSON line (B4's launches, K4's from path C),
 each card's nvidia-smi line and the ok line with ``"count": 4``.
 The kernel launch counts are read per path, each path driven with the
-counts set to 0 just before it.  The last three lines are a JSON object
+counts set to 0 just before it.  Each phase prints its wall time and
+the card's memory after it (``time phase_...`` lines, ``time_phases``).
+The last three lines are a JSON object
 describing the kernels (``launches``: path A's; ``launches_h``,
 ``launches_l``, ``launches_lb``, ``launches_b_height``,
-``launches_b_1m``: paths H's, L's, L-bench's, B-height's and B-1M's),
-the
+``launches_b_1m``, ``launches_b_est``: paths H's, L's, L-bench's,
+B-height's, B-1M's and B-est-640's four loop-closing runs'), the
 card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 
-Eleven diagnostics print no such lines: ``--path-h`` runs path H alone,
+Thirteen diagnostics print no such lines: ``--path-h`` runs path H alone,
 ``--path-l`` paths L and L-bench alone, ``--path-bh`` / ``--path-b1m``
-path B-height / B-1M alone (both with both flags),
-``--repeat-f`` runs path B and
+path B-height / B-1M alone (both with both flags), ``--path-best``
+phase G's eigensolver check and path B-est-640 alone, ``--phases-of
+DIR`` the default run of DIR's chip_smoke.py (a parent's checkout,
+unpacked by git archive) with each of its phases timed as this
+script's are (``time_phases``), ``--repeat-f`` runs path B and
 then times path F's solves (with ``--tree DIR``: four processes, as
 ``--repeat-d``), ``--repeat-d`` runs path D twice
 (with ``--tree DIR``: four processes, the port from DIR, this
@@ -275,6 +306,20 @@ BH_Z_STD = 0.2
 B1M_K, B1M_LEVELS, B1M_SEED = 10, 6, 7
 B1M_LOAD_S = 120.0
 B1M_TRANSFORM_S = 2.0
+# path B-est-640: estimated mode (no pose fed to the tracker, the loop's
+# Sim3 scale free) with tests/test_loop_upstream.py's sensor noise.  One
+# run a noise seed, the seeds fixed before any run: on the JAX test's
+# circuit each package closed its loop on one or two of these four seeds
+BEST_SEEDS = (11, 12, 13, 14)
+BEST_NOISE = 4.0        # grey levels, the JAX test's
+# the JAX test's own circuit (48 frames a lap, radius 6, the first 14
+# frames again) at its 640x480
+BEST_LAP, BEST_RADIUS, BEST_REVISIT = 48, 6.0, 14
+# phase G on the card's eigensolvers: the EPnP RANSAC problem the port
+# met at frame 27 of the JAX test's circuit on the CPU, and its four
+# degenerate samples (tests/test_torch_eigh_nan.py)
+FRAME27 = os.path.join("tests", "data", "reloc_frame27.npz")
+FRAME27_NAN = [8, 13, 61, 126]
 # paths A and A-seq: bench.py's warm-up (BENCH_WARM), each frame
 # followed by flush_mapping; the frames after it are measured
 WARM_FRAMES = 16
@@ -341,6 +386,52 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def time_phases(module) -> None:
+    """Wrap each ``phase_*`` function of ``module`` (this script, or a
+    parent's chip_smoke.py under ``--phases-of``) so that each call logs
+    its wall time, the card synchronized, and the card's memory after it:
+    ``time phase_x[ label]: S s, allocated A MiB, reserved R MiB``.
+    The default run's limit is 1200 s: these lines say which phase grew."""
+    import functools
+    import torch
+    for name, fn in list(vars(module).items()):
+        if not name.startswith("phase_") or not callable(fn) \
+                or hasattr(fn, "timed"):
+            continue
+
+        @functools.wraps(fn)
+        def timed(*args, _fn=fn, _name=name, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                label = " ".join([_name] + [
+                    a for a in (*args, *kwargs.values())
+                    if isinstance(a, str)])
+                log(f"time {label}: {time.perf_counter() - t0:.1f} s, "
+                    f"allocated {torch.cuda.memory_allocated() / 2**20:.0f}"
+                    f" MiB, reserved "
+                    f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB")
+        timed.timed = True
+        setattr(module, name, timed)
+
+
+def phases_of(tree: str) -> int:
+    """``--phases-of``: the default run of ``tree``'s chip_smoke.py with
+    its phases timed by ``time_phases``, so that a parent's run and this
+    one print the same time lines on one card."""
+    import importlib.util
+    path = os.path.join(tree, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("parent_chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    time_phases(module)
+    sys.argv = [path]
+    log(f"the default run of {path}, its phases timed")
+    return module.main()
 
 
 def nvidia_smi_lines() -> list:
@@ -2624,6 +2715,274 @@ def phase_b_1m(device, cfg) -> dict:
     return out
 
 
+def phase_g_eigh(device) -> dict:
+    """Phase G on the card's eigensolvers, on the EPnP problem the port
+    met at frame 27 of tests/test_loop_upstream.py's circuit on the CPU
+    (FRAME27; LAPACK raised there before the CPU branch gave degenerate
+    blocks NaN): Horn's 4x4 matrices of its first beta approximation
+    through ``horn.top_eigvec`` (float64 Jacobi sweeps on the card) must
+    give NaN in exactly the four NaN blocks, raise nothing and return;
+    its other vectors must be LAPACK's in float64 up to sign within
+    float32's perturbation bound (the gap times the top eigengap,
+    relative to the block's largest eigenvalue, under 1e-6).  Then the
+    whole RANSAC on the card through the graphed ``pnp_ransac``, twice
+    (a capture and a replay): no error, and no pose (5 inliers of the
+    10 asked on the CPU).  Prints the blocks, the gaps and the times
+    (host clock: a first and a warm call)."""
+    import torch
+    from orb_slam2_tpu_torch.geom import horn
+    from orb_slam2_tpu_torch.pipeline import relocalization
+    here = os.path.dirname(os.path.abspath(__file__))
+    with np.load(os.path.join(here, FRAME27)) as d:
+        prob = {k: d[k] for k in d.files}
+    N = torch.from_numpy(prob["horn_N"]).to(device)
+    ms = []
+    for _ in range(2):          # the first call and a warm one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = horn.top_eigvec(N)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    v = v.cpu().numpy()
+    bad = ~np.isfinite(prob["horn_N"]).all((-1, -2))
+    check(np.where(bad)[0].tolist() == FRAME27_NAN, "G: the recorded "
+          f"batch's non-finite blocks are {np.where(bad)[0].tolist()}")
+    nan = np.isnan(v).all(-1)
+    check((nan == bad).all() and np.isfinite(v[~bad]).all(),
+          f"G: horn.top_eigvec on the card gives NaN in blocks "
+          f"{np.where(np.isnan(v).any(-1))[0].tolist()}, not exactly in "
+          f"{FRAME27_NAN}")
+    w64, v64 = torch.linalg.eigh(torch.from_numpy(
+        prob["horn_N"][~bad]).double())
+    w64, ref = w64.numpy(), v64[..., -1].numpy()
+    got = v[~bad].astype(np.float64)
+    err = np.abs(got * np.sign((got * ref).sum(-1, keepdims=True))
+                 - ref).max(-1)
+    gap = (w64[:, -1] - w64[:, -2]) / np.abs(w64).max(-1)
+    check((err * gap).max() < 1e-6, f"G: horn.top_eigvec on the card is "
+          f"{err.max():.3g} from LAPACK's (gap x eigengap "
+          f"{(err * gap).max():.3g})")
+    args = [torch.from_numpy(prob[k]).to(device) for k in
+            ("pts_w", "uv", "inv_sigma2", "valid", "samples")]
+    fx = fy = 450.0
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = relocalization.pnp_graph(*args, fx, fy, 320.0, 240.0, 10)
+        ok, n_inl = bool(res.ok), int(res.n_inliers)
+        runs.append(dict(ok=ok, n_inliers=n_inl,
+                         ms=(time.perf_counter() - t0) * 1e3))
+        check(not ok, f"G: pnp_ransac on the card found a pose on the "
+              f"frame-27 problem ({n_inl} inliers); the CPU finds none")
+    out = dict(nan_blocks=np.where(nan)[0].tolist(),
+               top_eigvec_ms=dict(first=ms[0], warm=ms[1]),
+               max_vector_gap=float(err.max()),
+               max_gap_times_eigengap=float((err * gap).max()),
+               pnp_ransac=runs)
+    log("G: the card's eigensolvers on the frame-27 EPnP batch "
+        + json.dumps(out))
+    return out
+
+
+def run_length(states: list) -> str:
+    """Frame states as runs: ``OK 1-25, LOST 26-49, ...``."""
+    runs = []
+    for i, s in enumerate(states):
+        if runs and runs[-1][0] == s:
+            runs[-1][2] = i
+        else:
+            runs.append([s, i, i])
+    return ", ".join(f"{s} {a}" if a == b else f"{s} {a}-{b}"
+                     for s, a, b in runs)
+
+
+def best_frames(world, cam, true, seed: int, device) -> list:
+    """The poses ``true`` rendered on the card, with the JAX test's
+    sensor noise (BEST_NOISE grey levels, numpy's ``default_rng(seed)``,
+    one draw a frame in order) added and clipped to [0, 255]."""
+    import torch
+    from orb_slam2_tpu_torch.utils import synth
+    rng = np.random.default_rng(seed)
+    frames = []
+    for T in true:
+        img = synth.render(world, cam, T)
+        noise = torch.from_numpy(rng.normal(0, BEST_NOISE, tuple(img.shape)))
+        # in float64, as numpy adds and clips them in the JAX test
+        frames.append(torch.clamp(img.double() + noise.to(device), 0, 255)
+                      .float())
+    torch.cuda.synchronize()
+    return frames
+
+
+def best_test_circuit(device) -> tuple:
+    """tests/test_loop_upstream.py's configuration and circuit, as
+    tests/test_torch_loop_estimated.py gives them to the port: 640x480,
+    800 features, 4 levels, its SlamConfig with ``pose_prior=False``,
+    ``make_world(seed=3)``, the 48-frame circle of radius 6 plus its
+    first 14 frames again.  Returns (cfg, world, true poses)."""
+    from orb_slam2_tpu_torch.geom.camera import Intrinsics
+    from orb_slam2_tpu_torch.ops.extractor import OrbParams
+    from orb_slam2_tpu_torch.pipeline.config import SlamConfig
+    from orb_slam2_tpu_torch.utils import synth
+    cfg = SlamConfig(
+        cam=Intrinsics(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640,
+                       height=480),
+        orb=OrbParams(n_features=800, n_levels=4), fps=10.0,
+        pose_prior=False, init_min_matches=60, init_min_triangulated=40,
+        init_min_tracked_after_ba=60, loop_min_kfs_since_last=6)
+    true = synth.loop_trajectory(BEST_LAP, radius=BEST_RADIUS)
+    return (cfg, synth.make_world(seed=3, device=device),
+            true + true[:BEST_REVISIT])
+
+
+def best_run(device, cfg, true, frames, loop: bool, label: str) -> dict:
+    """One run of path B-est-640: ``track_monocular`` with no pose over
+    ``frames``, sequential mapping, loop closing on or off.  With loop
+    closing, ``LoopWatch`` splits the first keyframe that closes a
+    loop.  Bars: a finite map and finite keyframe poses, K1-K3
+    launched.  Returns the run's summary."""
+    import torch
+    from orb_slam2_tpu_torch import graphs, kernels
+    from orb_slam2_tpu_torch.pipeline.system import System
+    system = System(cfg, enable_loop_closing=loop, device=device)
+    syncs = lw = None
+    if loop:
+        graphs.reset_stats()
+        syncs = SyncCounter()
+        lw = LoopWatch(system, syncs, label=label)
+        syncs.__enter__()
+    kernels.reset_launch_counts()
+    states, loops, frame_ms = [], [], []
+    t_run = time.perf_counter()
+    try:
+        for i, img in enumerate(frames):
+            t0 = time.perf_counter()
+            system.track_monocular(img, i * 0.1)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            states.append(system.state.name)
+            loops.append(system.loop_closer.n_loops_closed if loop else 0)
+            log(f"{label} frame {i:3d}: {states[-1]:15s} inliers="
+                f"{system.tracker.matches_inliers:5d} kfs="
+                f"{system.store.n_valid_keyframes():3d} points="
+                f"{system.store.n_valid_points():6d} loops={loops[-1]} "
+                f"{frame_ms[-1]:8.1f} ms")
+        system.shutdown()
+    finally:
+        if loop:
+            syncs.__exit__(None, None, None)
+            lw.restore()
+    run_s = time.perf_counter() - t_run
+    launches = {k: kernels.LAUNCHES.get(k, 0) for k in
+                ("fast_score", "masked_top2_mutual", "masked_top2_epi")}
+    model = {None: "none", True: "H", False: "F"}[
+        system.tracker.init_used_homography]
+    log(f"{label}: {run_length(states)}; two-view model {model}")
+    pts = system.map_points()
+    check(len(pts) > 0 and bool(np.isfinite(pts).all()),
+          f"{label}: map points missing or not finite "
+          f"({run_length(states)})")
+    check(all(np.isfinite(kf.Tcw).all() for kf in system.store.kfs
+              if kf.valid), f"{label}: a keyframe pose is not finite")
+    for name, n in launches.items():
+        check(n > 0, f"{label}: kernel {name} never launched")
+    out = dict(n_ok=sum(s == "OK" for s in states), n_frames=len(states),
+               states=run_length(states), ate=kf_ate(system.store, true),
+               keyframes=system.store.n_valid_keyframes(),
+               points=len(pts), launches=launches, run_s=run_s,
+               median_frame_ms=float(np.median(frame_ms)),
+               max_frame_ms=float(np.max(frame_ms)), loops=0)
+    if loop and system.loop_closer.n_loops_closed:
+        lc = system.loop_closer
+        info = lc.last_loop
+        first = next(i for i, n in enumerate(loops) if n >= 1)
+        kfs = system.store.kfs
+        out.update(
+            loops=lc.n_loops_closed, loop_frame=first,
+            loop=dict(kid=info["kid"], loop_kf=info["loop_kf"],
+                      kf_frames=(kfs[info["kid"]].frame.frame_id,
+                                 kfs[info["loop_kf"]].frame.frame_id),
+                      n_matched=info["n_matched"], scale=info["scale"]),
+            loop_frame_ms=frame_ms[first])
+        split = lw.report(graphs)
+        lk = lw.loop_kf
+        out.update(loop_kf_ms=lk["ms"],
+                   stages={k: round(v, 1) for k, v in lk["stages"].items()},
+                   loop_syncs=lk["syncs"],
+                   programs={k: dict(calls=v["calls"], ms=v["ms"])
+                             for k, v in split.items()},
+                   captures={k: graphs.STATS.get(k, {}).get("captures", 0)
+                             for k in LOOP_GRAPHS})
+    return out
+
+
+def phase_b_est(device) -> dict:
+    """Path B-est-640 (the module docstring's): a loop in estimated mode
+    on the card, the JAX test's configuration and circuit
+    (``best_test_circuit``), noise seeds BEST_SEEDS.  Every seed's runs
+    come first and the loop bars after them, so that each seed's lines
+    are printed; a failed bar fails the phase."""
+    import torch
+    name = "B-est-640"
+    bcfg, world, true = best_test_circuit(device)
+    card = nvidia_smi_lines()[0]
+    seeds, launches = {}, {}
+    for seed in BEST_SEEDS:
+        label = f"{name} seed {seed}"
+        frames = best_frames(world, bcfg.cam, true, seed, device)
+        on = best_run(device, bcfg, true, frames, True, label)
+        for k, n in on["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        if on["loops"]:
+            off = best_run(device, bcfg, true, frames, False,
+                           f"{label}, loop closing off")
+            on.update(ate_loop_off=off["ate"], n_ok_loop_off=off["n_ok"],
+                      states_loop_off=off["states"])
+        del frames
+        torch.cuda.empty_cache()
+        seeds[seed] = on
+        head = (f"{label}: {on['n_ok']}/{on['n_frames']} frames OK "
+                f"({on['states']}); ")
+        if on["loops"]:
+            lp = on["loop"]
+            head += (f"loop on frame {on['loop_frame']}, keyframe "
+                     f"{lp['kid']} (frame {lp['kf_frames'][0]}) to "
+                     f"keyframe {lp['loop_kf']} (frame "
+                     f"{lp['kf_frames'][1]}), {lp['n_matched']} matched, "
+                     f"scale {lp['scale']:.6f}; KF ATE {on['ate']:.6f} "
+                     f"against {on['ate_loop_off']:.6f} with loop "
+                     f"closing off ({on['n_ok_loop_off']} OK); the loop "
+                     f"keyframe {on['loop_kf_ms']:.1f} ms, stages "
+                     f"{json.dumps(on['stages'])}, host syncs "
+                     f"{json.dumps(on['loop_syncs'])}, captures "
+                     f"{json.dumps(on['captures'])}")
+        else:
+            head += f"no loop; KF ATE {on['ate']:.6f}"
+        log(head + f"; K1-K3 launches {json.dumps(on['launches'])}; "
+            f"{on['run_s']:.1f} s [{card}]")
+    log(f"{name} [{card}] " + json.dumps(seeds))
+    closed = [s for s, r in seeds.items() if r["loops"]]
+    check(bool(closed), f"{name}: no seed of {list(BEST_SEEDS)} closed a "
+          f"loop")
+    for s in closed:
+        r = seeds[s]
+        check(r["n_ok"] > LOOP_MIN_OK * r["n_frames"],
+              f"{name} seed {s}: only {r['n_ok']}/{r['n_frames']} frames "
+              f"OK")
+        check(r["loop"]["n_matched"] >= bcfg.loop_min_total_matches,
+              f"{name} seed {s}: {r['loop']['n_matched']} loop matches < "
+              f"{bcfg.loop_min_total_matches}")
+        check(bool(np.isfinite(r["loop"]["scale"]))
+              and r["loop"]["scale"] > 0,
+              f"{name} seed {s}: loop scale {r['loop']['scale']}")
+        check(r["ate"] < r["ate_loop_off"], f"{name} seed {s}: keyframe "
+              f"ATE {r['ate']:.6f} with the loop is not below "
+              f"{r['ate_loop_off']:.6f} without it")
+    log(f"{name}: seeds {closed} closed a loop and met the bars [{card}]")
+    return dict(seeds=seeds, launches=launches)
+
+
 # path F: the distributed solvers on path B's problems, two shards on
 # the one card, held to the single-device solve with tests/test_parallel.py's
 # bars; two gloo processes share the card for the process-group mesh
@@ -4764,6 +5123,14 @@ def main() -> int:
     ap.add_argument("--path-b1m", action="store_true",
                     help="run only path B-1M, path B with a 10^6-word "
                          "ORBvoc (see phase_b_1m)")
+    ap.add_argument("--path-best", action="store_true",
+                    help="run only phase G's eigensolver check and path "
+                         "B-est-640, a loop in estimated mode (see "
+                         "phase_g_eigh and phase_b_est)")
+    ap.add_argument("--phases-of", metavar="DIR",
+                    help="run the default run of DIR/chip_smoke.py (a "
+                         "parent's checkout) with each of its phases "
+                         "timed as this script's are (see time_phases)")
     ap.add_argument("--repeat-b", action="store_true",
                     help="run only path B, four times (see repeat_loop)")
     ap.add_argument("--loop-split", action="store_true",
@@ -4831,6 +5198,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this test runs only on the "
               "card", file=sys.stderr)
         return 2
+    if args.phases_of:
+        return phases_of(os.path.abspath(args.phases_of))
+    time_phases(sys.modules[__name__])
     here = os.path.dirname(os.path.abspath(__file__))
     if args.repeat_d and args.tree and not args.d_once:
         return repeat_estimated_trees(os.path.abspath(args.tree))
@@ -4914,9 +5284,12 @@ def main() -> int:
             print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
             return 1
     if (args.profile or args.kernels_from or args.path_h or args.path_l
-            or args.path_bh or args.path_b1m):
+            or args.path_bh or args.path_b1m or args.path_best):
         try:
-            if args.path_bh or args.path_b1m:
+            if args.path_best:
+                phase_g_eigh(device)
+                phase_b_est(device)
+            elif args.path_bh or args.path_b1m:
                 if args.path_bh:
                     phase_b_height(device, cfg)
                 if args.path_b1m:
@@ -4938,6 +5311,7 @@ def main() -> int:
     try:
         timing = phase_kernels(device, world, cfg)
         phase_graphs(device, world, cfg)
+        phase_g_eigh(device)
         path_a = phase_bench(device, world, cfg)
         path_seq = phase_bench(device, world, cfg, pipelined=False)
         log(f"A against A-seq on this card: {path_a['fps']:.2f} against "
@@ -4961,6 +5335,7 @@ def main() -> int:
               f"F: kernels launched: {dict(kernels.LAUNCHES)}")
         path_bh = phase_b_height(device, cfg)
         path_b1m = phase_b_1m(device, cfg)
+        path_best = phase_b_est(device)
         phase_estimated(device, world, cfg)
         phase_cli(device, cfg, smi)
     except SmokeFailure as e:
@@ -4970,7 +5345,8 @@ def main() -> int:
         launches_h=path_h["launches"], launches_l=path_l["launches"],
         launches_lb=path_lb["launches"],
         launches_b_height=path_bh["launches"],
-        launches_b_1m=path_b1m["launches"]), t_start, [smi], kind)
+        launches_b_1m=path_b1m["launches"],
+        launches_b_est=path_best["launches"]), t_start, [smi], kind)
 
 
 def finish(timing, launches, more, t_start, smi: list,
@@ -4979,7 +5355,8 @@ def finish(timing, launches, more, t_start, smi: list,
     run; ``more``: key -> another path's launches, where they ran:
     ``launches_h`` path H's, ``launches_l`` L's, ``launches_lb``
     L-bench's, ``launches_b_height`` B-height's, ``launches_b_1m``
-    B-1M's), the nvidia-smi line of each card used, and the ok line."""
+    B-1M's, ``launches_b_est`` B-est-640's four loop-closing runs'), the
+    nvidia-smi line of each card used, and the ok line."""
     import torch
     rows = []
     for t in timing:

@@ -37,7 +37,9 @@ def top_eigvec(N: torch.Tensor) -> torch.Tensor:
     """The top unit eigenvector of symmetric 4x4 blocks, of either sign.
     On the card: :func:`sym4_top_eigvec` in float64 (cuSOLVER's ``eigh``
     checks its result on the host, which a CUDA graph cannot hold).  On
-    the CPU: LAPACK's ``eigh``, the JAX package's own routine there.  A
+    the CPU: LAPACK's ``eigh``, the JAX package's own routine there,
+    NaN for a block with a non-finite entry, as ``jnp.linalg.eigh``
+    gives it (:func:`jacobi.lapack_eigh`).  A
     minimal 3-point sample's N can have a small eigengap, where float32
     LAPACK lands 1.3e-5 (in the translation) from the float64 answer;
     the CPU parity tests hold the port to the JAX package at 1e-5, so
@@ -45,7 +47,7 @@ def top_eigvec(N: torch.Tensor) -> torch.Tensor:
     within their own bar (``tests/test_torch_loop_graphs.py``)."""
     if N.is_cuda:
         return sym4_top_eigvec(N.double()).to(N.dtype)
-    return torch.linalg.eigh(N)[1][..., -1]
+    return jacobi.lapack_eigh(N)[1][..., -1]
 
 
 def horn_sim3(p1: torch.Tensor, p2: torch.Tensor,

@@ -88,3 +88,21 @@ def sym_eigh(A: torch.Tensor, sweeps: int):
             V = V @ J
     w, order = torch.sort(torch.diagonal(A, dim1=-2, dim2=-1), dim=-1)
     return w, torch.gather(V, -1, order[..., None, :].expand(V.shape))
+
+
+def lapack_eigh(A: torch.Tensor):
+    """``torch.linalg.eigh`` of symmetric blocks (..., n, n) on the CPU,
+    where the card runs :func:`sym_eigh`, with NaN eigenvalues and
+    eigenvectors for every block that holds a non-finite entry, as
+    ``jnp.linalg.eigh`` returns them (a degenerate RANSAC sample's
+    block; the callers score and drop such hypotheses).  LAPACK raises
+    for the whole batch on such a block, so each one is replaced by the
+    identity before the call and its results by NaN after it; LAPACK
+    diagonalizes each block alone, so every finite block's result is
+    the one it gets without the others, bit for bit."""
+    bad = ~torch.isfinite(A).all(-1).all(-1)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    w, v = torch.linalg.eigh(torch.where(bad[..., None, None], eye, A))
+    nan = torch.full((), float("nan"), dtype=A.dtype, device=A.device)
+    return (torch.where(bad[..., None], nan, w),
+            torch.where(bad[..., None, None], nan, v))

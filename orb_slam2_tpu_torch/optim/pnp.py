@@ -65,11 +65,12 @@ def _eigh(A, sweeps: int):
     """Ascending eigenvalues and eigenvectors of symmetric blocks
     (..., n, n).  On the card: ``sweeps`` Jacobi sweeps in float64
     (cuSOLVER's ``eigh`` checks its result on the host, which a CUDA
-    graph cannot hold).  On the CPU: LAPACK's ``eigh``."""
+    graph cannot hold).  On the CPU: LAPACK's ``eigh``, NaN for a block
+    with a non-finite entry (:func:`jacobi.lapack_eigh`)."""
     if A.is_cuda:
         w, v = jacobi.sym_eigh(A.double(), sweeps)
         return w.to(A.dtype), v.to(A.dtype)
-    return torch.linalg.eigh(A)
+    return jacobi.lapack_eigh(A)
 
 
 def _control_points(pts):

@@ -509,7 +509,15 @@ def check_correct_loop(cfg, rec, monkeypatch, tol=2e-3):
     lc = LoopCloser(cfg, store, place_rec=pr)
     kid, loop_kf, Scw, loop_mps, matched = rec["args"]
     lc._correct_loop(kid, loop_kf, Scw, list(loop_mps), dict(matched))
-    after = rec["after"]
+    check_map_matches(store, rec["after"], tol)
+
+
+def check_map_matches(store, after, tol=2e-3):
+    """check_correct_loop's bars on a port store against a JAX state
+    (``interop.mapstore_state``): the same valid flags and loop edges,
+    keyframe translations within ``tol`` and rotations within 1e-3 rad,
+    >= 95% of the JAX run's valid points valid in both and >= 99% of
+    those within ``tol``."""
     n_valid = 0
     for kf, ref in zip(store.kfs, after["keyframes"]):
         assert kf.valid == ref["valid"]
@@ -548,7 +556,7 @@ def test_correct_loop_from_one_state(circuit, monkeypatch):
 
 def check_compute_sim3(cfg, rec, eigvec, monkeypatch):
     """test_compute_sim3_from_one_state's run and bars on a recorded
-    circuit (``run_circuit``'s ``rec``)."""
+    circuit (``run_circuit``'s ``rec``); returns the port's result."""
     if eigvec == "jacobi":
         monkeypatch.setattr(thorn, "top_eigvec", lambda N: (
             thorn.sym4_top_eigvec(N.double()).to(N.dtype)))
@@ -569,6 +577,7 @@ def check_compute_sim3(cfg, rec, eigvec, monkeypatch):
     assert np.abs(_np(tsim3.rot(St)) - _np(tsim3.rot(Sj))).max() < 1e-3
     same = sum(matched.get(f) == p for f, p in j_matched.items())
     assert same >= 0.95 * len(j_matched), (same, len(j_matched))
+    return found
 
 
 @pytest.mark.parametrize("eigvec", ["lapack", "jacobi"])

@@ -102,7 +102,16 @@ def test_essential_graph_from_one_state(circuit):
     solve's (relative; measured 4.4e-7), its rotations within 1e-3, its
     translations within 2x the JAX solve's own move (measured 1.4e-3
     against 1.2e-3)."""
-    pg = circuit["rec"]["pose_graph"]
+    check_essential_graph(circuit["rec"]["pose_graph"])
+
+
+def check_essential_graph(pg):
+    """test_essential_graph_from_one_state's run and bars on a recorded
+    essential-graph problem and its JAX solution (``run_circuit``'s
+    ``rec["pose_graph"]``): the port's cost within 1e-5 of the JAX
+    solve's (relative), its rotations within 1e-3, its translations and
+    scales within 2x the JAX solve's own move when its CG takes 100
+    iterations."""
     args, kw = pg["args"], pg["kwargs"]
     rj_cg = jpg.optimize_pose_graph(*[jnp.asarray(a) for a in args],
                                     **dict(kw, cg_iters=100))
