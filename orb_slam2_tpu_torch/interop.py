@@ -124,7 +124,9 @@ def mapstore_state(store) -> dict:
                 for name in FRAME_FIELDS}
 
     return dict(
-        points={name: np.array(getattr(store, name))
+        # a copy whatever the column's __array__ does with ``copy=True``
+        # (the JAX package's returns a view)
+        points={name: np.asarray(getattr(store, name)).copy()
                 for name, _, _ in _POINT_COLUMNS},
         mp_obs=[dict(o) for o in store.mp_obs],
         keyframes=[dict(kid=kf.kid, Tcw=np.array(kf.Tcw), parent=kf.parent,

@@ -107,8 +107,12 @@ class _GrowArray:
         return iter(self.data)
 
     def __array__(self, dtype=None, copy=None):
+        # NumPy 2 may ask for a copy with ``copy=True`` and trust the
+        # answer: a view here would alias the live column
         d = self.data
-        return d.astype(dtype) if dtype is not None else d
+        if dtype is not None:
+            return d.astype(dtype)
+        return d.copy() if copy else d
 
     @classmethod
     def from_data(cls, data: np.ndarray, fill=0) -> "_GrowArray":

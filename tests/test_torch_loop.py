@@ -501,6 +501,14 @@ def check_correct_loop(cfg, rec, monkeypatch, tol=2e-3):
     """test_correct_loop_from_one_state's run and bars on a recorded
     circuit (``run_circuit``'s ``rec``); ``tol``: the bar on keyframe
     translations and on the points."""
+    check_map_matches(correct_loop_from(cfg, rec, monkeypatch), rec["after"],
+                      tol)
+
+
+def correct_loop_from(cfg, rec, monkeypatch):
+    """check_correct_loop's run: the port's _correct_loop on the recorded
+    store and vocabulary with the recorded arguments, global BA over 8
+    CPU shards; returns the store."""
     monkeypatch.setattr(parallel, "local_devices",
                         lambda device: [torch.device("cpu")] * 8)
     store = interop.mapstore_from_numpy(**rec["before"], device="cpu")
@@ -509,7 +517,7 @@ def check_correct_loop(cfg, rec, monkeypatch, tol=2e-3):
     lc = LoopCloser(cfg, store, place_rec=pr)
     kid, loop_kf, Scw, loop_mps, matched = rec["args"]
     lc._correct_loop(kid, loop_kf, Scw, list(loop_mps), dict(matched))
-    check_map_matches(store, rec["after"], tol)
+    return store
 
 
 def check_map_matches(store, after, tol=2e-3):
@@ -557,6 +565,14 @@ def test_correct_loop_from_one_state(circuit, monkeypatch):
 def check_compute_sim3(cfg, rec, eigvec, monkeypatch):
     """test_compute_sim3_from_one_state's run and bars on a recorded
     circuit (``run_circuit``'s ``rec``); returns the port's result."""
+    return check_sim3_found(compute_sim3_from(cfg, rec, eigvec, monkeypatch),
+                            rec)
+
+
+def compute_sim3_from(cfg, rec, eigvec, monkeypatch):
+    """check_compute_sim3's run: the port's _compute_sim3 on the recorded
+    state, Horn's eigenvector by LAPACK or by the card's Jacobi sweeps
+    (``eigvec``); returns its result."""
     if eigvec == "jacobi":
         monkeypatch.setattr(thorn, "top_eigvec", lambda N: (
             thorn.sym4_top_eigvec(N.double()).to(N.dtype)))
@@ -566,7 +582,12 @@ def check_compute_sim3(cfg, rec, eigvec, monkeypatch):
         **rec["vocab"]))
     lc = LoopCloser(cfg, store, place_rec=pr)
     lc._rng.bit_generator.state = copy.deepcopy(rec["rng"])
-    found = lc._compute_sim3(*rec["args"])
+    return lc._compute_sim3(*rec["args"])
+
+
+def check_sim3_found(found, rec):
+    """check_compute_sim3's bars on the port's result; returns it."""
+    rec = rec["sim3"]
     assert found is not None
     cand, Scw, loop_mps, matched = found
     j_cand, j_Scw, j_mps, j_matched = rec["found"]

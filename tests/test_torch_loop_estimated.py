@@ -40,6 +40,7 @@ correction, the 7-DoF essential graph, global BA and the loop keyframe
 as a whole; its own run over the frames is held to finishing with a
 finite map."""
 import copy
+import dataclasses
 import threading
 
 import numpy as np
@@ -65,9 +66,10 @@ from orb_slam2_tpu_torch.utils import synth
 
 from test_torch_estimated import _frame_fields
 from test_torch_loop import (CAM_KW, CFG_KW, _vocab_state,
-                             check_compute_sim3, check_correct_loop,
-                             check_map_matches)
-from test_torch_loop_height import check_essential_graph
+                             check_map_matches, check_sim3_found,
+                             compute_sim3_from, correct_loop_from)
+from test_torch_loop_height import (check_essential_graph_solves,
+                                    essential_graph_solves)
 
 torch.set_num_threads(1)
 
@@ -107,9 +109,61 @@ def _pose_problem(args, res):
                 Tcw=np.array(res.Tcw), n_inliers=int(res.n_inliers))
 
 
-def run_jax(cfg, images):
+def jax_config(cfg):
+    """The JAX package's SlamConfig with every field of the port's
+    ``cfg`` (both packages' fields and defaults are the same)."""
+    cam = cfg.cam
+    return JSlamConfig(
+        cam=JIntrinsics(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+                        width=cam.width, height=cam.height),
+        orb=JOrbParams(n_features=cfg.orb.n_features,
+                       n_levels=cfg.orb.n_levels,
+                       scale_factor=cfg.orb.scale_factor),
+        **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+           if f.name not in ("cam", "orb")})
+
+
+class Recording(dict):
+    """``run_jax``'s record, read on another thread while the run goes on:
+    reading a key waits until the run has set it (a ``KeyError`` once the
+    run has finished without it)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._cond = threading.Condition()
+        self._done = False
+
+    def __setitem__(self, key, value):
+        with self._cond:
+            super().__setitem__(key, value)
+            self._cond.notify_all()
+
+    def update(self, *args, **kwargs):
+        for key, value in dict(*args, **kwargs).items():
+            self[key] = value
+
+    def setdefault(self, key, value=None):
+        with self._cond:
+            if key not in self:
+                self[key] = value
+            return super().__getitem__(key)
+
+    def __getitem__(self, key):
+        with self._cond:
+            self._cond.wait_for(lambda: key in self or self._done)
+            return super().__getitem__(key)
+
+    def finish(self):
+        with self._cond:
+            self._done = True
+            self._cond.notify_all()
+
+
+def run_jax(cfg, images, loop=True, rec=None):
     """The JAX package over ``images`` with ``track_monocular`` and no
-    pose, sequential mapping, loop closing on.  Records in ``rec``:
+    pose, sequential mapping, loop closing on (``loop``; off, nothing is
+    recorded).  Records in ``rec`` (a ``Recording``, which another
+    thread may read while the run goes on):
     frame 2's pose problem (``pose2``); the bootstrap's frames and
     matches as ``_initialize_two_view`` met them, the store when the
     first keyframe went to the mapper and after both were mapped
@@ -121,16 +175,21 @@ def run_jax(cfg, images):
     problem with its solution (``pose_graph``); the store before and
     after the first global BA (``gba``); and the loop closer's whole
     state as it met the first keyframe that closed a loop, with the
-    store after it (``kf``)."""
-    cam = cfg.cam
-    jsys = JSystem(JSlamConfig(
-        cam=JIntrinsics(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
-                        width=cam.width, height=cam.height),
-        orb=JOrbParams(n_features=cfg.orb.n_features,
-                       n_levels=cfg.orb.n_levels), **EST_KW),
-        enable_loop_closing=True)
+    store after it (``kf``, a ``Recording`` set as that keyframe's loop
+    is found, its ``after`` and ``last_loop`` once it is closed).  The
+    module functions it wraps record only calls made on the calling
+    thread, so a second run may go on beside it on another thread."""
+    jsys = JSystem(jax_config(cfg), enable_loop_closing=loop)
+    if not loop:
+        for i, img in enumerate(images):
+            jsys.track_monocular(img, i * 0.1)
+        return dict(rec={}, states=[s.name for (_, _, _, s)
+                                    in jsys.trajectory],
+                    n_loops=0, last_loop=None, store=jsys.store)
+    me = threading.get_ident()
     tr, lc = jsys.tracker, jsys.loop_closer
-    rec = {}
+    rec = Recording() if rec is None else rec
+    kf_state = {}       # the loop closer's state as it met this keyframe
 
     init = tr._initialize_two_view
 
@@ -164,7 +223,8 @@ def run_jax(cfg, images):
 
     def pose_opt_fused(*args):
         res = pose_opt(*args)
-        if frame_id[0] == 2 and "pose2" not in rec:
+        if (threading.get_ident() == me and frame_id[0] == 2
+                and "pose2" not in rec):
             rec["pose2"] = _pose_problem(args, res)
         return res
 
@@ -180,6 +240,8 @@ def run_jax(cfg, images):
                                args=(kid, list(candidates)),
                                found=(cand, np.array(Scw), list(loop_mps),
                                       dict(matched)))
+            # a loop found is a loop closed (LoopCloser.process_keyframe)
+            rec["kf"] = Recording(kf_state)
         return found
     lc._compute_sim3 = compute_sim3
     correct = lc._correct_loop
@@ -212,7 +274,8 @@ def run_jax(cfg, images):
         first = "kf" not in rec
         if first:
             pr = lc.pr
-            state = dict(
+            kf_state.clear()
+            kf_state.update(
                 kid=kid, store=interop.mapstore_state(jsys.store),
                 vocab=_vocab_state(pr.vocab) if pr.ready else None,
                 bow={k: dict(v) for k, v in pr.bow.items()},
@@ -221,7 +284,7 @@ def run_jax(cfg, images):
                 rng=copy.deepcopy(lc._rng.bit_generator.state))
         closed = process(kid)
         if first and closed:
-            rec["kf"] = dict(state, after=interop.mapstore_state(jsys.store),
+            rec["kf"].update(after=interop.mapstore_state(jsys.store),
                              last_loop=dict(lc.last_loop))
         return closed
     jsys.mapper.on_keyframe_processed = process_keyframe
@@ -230,6 +293,8 @@ def run_jax(cfg, images):
 
     def pose_graph_solve(*args, **kwargs):
         res = solve(*args, **kwargs)
+        if threading.get_ident() != me:
+            return res
         rec.setdefault("pose_graph", dict(
             args=[np.array(a) for a in args], kwargs=dict(kwargs),
             sims=np.array(res.sims), cost=float(res.final_cost)))
@@ -242,8 +307,12 @@ def run_jax(cfg, images):
     finally:
         jpg.optimize_pose_graph = solve
         jtracking._pose_opt_fused = pose_opt
+        for r in (rec, rec.get("kf")):
+            if isinstance(r, Recording):
+                r.finish()
     return dict(rec=rec, states=[s.name for (_, _, _, s) in jsys.trajectory],
-                n_loops=lc.n_loops_closed, last_loop=lc.last_loop)
+                n_loops=lc.n_loops_closed, last_loop=lc.last_loop,
+                store=jsys.store)
 
 
 def run_port(cfg, images):
@@ -277,29 +346,75 @@ def run_port(cfg, images):
                 states=[s.name for (_, _, _, s) in port.trajectory])
 
 
+def port_stages(cfg, rec):
+    """The port's loop stages from the JAX run's states (``run_jax``'s
+    ``rec``), each as soon as the JAX run has recorded the state it
+    starts from: the free-scale ``_compute_sim3`` by LAPACK and by
+    Jacobi, ``_correct_loop``, the loop keyframe, the essential graph
+    (the port's solve and the JAX package's with 100 CG iterations) and
+    global BA.  Returns stage name -> its result or the error it
+    raised; the tests hold each result to its bars."""
+    stages = {}
+
+    def run(name, fn):
+        try:
+            with pytest.MonkeyPatch.context() as mp:
+                stages[name] = fn(mp)
+        except Exception as e:          # raised again by the stage's test
+            stages[name] = e
+    for eigvec in ("lapack", "jacobi"):
+        run(f"sim3_{eigvec}", lambda mp, e=eigvec: compute_sim3_from(
+            cfg, rec, e, mp))
+    run("correct_loop", lambda mp: correct_loop_from(cfg, rec, mp))
+    run("loop_keyframe", lambda mp: loop_keyframe_from(cfg, rec["kf"]))
+    run("essential_graph",
+        lambda mp: essential_graph_solves(rec["pose_graph"]))
+    run("global_ba", lambda mp: global_ba_from(cfg, rec["gba"]))
+    return stages
+
+
+def _stage(stages, name):
+    out = stages[name]
+    if isinstance(out, Exception):
+        raise out
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(frames):
-    """Both packages' runs over the frames, the port's on a second thread
-    while the JAX run holds this one.  They share no state, and the
-    overlap keeps the module's wall time down: alone on one xdist worker
-    the JAX run took 145 s and the port's 65 s one after the other, and
-    147 s together overlapped."""
-    port = {}
+    """Both packages' runs over the frames and the port's loop stages from
+    the JAX run's states.  The JAX run holds this thread; a second thread
+    runs the port's own run and then each stage as soon as the JAX run
+    has recorded the state it starts from (``port_stages``), while the
+    JAX run goes on through its own loop correction and last frames.
+    They share no state but the JAX run's record, and the overlap keeps
+    the module's wall time down: alone on one xdist worker the JAX run
+    took 145 s and the port's 65 s one after the other, and 147 s
+    together overlapped; the module took 211.3 s with the stages after
+    both runs, and 194.9-208.5 s so (pytest alone, an 8-core CPU)."""
+    rec, port = Recording(), {}
 
     def run():
         try:
             port["run"] = run_port(circuit_config(), frames[1])
         except BaseException as e:      # raised again on this thread
             port["error"] = e
+        port["stages"] = port_stages(circuit_config(), rec)
     thread = threading.Thread(target=run, name="port-run")
     thread.start()
     try:
-        jax = run_jax(circuit_config(), frames[1])
+        jax = run_jax(circuit_config(), frames[1], rec=rec)
     finally:
+        rec.finish()            # a failed run leaves no stage waiting
         thread.join()
     if "error" in port:
         raise port["error"]
-    return jax, port["run"]
+    return jax, port["run"], port["stages"]
+
+
+@pytest.fixture(scope="module")
+def stages(runs):
+    return runs[2]
 
 
 @pytest.fixture(scope="module")
@@ -330,8 +445,7 @@ def test_jax_run_closes_its_loop_at_frame_47(jax_run):
 
 
 @pytest.mark.parametrize("eigvec", ["lapack", "jacobi"])
-def test_compute_sim3_free_scale_from_one_state(jax_run, eigvec,
-                                                monkeypatch):
+def test_compute_sim3_free_scale_from_one_state(jax_run, stages, eigvec):
     """The port's _compute_sim3 with a free scale (the estimated config
     resolves ``fix_scale`` to False, loop_closing.py:99-101) on the JAX
     state that found the loop, Horn's eigenvector by LAPACK and by the
@@ -341,12 +455,13 @@ def test_compute_sim3_free_scale_from_one_state(jax_run, eigvec,
     within 1e-3 of the JAX run's (0.9765; measured 6.1e-6 apart)."""
     cfg = circuit_config()
     assert cfg.loop_fix_scale is None and not cfg.pose_prior
-    found = check_compute_sim3(cfg, jax_run["rec"], eigvec, monkeypatch)
+    found = check_sim3_found(_stage(stages, f"sim3_{eigvec}"),
+                             jax_run["rec"])
     s, sj = float(found[1][7]), float(jax_run["rec"]["sim3"]["found"][1][7])
     assert abs(s - sj) < 1e-3 and abs(sj - 1.0) > 1e-3, (s, sj)
 
 
-def test_correct_loop_scaled_from_one_state(jax_run, monkeypatch):
+def test_correct_loop_scaled_from_one_state(jax_run, stages):
     """The port's _correct_loop with s != 1 (the Sim3 carried through the
     connected keyframes, the ``[R/s | t/s^2]`` writeback of
     ``_se3_from_sim3`` kept for parity, loop fuse, the 7-DoF essential
@@ -359,10 +474,11 @@ def test_correct_loop_scaled_from_one_state(jax_run, monkeypatch):
     kid, loop_kf, Scw = jax_run["rec"]["args"][:3]
     assert (kid, loop_kf) == (LOOP_FRAME, LOOP_KF)
     assert abs(float(Scw[7]) - 1.0) > 1e-3
-    check_correct_loop(circuit_config(), jax_run["rec"], monkeypatch)
+    check_map_matches(_stage(stages, "correct_loop"),
+                      jax_run["rec"]["after"])
 
 
-def test_essential_graph_7dof_from_one_state(jax_run):
+def test_essential_graph_7dof_from_one_state(jax_run, stages):
     """The port's essential-graph solve of the JAX run's problem, scales
     free (7 DoF), against the JAX solve, with the height circuit's rule
     (``check_essential_graph``): the cost within 1e-5 relative,
@@ -372,10 +488,10 @@ def test_essential_graph_7dof_from_one_state(jax_run):
     pg = jax_run["rec"]["pose_graph"]
     sims = pg["args"][0]
     assert np.abs(sims[:, 7] - 1.0).max() > 1e-3     # scales to solve
-    check_essential_graph(pg)
+    check_essential_graph_solves(pg, *_stage(stages, "essential_graph"))
 
 
-def test_global_ba_from_one_state(jax_run):
+def test_global_ba_from_one_state(jax_run, stages):
     """The port's ``run_global_ba`` on the JAX store as the JAX run's
     first global BA met it (after the loop's correction and essential
     graph), on one device, as on a one-card host (the JAX run sharded
@@ -386,11 +502,17 @@ def test_global_ba_from_one_state(jax_run):
     bar).  Measured: keyframes 1.4e-5 apart, points 1.5e-5 at the 99th
     percentile, where the JAX solve itself moved the keyframes 1.2e-2
     and the points 3.2e-2."""
-    rec = jax_run["rec"]["gba"]
+    check_map_matches(_stage(stages, "global_ba"),
+                      jax_run["rec"]["gba"]["after"])
+
+
+def global_ba_from(cfg, rec):
+    """test_global_ba_from_one_state's run on ``run_jax``'s
+    ``rec["gba"]``, on one device; returns the store."""
     store = interop.mapstore_from_numpy(**rec["before"], device="cpu")
-    lc = LoopCloser(circuit_config(), store, place_rec=PlaceRecognition(store))
+    lc = LoopCloser(cfg, store, place_rec=PlaceRecognition(store))
     lc.run_global_ba(loop_kf_id=rec["loop_kf_id"], iters=rec["iters"])
-    check_map_matches(store, rec["after"])
+    return store
 
 
 def _place_recognition(store, state):
@@ -404,7 +526,7 @@ def _place_recognition(store, state):
     return pr
 
 
-def test_loop_keyframe_from_one_state(jax_run):
+def test_loop_keyframe_from_one_state(jax_run, stages):
     """The port's ``LoopCloser.process_keyframe(47)`` on the JAX state as
     the JAX loop closer met keyframe 47: the store, the vocabulary and
     keyframe database, ``consistent_groups``, ``last_loop_kf_id`` and the
@@ -414,20 +536,35 @@ def test_loop_keyframe_from_one_state(jax_run):
     run's, and the map after it within ``check_correct_loop``'s bar
     (measured: 190 matched in both, the scales 6.1e-6 apart, keyframes
     1.7e-5 and points 2.0e-5 at the 99th percentile)."""
-    rec = jax_run["rec"]["kf"]
+    got = check_loop_keyframe_result(jax_run["rec"]["kf"],
+                                     _stage(stages, "loop_keyframe"))
+    assert (got["kid"], got["loop_kf"]) == (LOOP_FRAME, LOOP_KF)
+
+
+def loop_keyframe_from(cfg, rec):
+    """test_loop_keyframe_from_one_state's run on ``run_jax``'s
+    ``rec["kf"]``: returns whether the port's loop closer closed a loop,
+    its ``last_loop`` and the store."""
     store = interop.mapstore_from_numpy(**rec["store"], device="cpu")
-    lc = LoopCloser(circuit_config(), store,
-                    place_rec=_place_recognition(store, rec))
+    lc = LoopCloser(cfg, store, place_rec=_place_recognition(store, rec))
     lc.consistent_groups = copy.deepcopy(rec["consistent_groups"])
     lc.last_loop_kf_id = rec["last_loop_kf_id"]
     lc._rng.bit_generator.state = copy.deepcopy(rec["rng"])
-    assert lc.process_keyframe(rec["kid"])
-    got, ref = lc.last_loop, rec["last_loop"]
-    assert (got["kid"], got["loop_kf"]) == (ref["kid"], ref["loop_kf"]) \
-        == (LOOP_FRAME, LOOP_KF)
+    closed = lc.process_keyframe(rec["kid"])
+    return closed, dict(lc.last_loop or {}), store
+
+
+def check_loop_keyframe_result(rec, result):
+    """test_loop_keyframe_from_one_state's bars on ``loop_keyframe_from``;
+    returns the port's ``last_loop``."""
+    closed, got, store = result
+    assert closed
+    ref = rec["last_loop"]
+    assert (got["kid"], got["loop_kf"]) == (ref["kid"], ref["loop_kf"])
     assert abs(got["n_matched"] - ref["n_matched"]) <= 0.02 * ref["n_matched"]
     assert abs(got["scale"] - ref["scale"]) < 1e-3, (got, ref)
     check_map_matches(store, rec["after"])
+    return got
 
 
 def test_bootstrap_from_one_state(jax_run):

@@ -112,13 +112,24 @@ def check_essential_graph(pg):
     solve's (relative), its rotations within 1e-3, its translations and
     scales within 2x the JAX solve's own move when its CG takes 100
     iterations."""
+    check_essential_graph_solves(pg, *essential_graph_solves(pg))
+
+
+def essential_graph_solves(pg):
+    """check_essential_graph's solves: the port's of the recorded problem,
+    and the JAX package's with 100 CG iterations (its sims as numpy)."""
     args, kw = pg["args"], pg["kwargs"]
     rj_cg = jpg.optimize_pose_graph(*[jnp.asarray(a) for a in args],
                                     **dict(kw, cg_iters=100))
     rt = tpg.optimize_pose_graph(*[torch.from_numpy(a) for a in args], **kw)
+    return rt, np.asarray(rj_cg.sims)
+
+
+def check_essential_graph_solves(pg, rt, sims_cg):
+    """check_essential_graph's bars on ``essential_graph_solves``."""
     assert abs(float(rt.final_cost) - pg["cost"]) <= 1e-5 * pg["cost"]
     dt, dr = _gaps(rt.sims, pg["sims"])
-    own, _ = _gaps(rj_cg.sims, pg["sims"])
+    own, _ = _gaps(sims_cg, pg["sims"])
     assert dr < 1e-3 and dt <= 2 * own, (dt, dr, own)
 
 
